@@ -1,0 +1,145 @@
+"""The PyTorch port's command line, stage 01 (hast_tpu/cli.py:120-260).
+
+  classify          the reference `classify` binary (phased.barcodes)
+  classify-reads    classify_stlfr_reads.sh: classify, barcode splits and
+                    fastq quartering behind step_9/10/11 checkpoints
+
+Both take the JAX package's flags plus --device (default cuda).  A CUDA
+device that is not there is an error; the run never moves to the CPU on
+its own.
+
+Usage: python -m hast_tpu_torch <subcommand> --help
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+
+def _split_paths(values):
+    """Flatten quoted whitespace-separated file lists (HAST.sh:23-37)."""
+    out = []
+    for v in values or []:
+        out.extend(v.split())
+    return out
+
+
+def _device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        sys.exit(f"ERROR: --device {name}: no CUDA device is available "
+                 "(pass --device cpu to run the plain PyTorch twins)")
+    return dev
+
+
+def _adaptor_kw(a) -> dict:
+    kw = {}
+    if a.adaptor_f is not None:
+        kw["adaptor_f"] = a.adaptor_f
+    if a.adaptor_r is not None:
+        kw["adaptor_r"] = a.adaptor_r
+    return kw
+
+
+def _common(p) -> None:
+    p.add_argument("--adaptor_f", default=None)
+    p.add_argument("--adaptor_r", default=None)
+    p.add_argument("--batch-size", type=int, default=1 << 15)
+    p.add_argument("--thread", type=int, default=None,
+                   help="accepted for reference compatibility (unused)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the marker table and the kernels "
+                        "(default cuda; cpu runs the plain twins)")
+
+
+def _add_classify(sub):
+    p = sub.add_parser("classify", help="stage 01: classify stLFR reads")
+    p.add_argument("--hap0", required=True)
+    p.add_argument("--hap1", required=True)
+    p.add_argument("--read", action="append", required=True)
+    p.add_argument("--weight0", type=float, default=1.0)
+    p.add_argument("--weight1", type=float, default=1.0)
+    p.add_argument("--output", default="-")
+    _common(p)
+
+    def run(a):
+        from hast_tpu_torch.pipeline import classify as C
+        device = _device(a.device)
+        out = sys.stdout.buffer if a.output == "-" else open(a.output, "wb")
+        try:
+            C.run_classify(a.hap0, a.hap1, _split_paths(a.read), out,
+                           w0=a.weight0, w1=a.weight1,
+                           batch_size=a.batch_size, device=device,
+                           **_adaptor_kw(a))
+        finally:
+            if out is not sys.stdout.buffer:
+                out.close()
+    p.set_defaults(func=run)
+
+
+def _add_classify_reads(sub):
+    p = sub.add_parser("classify-reads",
+                       help="stage 01 driver: classify + split + quartering")
+    p.add_argument("--paternal_mer", required=True)
+    p.add_argument("--maternal_mer", required=True)
+    p.add_argument("--filial", action="append", required=True)
+    p.add_argument("--workdir", default=".")
+    p.add_argument("--format", choices=("fasta", "fastq"), default="fastq",
+                   help="accepted for reference compatibility")
+    _common(p)
+
+    def run(a):
+        from hast_tpu.utils.checkpoint import step
+        from hast_tpu_torch.pipeline import classify as C
+        from hast_tpu_torch.pipeline import partition as P
+        device = _device(a.device)
+        wd = a.workdir
+        filial = _split_paths(a.filial)
+        phased = os.path.join(wd, "phased.barcodes")
+        with step("9", wd) as todo:
+            if todo:
+                # driver parity: weight0=1.04 (classify_stlfr_reads.sh:148)
+                with open(phased, "wb") as out:
+                    C.run_classify(a.paternal_mer, a.maternal_mer, filial,
+                                   out, w0=1.04, batch_size=a.batch_size,
+                                   device=device, **_adaptor_kw(a))
+        with step("10", wd) as todo:
+            if todo:
+                paths = P.split_barcodes(phased, out_prefix=wd + os.sep)
+                for hap, name in (("0", "paternal"), ("1", "maternal"),
+                                  ("-1", "homozygous")):
+                    with open(paths[hap], "rb") as f:
+                        print(f"final {name} barcodes : "
+                              f"{sum(1 for _ in f)}")
+        with step("11", wd) as todo:
+            if todo:
+                cwd = os.getcwd()
+                os.chdir(wd)
+                try:
+                    for x in filial:
+                        x = x if os.path.isabs(x) else os.path.join(cwd, x)
+                        P.quarter_fastq(x, "paternal.unique.barcodes",
+                                        "maternal.unique.barcodes",
+                                        "homozygous.unique.barcodes")
+                finally:
+                    os.chdir(cwd)
+    p.set_defaults(func=run)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="hast_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    _add_classify(sub)
+    _add_classify_reads(sub)
+    args = parser.parse_args(argv)
+    args.func(args)
+
+
+if __name__ == "__main__":
+    main()

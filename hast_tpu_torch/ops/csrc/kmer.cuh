@@ -1,0 +1,42 @@
+// Canonical k-mer windows over 2-bit packed reads (device functions).
+//
+// Replaces hast_tpu/ops/encode.py `canonical_kmers` + `window_valid` and
+// the 4-bases-per-byte unpack of hast_tpu/pipeline/classify.py
+// `tally_step`.  A read row holds 4 bases per byte, base i at bits
+// 2*(i & 3) of byte i >> 2 (the native reader's packing).  Codes are
+// A=0 C=1 T=2 G=3 and the complement is code ^ 2, so for k <= 31 the
+// forward word, its reverse complement and their minimum (the canonical
+// key) all fit below 2^62 in one uint64 -- the (hi, lo) uint32 pair of
+// the JAX package is (key >> 32, key & 0xFFFFFFFF).
+//
+// What bounds it on an H100: nothing here touches device memory except
+// the k bytes of the row (L1-resident: a 100-bp read is 28 bytes), so
+// the window is a few dozen integer ops; the probe that follows is what
+// costs.  The design therefore recomputes each window from the packed
+// bytes instead of materialising codes or a rolling state, which keeps
+// one thread per window with no shared memory and no ordering.
+#pragma once
+
+#include <cstdint>
+
+namespace hast {
+
+constexpr int kMaxK = 31;
+
+__device__ __forceinline__ uint32_t base_at(const uint8_t* row, int i) {
+  return (static_cast<uint32_t>(row[i >> 2]) >> ((i & 3) * 2)) & 3u;
+}
+
+// min(forward, reverse complement) of the k bases starting at p.
+__device__ __forceinline__ uint64_t canonical_window(const uint8_t* row,
+                                                     int p, int k) {
+  uint64_t fwd = 0, rc = 0;
+  for (int j = 0; j < k; ++j) {
+    const uint64_t c = base_at(row, p + j);
+    fwd = (fwd << 2) | c;             // base j lands at bit 2*(k-1-j)
+    rc |= (c ^ 2ull) << (2 * j);      // its complement at bit 2*j
+  }
+  return fwd < rc ? fwd : rc;
+}
+
+}  // namespace hast

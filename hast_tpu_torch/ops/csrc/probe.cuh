@@ -1,0 +1,143 @@
+// Two-bucket membership probe of the marker table (device functions).
+//
+// Replaces hast_tpu/ops/hashtable.py `probe_quot` ("quot" format, 4-byte
+// slots) and `probe` ("full" format, 8-byte slots).  Every hash, the
+// Feistel permutation and the quotient split are the uint32 arithmetic
+// of the numpy twins in that file, step for step; a slip here makes every
+// probe miss silently, so the bit-exact twin checks are the guard.
+//
+// Table: (n_buckets, 4) uint32 rows, 16 bytes each, stored in an int32
+// tensor.  Rows are read as one `uint4` (the tensor is 256-byte aligned,
+// so every row is 16-byte aligned); the words are used as uint32, never
+// sign-extended.
+//
+// What bounds it on an H100: two random 16-byte row reads per key, one
+// per bucket choice, with no reuse between neighbouring keys.  A 16 MB
+// bench-scale table sits in the 50 MB L2; a human-scale one (4.29 GB)
+// goes to HBM for every row.  The design issues both row loads before
+// it looks at either, so the two misses of a key overlap, and keeps
+// nothing else in memory.
+#pragma once
+
+#include <cstdint>
+
+namespace hast {
+
+constexpr uint32_t kM1 = 0x85EBCA6Bu;
+constexpr uint32_t kM2 = 0xC2B2AE35u;
+constexpr uint32_t kGold = 0x9E3779B9u;
+constexpr uint32_t kGold2 = 0xC2B2AE3Du;
+constexpr uint32_t kHiMask = (1u << 30) - 1u;
+constexpr uint32_t kQMask = (1u << 29) - 1u;
+
+enum TableFormat : int { kQuot = 0, kFull = 1 };
+
+// murmur3 fmix32 (hashtable.py `_mix`)
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= kM1;
+  h ^= h >> 13;
+  h *= kM2;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t low_mask(int bits) {
+  return bits >= 32 ? 0xFFFFFFFFu : ((1u << bits) - 1u);
+}
+
+// hashtable.py `kmer_hash` / `kmer_hash2`
+__device__ __forceinline__ uint32_t kmer_hash(uint32_t hi, uint32_t lo) {
+  return mix32(lo + hi * kGold);
+}
+
+__device__ __forceinline__ uint32_t kmer_hash2(uint32_t hi, uint32_t lo) {
+  return mix32(((lo ^ kGold2) + hi * kM2) ^ 0x5BD1E995u);
+}
+
+// hashtable.py `_feistel_halves`: 4-round Feistel over two k-bit halves.
+__device__ __forceinline__ void feistel(uint32_t hi, uint32_t lo, int k,
+                                        uint32_t& a, uint32_t& b) {
+  const uint32_t kmask = (1u << k) - 1u;  // k <= 31
+  a = ((hi << (32 - k)) | (lo >> k)) & kmask;
+  b = lo & kmask;
+  a ^= mix32(b * kM1 + 0x9E3779B9u) & kmask;
+  b ^= mix32(a * kM1 + 0x85EBCA6Bu) & kmask;
+  a ^= mix32(b * kM1 + 0xC2B2AE35u) & kmask;
+  b ^= mix32(a * kM1 + 0x27D4EB2Fu) & kmask;
+}
+
+// hashtable.py `_quot_bucket_q`: home bucket b1 and quotient q.
+__device__ __forceinline__ void quot_bucket_q(uint32_t hi, uint32_t lo,
+                                              int k, int bbits,
+                                              uint32_t& b1, uint32_t& q) {
+  uint32_t a, b;
+  feistel(hi, lo, k, a, b);
+  if (bbits <= k) {
+    b1 = b & low_mask(bbits);
+    q = bbits == k ? a : ((b >> bbits) | (a << (k - bbits)));
+  } else {
+    b1 = (b | (a << k)) & low_mask(bbits);
+    q = a >> (bbits - k);
+  }
+}
+
+// hashtable.py `_quot_alt`: b1 ^ (fmix32(q * GOLD) | 1), masked.
+__device__ __forceinline__ uint32_t quot_alt(uint32_t b1, uint32_t q,
+                                             int bbits) {
+  return b1 ^ ((mix32(q * kGold) | 1u) & low_mask(bbits));
+}
+
+__device__ __forceinline__ uint32_t quot_slot(uint32_t w, uint32_t q,
+                                              uint32_t rnd) {
+  return ((w & kQMask) == q && ((w >> 29) & 1u) == rnd) ? (w >> 30) : 0u;
+}
+
+__device__ __forceinline__ uint32_t full_slot(uint32_t shi, uint32_t slo,
+                                              uint32_t hi, uint32_t lo) {
+  return ((shi & kHiMask) == hi && slo == lo) ? (shi >> 30) : 0u;
+}
+
+__device__ __forceinline__ uint32_t max4(uint32_t a, uint32_t b, uint32_t c,
+                                         uint32_t d) {
+  return max(max(a, b), max(c, d));
+}
+
+struct Table {
+  const uint4* rows;
+  uint32_t n_buckets;
+  int bbits;      // log2(n_buckets)
+  int fmt;        // TableFormat
+  int k;
+  int max_probe;  // hash choices of the full format (2)
+};
+
+// Payload (0..3) of one canonical key: OR over the two bucket choices of
+// the max over the row's matching slots, as the JAX probes compute it.
+__device__ __forceinline__ int probe_key(const Table& t, uint64_t key) {
+  const uint32_t hi = static_cast<uint32_t>(key >> 32);
+  const uint32_t lo = static_cast<uint32_t>(key);
+  if (t.fmt == kQuot) {
+    uint32_t b1, q;
+    quot_bucket_q(hi, lo, t.k, t.bbits, b1, q);
+    const uint32_t b2 = quot_alt(b1, q, t.bbits);
+    const uint4 r1 = __ldg(t.rows + b1);
+    const uint4 r2 = __ldg(t.rows + b2);
+    const uint32_t p1 = max4(quot_slot(r1.x, q, 0), quot_slot(r1.y, q, 0),
+                             quot_slot(r1.z, q, 0), quot_slot(r1.w, q, 0));
+    const uint32_t p2 = max4(quot_slot(r2.x, q, 1), quot_slot(r2.y, q, 1),
+                             quot_slot(r2.z, q, 1), quot_slot(r2.w, q, 1));
+    return static_cast<int>(p1 | p2);
+  }
+  const uint32_t mask = t.n_buckets - 1u;
+  uint32_t res = 0;
+  for (int rnd = 0; rnd < t.max_probe; ++rnd) {
+    const uint32_t b = (rnd == 0 ? kmer_hash(hi, lo) : kmer_hash2(hi, lo)) &
+                       mask;
+    const uint4 r = __ldg(t.rows + b);
+    res |= max(full_slot(r.x, r.y, hi, lo), full_slot(r.z, r.w, hi, lo));
+  }
+  return static_cast<int>(res);
+}
+
+}  // namespace hast

@@ -1,0 +1,405 @@
+"""Stage 01 read classification (port of hast_tpu/pipeline/classify.py).
+
+Reads stream from the native reader as 2-bit packed batches.  Each batch
+is one launch of K3 :func:`tally_step` (``csrc/classify.cu``): canonical
+windows, the two-bucket probe of the combined marker table (payload
+bit 0 = hap0/paternal, bit 1 = hap1/maternal), per-read votes and a
+scatter-add into a device-resident int32 (cap, 3) tally.  The tally
+comes to the host once per file; the host merges files by barcode name,
+takes the float64 getHap decision and writes ``phased.barcodes``.
+
+Parity with the reference classify binary (classify.cpp) is the JAX
+package's: votes count k-mer positions per haplotype set (a position can
+hit both), N-containing reads go to the unknown bucket before voting,
+adaptor k-mers are erased from the sets and shrink the set sizes, and
+output rows are sorted bytewise by barcode.  Reads shorter than k vote
+(0, 0, 1) where the reference asserts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from hast_tpu.io import fastq as FQ
+from hast_tpu.io import native as N
+from hast_tpu_torch.ops import _build
+from hast_tpu_torch.ops import encode as E
+from hast_tpu_torch.ops import hashtable as H
+
+ADAPTOR_F = "CTGTCTCTTATACACATCTTAGGAAGACAAGCACTGACGACATGA"
+ADAPTOR_R = "TCTGCTGAGTCGAGAACGTCTCTGTGAGCCAAGGAGTTGCTCTGG"
+NULL_BARCODES = (b"0_0_0", b"0_0", b"0")
+LOAD = 0.7               # table load factor, part of the snapshot key
+SNAPSHOT_VERSION = 5.0   # shared with the JAX package's .probetable.npz
+
+
+def _log(msg: str) -> None:
+    print(msg, file=sys.stderr)
+
+
+# ---------------------------------------------------------------------------
+# marker table
+# ---------------------------------------------------------------------------
+
+
+def load_marker_table(hap0_path: str, hap1_path: str) -> H.KmerTable:
+    """Two one-kmer-per-line marker files -> one combined host table.
+
+    k comes from hap0's first line; set sizes are the distinct canonical
+    k-mers per haplotype.  The table is cached beside hap0 as
+    ``<hap0>.probetable.npz`` in the JAX package's format and under its
+    key (both files' size and whole-second mtime, the load factor, the
+    format version), so either package reuses the other's snapshot.
+    """
+    cache_path = hap0_path + ".probetable.npz"
+    key = tuple(
+        float(x) for p in (hap0_path, hap1_path)
+        for x in (os.path.getsize(p), int(os.path.getmtime(p)))
+    ) + (LOAD, SNAPSHOT_VERSION)
+    if os.path.exists(cache_path):
+        try:
+            with np.load(cache_path, allow_pickle=False) as z:
+                if tuple(z["key"].tolist()) == key:
+                    table = H.from_reference(
+                        z["data"], int(z["n_buckets"]), int(z["max_probe"]),
+                        int(z["k"]), int(z["n_keys"]), z["set_sizes"],
+                        str(z["fmt"]) if "fmt" in z else "full")
+                    for h, n in enumerate(z["line_counts"].tolist()):
+                        _log(f"Recorded {n} haplotype {h} specific "
+                             f"{table.k}-mers")
+                    return table
+        except (OSError, KeyError, ValueError) as e:
+            _log(f"[hast_tpu_torch] NOTE: snapshot {cache_path} unreadable, "
+                 f"rebuilding: {e}")
+    h0_hi, h0_lo, k = E.load_mer_file(hap0_path)
+    h1_hi, h1_lo, _ = E.load_mer_file(hap1_path, k_expect=k)
+    n0 = np.unique((h0_hi.astype(np.uint64) << np.uint64(32))
+                   | h0_lo.astype(np.uint64)).size
+    n1 = np.unique((h1_hi.astype(np.uint64) << np.uint64(32))
+                   | h1_lo.astype(np.uint64)).size
+    table = H.build_table(
+        np.concatenate([h0_hi, h1_hi]), np.concatenate([h0_lo, h1_lo]),
+        np.concatenate([np.ones(h0_hi.size, np.uint32),
+                        np.full(h1_hi.size, 2, np.uint32)]),
+        k, load=LOAD, set_sizes=(n0, n1))
+    _log(f"Recorded {h0_hi.size} haplotype 0 specific {k}-mers")
+    _log(f"Recorded {h1_hi.size} haplotype 1 specific {k}-mers")
+    try:
+        np.savez(cache_path, data=table.data_np(),
+                 n_buckets=table.n_buckets, max_probe=table.max_probe,
+                 k=table.k, n_keys=table.n_keys,
+                 set_sizes=np.asarray(table.set_sizes),
+                 line_counts=np.asarray([h0_hi.size, h1_hi.size]),
+                 key=np.asarray(key), fmt=table.fmt)
+    except OSError as e:
+        _log(f"[hast_tpu_torch] NOTE: snapshot {cache_path} not written: {e}")
+    return table
+
+
+def erase_adaptors(table: H.KmerTable, adaptor_f: str = ADAPTOR_F,
+                   adaptor_r: str = ADAPTOR_R) -> None:
+    """Erase adaptor k-mers from both marker sets (InitAdaptor parity)."""
+    _log(f"Adaptor forward :{adaptor_f}")
+    _log(f"Adaptor reverse :{adaptor_r}")
+    k = table.k
+    for adaptor in (adaptor_f, adaptor_r):
+        if len(adaptor) < k:
+            continue
+        codes = E.encode_np(np.frombuffer(adaptor.encode(), np.uint8))
+        hi, lo = E.canonical_kmers_np(codes[None, :], k)
+        for chi, clo, bits in H.remove_keys(table, hi[0], lo[0],
+                                            payload_mask=3):
+            for hap in (0, 1):
+                if bits & (1 << hap):
+                    _log(" INFO : erase a adaptor kmer from hap "
+                         f"{hap} ; kmer= {E.kmer_to_str(chi, clo, k)}")
+
+
+# ---------------------------------------------------------------------------
+# K3: votes + tally of one packed batch
+# ---------------------------------------------------------------------------
+
+
+def tally_step_ref(table: H.KmerTable, acc: torch.Tensor,
+                   packed: torch.Tensor, lengths: torch.Tensor,
+                   ids: torch.Tensor, has_n: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`tally_step` (updates acc in place)."""
+    _build.TWIN_CALLS["tally_step_ref"] += 1
+    keys, valid = E.canonical_windows_ref(packed, lengths, table.k)
+    pay = torch.where(valid, H.probe_ref(table, keys), 0)
+    hn = has_n.to(torch.bool)
+    v0 = torch.where(hn, 0, (pay & 1).sum(dim=-1))
+    v1 = torch.where(hn, 0, ((pay >> 1) & 1).sum(dim=-1))
+    unk = (hn | ((v0 == 0) & (v1 == 0))).to(v0.dtype)
+    upd = torch.stack([v0, v1, unk], dim=-1).to(torch.int32)
+    keep = (ids >= 0) & (ids < acc.shape[0])
+    acc.index_add_(0, ids[keep].to(torch.int64), upd[keep])
+    return acc
+
+
+def tally_step(table: H.KmerTable, acc: torch.Tensor, packed: torch.Tensor,
+               lengths: torch.Tensor, ids: torch.Tensor,
+               has_n: torch.Tensor) -> torch.Tensor:
+    """Vote a packed batch and add (v0, v1, unknown) into acc[id] (K3).
+
+    acc: (cap, 3) int32, updated in place and returned.  packed: (N, Lp)
+    uint8; lengths and ids: (N,) int32; has_n: (N,) bool or uint8.  Rows
+    whose id lies outside [0, cap) are dropped.  CPU tensors take the
+    twin; CUDA tensors launch the kernel.
+    """
+    H.check_table(table)
+    E.check_packed(packed, lengths)
+    n = packed.shape[0]
+    if acc.dtype != torch.int32 or acc.dim() != 2 or acc.shape[1] != 3:
+        raise ValueError(f"acc must be (cap, 3) int32, got "
+                         f"{tuple(acc.shape)} {acc.dtype}")
+    if ids.dtype != torch.int32 or tuple(ids.shape) != (n,):
+        raise ValueError(f"ids must be ({n},) int32")
+    if has_n.dtype not in (torch.bool, torch.uint8) or \
+            tuple(has_n.shape) != (n,):
+        raise ValueError(f"has_n must be ({n},) bool or uint8")
+    if packed.device.type == "cpu":
+        return tally_step_ref(table, acc, packed, lengths, ids, has_n)
+    _build.require_cuda("tally_step", table.data, acc, packed, lengths, ids,
+                        has_n)
+    if n == 0:
+        return acc
+    lib = _build.load_library()
+    rc = lib.hast_classify_tally(
+        *H.kernel_table_args(table), packed.data_ptr(), lengths.data_ptr(),
+        ids.data_ptr(), has_n.data_ptr(), n, packed.shape[1],
+        acc.data_ptr(), acc.shape[0], _build.stream_of(acc))
+    _build.check(rc, "classify_tally")
+    _build.LAUNCHES["classify_tally"] += 1
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# per-barcode tally and decision
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BarcodeTally:
+    """barcode -> (count_hap0, count_hap1, count_unknown).
+
+    The native engine folds per-file count tables keyed by S-dtype name
+    arrays (merge_names); the python engine numbers barcodes through the
+    host dict (ids) and adds one count table at the end (add_counts).
+    finalize() reconciles both into one (names, counts) pair.
+    """
+
+    index: dict[bytes, int] = dataclasses.field(default_factory=dict)
+    counts: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((1024, 3), np.int64))
+    _pending: list = dataclasses.field(default_factory=list)
+
+    def ids(self, barcodes: list[bytes]) -> np.ndarray:
+        """Dense ids, numbering new barcodes in order of first sight."""
+        idx = self.index
+        out = np.empty(len(barcodes), np.int32)
+        for i, bc in enumerate(barcodes):
+            v = idx.get(bc)
+            if v is None:
+                v = idx[bc] = len(idx)
+            out[i] = v
+        return out
+
+    def add_counts(self, counts: np.ndarray) -> None:
+        """Add an (n, 3) table indexed by the ids of :meth:`ids`."""
+        n = len(self.index)
+        if n > self.counts.shape[0]:
+            self.counts = np.vstack([self.counts, np.zeros(
+                (n - self.counts.shape[0], 3), np.int64)])
+        self.counts[:n] += counts[:n]
+
+    def merge_names(self, names: np.ndarray, counts: np.ndarray) -> None:
+        """Queue a (n,) S-dtype name array + (n, 3) count table."""
+        if names.size:
+            self._pending.append((names, counts))
+
+    def finalize(self) -> tuple[np.ndarray, np.ndarray]:
+        """Deduplicated (names S-array, (n, 3) int64 counts), unsorted."""
+        parts = list(self._pending)
+        if self.index:
+            names = np.array(list(self.index.keys()), dtype=bytes)
+            parts.append((names, self.counts[:names.size]))
+        if not parts:
+            return np.empty(0, "S1"), np.zeros((0, 3), np.int64)
+        if len(parts) == 1:
+            return parts[0]
+        width = max(p[0].dtype.itemsize for p in parts)
+        all_names = np.concatenate([p[0].astype(f"S{width}") for p in parts])
+        all_counts = np.concatenate([p[1] for p in parts]).astype(np.int64)
+        order = N.argsort_fixed(all_names)
+        if order is None:
+            order = np.argsort(all_names, kind="stable")
+        s = all_names[order]
+        new = np.empty(s.size, bool)
+        new[0] = True
+        new[1:] = s[1:] != s[:-1]
+        uniq = s[new]
+        counts = np.add.reduceat(all_counts[order], np.flatnonzero(new),
+                                 axis=0)
+        self._pending = [(uniq, counts)]
+        self.index = {}
+        self.counts = np.zeros((1024, 3), np.int64)
+        return uniq, counts
+
+
+def decide_haps(bcs_s: np.ndarray, c0: np.ndarray, c1: np.ndarray,
+                size0: int, size1: int, w0: float = 1.0,
+                w1: float = 1.0) -> np.ndarray:
+    """Vectorized getHap (classify.cpp:66-86), the same double math."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        df0 = (c0.astype(np.float64) / float(size0)) * w0
+        df1 = (c1.astype(np.float64) / float(size1)) * w1
+    hap = np.full(bcs_s.shape, -1, np.int64)
+    both = (c0 > 0) & (c1 > 0)
+    hap[both & (df0 > df1)] = 0
+    hap[both & (df1 > df0)] = 1
+    hap[(c0 > 0) & (c1 <= 0)] = 0
+    hap[(c1 > 0) & (c0 <= 0)] = 1
+    null = np.zeros(bcs_s.shape, bool)
+    for nb in NULL_BARCODES:
+        null |= bcs_s == nb
+    hap[null] = -1
+    return hap
+
+
+def write_phased_barcodes(tally: BarcodeTally, table: H.KmerTable, out,
+                          w0: float = 1.0, w1: float = 1.0) -> None:
+    """Write "barcode\\thap\\tcount0\\tcount1" rows sorted bytewise."""
+    size0, size1 = table.set_sizes
+    bcs, counts = tally.finalize()
+    if bcs.size == 0:
+        return
+    order = N.argsort_fixed(bcs)
+    buf = None
+    if order is not None:
+        buf = N.decide_format_phased(
+            bcs, order, np.ascontiguousarray(counts[:, 0]),
+            np.ascontiguousarray(counts[:, 1]), size0, size1, w0, w1)
+    if buf is None:  # libhastio absent: the numpy decision, same bytes
+        if order is None:
+            order = np.argsort(bcs, kind="stable")
+        bcs = bcs[order]
+        c0 = counts[order, 0]
+        c1 = counts[order, 1]
+        hap = decide_haps(bcs, c0, c1, size0, size1, w0, w1)
+        buf = b"".join(b"%s\t%d\t%d\t%d\n" % t for t in
+                       zip(bcs.tolist(), hap.tolist(), c0.tolist(),
+                           c1.tolist()))
+    out.write(buf)
+
+
+# ---------------------------------------------------------------------------
+# streaming drivers
+# ---------------------------------------------------------------------------
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _grown(acc: torch.Tensor, max_id: int) -> torch.Tensor:
+    """acc doubled until it has a row for max_id."""
+    while max_id >= acc.shape[0]:
+        acc = torch.cat([acc, torch.zeros_like(acc)])
+    return acc
+
+
+def classify_fastqs(table: H.KmerTable, paths: Iterable[str],
+                    batch_size: int = 1 << 15,
+                    engine: str = "auto") -> BarcodeTally:
+    """Stream fastq files through K3 into a barcode tally.
+
+    The device is the table's.  engine "native" reads with libhastio
+    (decode, 2-bit pack and barcode ids off the GIL), "python" with the
+    pure-Python reader and the host barcode dict, "auto" native when the
+    library builds.  Both feed the same kernel and give the same output.
+    """
+    tally = BarcodeTally()
+    if engine == "auto":
+        engine = "native" if N.get_lib() is not None else "python"
+    if engine == "native" and N.get_lib() is None:
+        raise RuntimeError("libhastio.so unavailable")
+    device = table.data.device
+    _log(f"[hast_tpu_torch] classify engine: {engine} reader on {device}")
+    if engine == "native":
+        for path in paths:
+            _classify_native(table, path, batch_size, tally, device)
+        return tally
+    acc = torch.zeros((1 << 12, 3), dtype=torch.int32, device=device)
+    for path in paths:
+        _log(f"__process read: {path}")
+        for b in FQ.fastq_batches(path, batch_size):
+            ids = tally.ids(b.barcodes)
+            acc = _grown(acc, len(tally.index) - 1)
+            n = b.n
+            packed = E.pack_codes_np(b.seqs[:n])
+            tally_step(table, acc, _tensor(packed, device),
+                       _tensor(b.lengths[:n], device), _tensor(ids, device),
+                       _tensor(b.has_n[:n], device))
+        _log("__process read done__")
+    tally.add_counts(acc.cpu().numpy().astype(np.int64))
+    return tally
+
+
+def _classify_native(table, path, batch_size, tally, device) -> None:
+    """One file through the native reader into a fresh device tally."""
+    _log(f"__process read: {path}")
+    reader = N.NativeFastqReader(path, batch_size, len_cap=1024, packed=True)
+    try:
+        acc = torch.zeros((1 << 20, 3), dtype=torch.int32, device=device)
+        for b in reader:
+            n = b.n
+            ids = b.barcode_ids[:n]
+            acc = _grown(acc, int(ids.max(initial=-1)))
+            tally_step(table, acc, _tensor(b.seqs[:n], device),
+                       _tensor(b.lengths[:n], device), _tensor(ids, device),
+                       _tensor(b.has_n[:n], device))
+        local = acc.cpu().numpy().astype(np.int64)
+        names = reader.barcodes_array()
+    finally:
+        reader.close()
+    tally.merge_names(names, local[:names.size])
+    _log("__process read done__")
+
+
+def run_classify(hap0: str, hap1: str, reads: list[str], out,
+                 w0: float = 1.0, w1: float = 1.0,
+                 adaptor_f: str = ADAPTOR_F, adaptor_r: str = ADAPTOR_R,
+                 batch_size: int = FQ.DEFAULT_BATCH, device="cuda",
+                 engine: str = "auto",
+                 timings: dict | None = None) -> BarcodeTally:
+    """Full stage-01 classify (the reference binary's main()).
+
+    timings, when given, receives each phase's wall seconds
+    (load_markers, classify, decide_write); the classify phase ends with
+    the tally on the host, so it includes all device work.
+    """
+    timings = {} if timings is None else timings
+    _log("__START__")
+    _log(f" use hap0 weight {w0:g}")
+    _log(f" use hap1 weight {w1:g}")
+    t0 = time.perf_counter()
+    table = load_marker_table(hap0, hap1)
+    erase_adaptors(table, adaptor_f, adaptor_r)
+    table = table.to(device)
+    t1 = time.perf_counter()
+    tally = classify_fastqs(table, reads, batch_size, engine=engine)
+    t2 = time.perf_counter()
+    _log("__print result__")
+    write_phased_barcodes(tally, table, out, w0, w1)
+    _log("__END__")
+    timings.update(load_markers=t1 - t0, classify=t2 - t1,
+                   decide_write=time.perf_counter() - t2)
+    return tally

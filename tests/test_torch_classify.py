@@ -1,0 +1,270 @@
+"""hast_tpu_torch.pipeline against hast_tpu.pipeline and the stage-01 goldens.
+
+K3's twin (tally_step_ref, what the wrapper runs on CPU tensors) against
+the JAX tally_step on one packed super-batch; the whole slice on the CPU
+against every golden of tests/test_stage01_parity.py, byte for byte, with
+both read engines; the snapshot shared by both packages; the slice on
+seeded synthetic inputs against hast_tpu's run_classify.  Integers only,
+so the tolerance is exact equality.  Inputs are copied to tmp_path
+first: a marker load writes its .probetable.npz beside hap0.
+"""
+
+import io
+import pathlib
+import shutil
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from hast_tpu.io import native as N
+from hast_tpu_torch.ops import _build
+from hast_tpu_torch.ops import encode as E
+from hast_tpu_torch.ops import hashtable as H
+from hast_tpu_torch.pipeline import classify as C
+from hast_tpu_torch.pipeline import partition as P
+
+GOLD = pathlib.Path(__file__).parent / "golden" / "stage01"
+CASES = {
+    "main": ("hap0.mer", "hap1.mer", ["reads1.fq.gz", "reads2.fq"],
+             "phased.barcodes.golden", 4096),
+    "edge": ("edge.hap0.mer", "edge.hap1.mer", ["edge.fq"],
+             "edge.phased.golden", 4096),
+    "k15": ("k15.hap0.mer", "k15.hap1.mer", ["k15.fq"], "k15.phased.golden",
+            2048),
+    "k31": ("k31.hap0.mer", "k31.hap1.mer", ["k31.fq"], "k31.phased.golden",
+            2048),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def copy_case(name: str, dst: pathlib.Path):
+    h0, h1, reads, golden, batch = CASES[name]
+    for f in (h0, h1, *reads):
+        shutil.copy(GOLD / f, dst / f)
+    return (str(dst / h0), str(dst / h1), [str(dst / r) for r in reads],
+            (GOLD / golden).read_bytes(), batch)
+
+
+def super_batch(seed: int, key_words: np.ndarray, k: int, s: int = 2,
+                b: int = 48, lp: int = 28, cap: int = 32):
+    """(S, B, Lp) packed reads with planted keys, N reads, short reads,
+    id -1 rows and repeated ids, plus a non-zero starting tally."""
+    rng = np.random.default_rng(seed)
+    n = s * b
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, 4 * lp))]
+    kmers = E.words_to_bytes(key_words[rng.integers(0, key_words.size, n)], k)
+    pos = rng.integers(0, 4 * lp - k - 8, n)
+    seqs[np.arange(n)[:, None], pos[:, None] + np.arange(k)] = kmers
+    lengths = rng.integers(pos + k, 4 * lp + 1).astype(np.int32)
+    lengths[:6] = (0, 1, k - 1, k, 4 * lp, 4 * lp)
+    ids = rng.integers(0, cap - 1, n).astype(np.int32)  # never cap-1
+    ids[rng.random(n) < 0.15] = -1
+    ids[:3] = 5                                          # a repeated id
+    has_n = (rng.random(n) < 0.1).astype(np.uint8)
+    acc = rng.integers(0, 50, (cap, 3)).astype(np.int32)
+    return (E.pack_codes_np(seqs).reshape(s, b, lp), lengths.reshape(s, b),
+            ids.reshape(s, b), has_n.reshape(s, b), acc)
+
+
+@pytest.mark.parametrize("fmt,k", [("quot", 15), ("quot", 21), ("full", 21),
+                                   ("full", 31)])
+def test_tally_step_twin_matches_jax(fmt, k):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from hast_tpu.ops import hashtable as JH
+    from hast_tpu.pipeline import classify as JC
+
+    rng = np.random.default_rng(k)
+    hi, lo = E.canonical_kmers_np(rng.integers(0, 4, (500, k), np.int32), k)
+    hi, lo = hi[:, 0], lo[:, 0]
+    ref = JH.build_table(hi, lo, rng.integers(1, 4, 500).astype(np.uint32),
+                         k, load=0.7, fmt=fmt)
+    table = H.from_reference(ref.data, ref.n_buckets, ref.max_probe, k,
+                             ref.n_keys, ref.set_sizes, ref.fmt)
+    packed, lengths, ids, has_n, acc = super_batch(
+        k, (hi.astype(np.int64) << 32) | lo, k)
+    lp = packed.shape[-1]
+    twin_calls = _build.TWIN_CALLS["tally_step_ref"]
+    got = C.tally_step(table, torch.from_numpy(acc.copy()),
+                       torch.from_numpy(packed.reshape(-1, lp)),
+                       torch.from_numpy(lengths.reshape(-1)),
+                       torch.from_numpy(ids.reshape(-1)),
+                       torch.from_numpy(has_n.reshape(-1))).numpy()
+    assert _build.TWIN_CALLS["tally_step_ref"] == twin_calls + 1
+    want = np.asarray(JC.tally_step(
+        jnp.asarray(ref.data), jnp.asarray(acc), jnp.asarray(packed),
+        jnp.asarray(lengths), jnp.asarray(ids), jnp.asarray(has_n), k,
+        ref.max_probe, fmt))
+    assert (got[:, :2] > acc[:, :2]).any()       # markers were hit
+    # JAX normalises id -1 to the last row before mode="drop", so rows with
+    # id -1 add into want[-1]; the port drops them.  No read here carries
+    # id cap-1 (in the pipeline only pad rows carry -1).
+    np.testing.assert_array_equal(got[:-1], want[:-1])
+    np.testing.assert_array_equal(got[-1], acc[-1])
+
+
+def test_tally_step_rejects_bad_input():
+    table = H.build_table(np.zeros(1, np.uint32), np.ones(1, np.uint32),
+                          np.ones(1, np.uint32), 21)
+    acc = torch.zeros((4, 3), dtype=torch.int32)
+    packed = torch.zeros((2, 8), dtype=torch.uint8)
+    lengths = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="acc"):
+        C.tally_step(table, acc.to(torch.int64), packed, lengths, lengths,
+                     lengths.to(torch.uint8))
+    with pytest.raises(ValueError, match="ids"):
+        C.tally_step(table, acc, packed, lengths, lengths[:1],
+                     lengths.to(torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        C.tally_step(table.to("meta"), acc.to("meta"), packed.to("meta"),
+                     lengths.to("meta"), lengths.to("meta"),
+                     lengths.to(torch.uint8).to("meta"))
+
+
+def test_tally_grows_by_doubling():
+    acc = torch.arange(12, dtype=torch.int32).reshape(4, 3)
+    grown = C._grown(acc, 9)
+    assert tuple(grown.shape) == (16, 3)
+    assert torch.equal(grown[:4], acc) and int(grown[4:].abs().sum()) == 0
+    assert C._grown(acc, 3) is acc
+
+
+@pytest.mark.parametrize("engine", ["native", "python"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_goldens_bit_identical_on_cpu(tmp_path, case, engine):
+    if engine == "native" and N.get_lib() is None:
+        pytest.skip("libhastio.so unavailable")
+    hap0, hap1, reads, golden, batch = copy_case(case, tmp_path)
+    out = io.BytesIO()
+    C.run_classify(hap0, hap1, reads, out, w0=1.04, batch_size=batch,
+                   device="cpu", engine=engine)
+    assert out.getvalue() == golden
+
+
+def test_barcode_splits_match_goldens(tmp_path):
+    P.split_barcodes(str(GOLD / "phased.barcodes.golden"),
+                     out_prefix=str(tmp_path) + "/")
+    for name in ("paternal", "maternal", "homozygous"):
+        assert (tmp_path / f"{name}.unique.barcodes").read_bytes() == \
+            (GOLD / f"{name}.unique.barcodes.golden").read_bytes(), name
+
+
+@pytest.mark.parametrize("engine", ["native", "python"])
+def test_quartering_matches_goldens(tmp_path, monkeypatch, engine):
+    if engine == "native" and N.get_lib() is None:
+        pytest.skip("libhastio.so unavailable")
+    monkeypatch.chdir(tmp_path)
+    err = sys.stderr if engine == "native" else io.StringIO()
+    P.quarter_fastq(str(GOLD / "reads2.fq"),
+                    str(GOLD / "paternal.unique.barcodes.golden"),
+                    str(GOLD / "maternal.unique.barcodes.golden"),
+                    str(GOLD / "homozygous.unique.barcodes.golden"), err=err)
+    for name in ("paternal", "maternal", "homozygous", "nobarcode"):
+        ours = tmp_path / f"reads2.fq.{name}.fastq"
+        golden = GOLD / "quarter" / f"reads2.fq.{name}.fastq"
+        if golden.exists():
+            assert ours.read_bytes() == golden.read_bytes(), name
+        else:
+            assert not ours.exists(), name
+    # the stats block (the golden's first line holds an absolute path)
+    assert (tmp_path / "filter_reads.log").read_bytes().split(b"\n")[1:] == \
+        (GOLD / "quarter" / "filter_reads.log").read_bytes().split(b"\n")[1:]
+    if engine == "python":
+        assert err.getvalue() == (GOLD / "quarter" / "quarter.stderr"
+                                  ).read_text()
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_snapshot_shared_between_packages(tmp_path, monkeypatch, writer):
+    """A .probetable.npz written by one package loads in the other,
+    without reparsing the marker text."""
+    pytest.importorskip("jax")
+    from hast_tpu.ops import encode as JE
+    from hast_tpu.pipeline import classify as JC
+
+    hap0, hap1, _, _, _ = copy_case("main", tmp_path)
+    if writer == "port":
+        first = C.load_marker_table(hap0, hap1)
+        monkeypatch.setattr(JE, "load_mer_file", _no_parse)
+        second = JC.load_marker_table(hap0, hap1)
+        port, ref = first, second
+    else:
+        first = JC.load_marker_table(hap0, hap1)
+        monkeypatch.setattr(E, "load_mer_file", _no_parse)
+        second = C.load_marker_table(hap0, hap1)
+        port, ref = second, first
+    assert pathlib.Path(hap0 + ".probetable.npz").exists()
+    assert (port.fmt, port.n_buckets, port.max_probe, port.k, port.n_keys,
+            port.set_sizes) == (ref.fmt, ref.n_buckets, ref.max_probe, ref.k,
+                                ref.n_keys, ref.set_sizes)
+    np.testing.assert_array_equal(port.data_np(), np.asarray(ref.data))
+
+
+def _no_parse(*a, **kw):
+    raise AssertionError("marker text parsed although a snapshot exists")
+
+
+def test_slice_matches_jax_on_synthetic_inputs(tmp_path):
+    """The seeded generator's markers and reads (N reads, null barcodes,
+    adaptor k-mers) through both packages' run_classify."""
+    pytest.importorskip("jax")
+    from hast_tpu.pipeline import classify as JC
+    from hast_tpu_torch.utils import synthetic as S
+
+    hap0, hap1 = str(tmp_path / "h0.mer"), str(tmp_path / "h1.mer")
+    m0, m1 = S.make_marker_files(11, 3000, 21, hap0, hap1)
+    assert m0.shape == (3000, 21) and m1.shape == (3000, 21)
+    reads = str(tmp_path / "r.fq")
+    S.make_stlfr_fastq(12, reads, m0, m1, 5000, chunk=1500)
+    with open(reads, "rb") as f:
+        head = f.read(4096)
+    assert head.startswith(b"@V00000000#") and b"\n+\n" in head
+    got = io.BytesIO()
+    C.run_classify(hap0, hap1, [reads], got, w0=1.04, device="cpu")
+    want = io.BytesIO()
+    JC.run_classify(hap0, hap1, [reads], want, w0=1.04)
+    rows = got.getvalue().splitlines()
+    assert got.getvalue() == want.getvalue()
+    assert {r.split(b"\t")[1] for r in rows} == {b"0", b"1", b"-1"}
+    assert any(r.startswith(b"0_0_0\t") for r in rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,k", [("quot", 21), ("full", 31)])
+def test_tally_kernel_matches_twin(card, fmt, k):
+    rng = np.random.default_rng(k)
+    hi, lo = E.canonical_kmers_np(rng.integers(0, 4, (5000, k), np.int32), k)
+    hi, lo = hi[:, 0], lo[:, 0]
+    table = H.build_table(hi, lo, rng.integers(1, 4, 5000).astype(np.uint32),
+                          k, load=0.7, fmt=fmt).to(card)
+    packed, lengths, ids, has_n, acc = super_batch(
+        k, (hi.astype(np.int64) << 32) | lo, k, s=4, b=1024)
+    lp = packed.shape[-1]
+    args = [torch.from_numpy(x.reshape(-1, lp) if x is packed
+                             else x.reshape(-1)).to(card)
+            for x in (packed, lengths, ids, has_n)]
+    got = torch.from_numpy(acc).to(card)
+    want = got.clone()
+    launches = _build.LAUNCHES["classify_tally"]
+    C.tally_step(table, got, *args)
+    assert _build.LAUNCHES["classify_tally"] == launches + 1
+    C.tally_step_ref(table, want, *args)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_goldens_bit_identical_on_card(card, tmp_path, case):
+    hap0, hap1, reads, golden, batch = copy_case(case, tmp_path)
+    out = io.BytesIO()
+    C.run_classify(hap0, hap1, reads, out, w0=1.04, batch_size=batch,
+                   device=card)
+    assert out.getvalue() == golden
