@@ -12,13 +12,40 @@ when the package is not beside it.  Phases, each fatal on failure:
    keys in a forced full table (2^21 rows) and a 4e7-key quot table
    (2^24 rows, 268 MB, past the 50 MB L2); K3 classify_tally against
    tally_step_ref with N reads, id -1 rows and reads shorter than k.
-3. the stage-01 goldens (main, edge, k15, k31; weight0 1.04) classified
-   on the card, byte-identical to tests/golden/stage01/*.golden.
-4. the main path at bench.py's scale: 10^6 markers per haplotype at
-   k = 21 and 10^6 100-bp stLFR reads, through ``classify-reads --device
-   cuda`` (classify, splits, quartering); K3 must have been launched and
-   tally_step_ref never called.  The first 10^5 reads are classified on
-   the card and on the CPU twins, and the outputs must be equal bytes.
+3. the stage-00 kernels the same way: K4 count_windows on 65,536 packed
+   100-bp reads at k = 15, 21, 31 (masked, clean, key range up to
+   2^64 - 1); K5 sort_pairs on 2^26 pairs at k = 21 and 31; K6
+   fold_runs on a 2^26-element duplicate-heavy sorted run; K7
+   count_stats on 2^26 counts, high = 10000; K8 marker_filter on two
+   2^25-row runs sharing half their keys, bounds (9, 33) and
+   (0, 2^31 - 1).
+4. the stage-01 goldens (main, edge, k15, k31; weight0 1.04) classified
+   on the card, byte-identical to tests/golden/stage01/*.golden; the
+   stage-00 goldens built on the card by engines device, host and device
+   with 3 key-range passes (histos and bounds byte-identical, markers
+   equal to jellyfish's when sorted); the e2e trio through
+   ``build-markers`` and ``classify-reads --device cuda``, phased.barcodes
+   and the binned fastqs byte-identical.
+5. the stage-01 main path at bench.py's scale: 10^6 markers per
+   haplotype at k = 21 and 10^6 100-bp stLFR reads, through
+   ``classify-reads --device cuda`` (classify, splits, quartering); K3
+   must have been launched and tally_step_ref never called.  The first
+   10^5 reads are classified on the card and on the CPU twins, and the
+   outputs must be equal bytes.
+6. the stage-00 main path at bench.py's scale: a 3 Mb trio, 100-bp reads
+   at 33x with 0.2 % errors (about 990,000 reads a parent), through
+   ``build-markers --auto_bounds --device cuda``; K4-K8 must each have
+   been launched and no twin called.  The first 2x10^5 reads of each
+   parent go through the card and the CPU twins, and the outputs must be
+   equal bytes.  Then where the time goes: the native reader alone, and
+   a torch.profiler run of the device engine (device time by kernel,
+   device idle share).
+7. device-resident state at scale: two parents of 6x10^8 windows each,
+   drawn on the card from key pools of 1.6x10^8 that overlap by a
+   quarter, fed to the DeviceCounter in 2^25-key chunks; finalize,
+   histogram and marker algebra through the kernels and again through
+   the twins on the card must agree; fold counts, peak device memory,
+   times and K8's share of the marker algebra are printed.
 
 Before the last line it prints one JSON line of kernel results and the
 ``nvidia-smi`` name and power limit; the last line is
@@ -37,10 +64,20 @@ sys.modules["jax"] = None          # the port must run without jax
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLD = os.path.join(ROOT, "tests", "golden", "stage01")
+GOLD00 = os.path.join(ROOT, "tests", "golden", "stage00")
+E2E = os.path.join(ROOT, "tests", "golden", "e2e")
 N_MARKERS = 1_000_000
 N_READS = 1_000_000
 N_CPU_READS = 100_000
 K = 21
+GENOME_LEN = 3_000_000        # bench.py's stage-00 trio
+COVERAGE = 33.0
+N_CPU_PARENT_READS = 200_000
+SCALE_WINDOWS = 600_000_000   # per parent
+SCALE_POOL = 160_000_000
+SCALE_CHUNK = 1 << 25
+STAGE00_KERNELS = ("count_windows", "sort_pairs", "fold_runs",
+                   "count_stats", "marker_filter")
 
 
 def log(msg: str) -> None:
@@ -222,6 +259,146 @@ def phase_kernels() -> dict:
     return res
 
 
+def _hash_keys(idx):
+    """A bijection of [0, 2^42) (odd multiplier mod 2^42): distinct
+    indices below 2^29 give distinct 21-mer keys, spread over the space."""
+    return (idx * 0x2545F491) & ((1 << 42) - 1)
+
+
+def _check_same(name: str, got, want) -> float:
+    import torch
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            fail(f"{name} != its twin")
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def phase_kernels00() -> dict:
+    """K4-K8 against their twins on the same card tensors."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import encode as E
+    from hast_tpu_torch.ops import kmer_count as KC
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2025)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2025)
+    res = {}
+
+    # K4: 65,536 reads of stride 112 bases, 100 bp but for a few short or
+    # empty ones, 1 % N bases
+    n, L = 65536, 112
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, L))]
+    seqs[rng.random((n, L)) < 0.01] = ord("N")
+    lens = np.full(n, 100, np.int32)
+    lens[rng.integers(0, n, 512)] = rng.integers(0, 31, 512)
+    seqs[np.arange(L)[None, :] >= lens[:, None]] = 0
+    packed, good, lengths = (torch.from_numpy(x).to(dev) for x in (
+        E.pack_codes_np(seqs), KC.pack_good_np(seqs), lens))
+    err = 0.0
+    for k in (15, 21, 31):
+        for variant, mask, key_range in (
+                ("masked", good, None), ("clean", None, None),
+                ("range", good, (1 << (2 * k - 2), (1 << 64) - 1))):
+            fn = lambda: KC.count_windows(packed, lengths, k, mask,  # noqa
+                                          key_range)
+            ref = lambda: KC.count_windows_ref(packed, lengths, k,  # noqa
+                                               mask, key_range)
+            got = fn()
+            err = max(err, _check_same(f"K4 count_windows k={k} {variant}",
+                                       [got], [ref()]))
+            real = int((got != KC.SENT).sum())
+            if not 0 < real < got.numel():
+                fail(f"K4 count_windows k={k} {variant}: {real} of "
+                     f"{got.numel()} windows real")
+            ms, plain = cuda_ms(fn, 20), cuda_ms(ref, 3)
+            log(f"K4 count_windows k={k} {variant}: {n} reads x "
+                f"{got.numel() // n} windows ({real} real): kernel "
+                f"{ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
+            if k == K and variant == "masked":
+                res["count_windows"] = dict(ms=ms, plain_ms=plain)
+    res["count_windows"]["max_abs_err"] = err
+
+    # K5: 2^26 random keys, 10 % sentinels, int32 payload
+    n = 1 << 26
+    err = 0.0
+    for k in (21, 31):
+        keys = torch.randint(0, 1 << (2 * k), (n,), device=dev, generator=g)
+        keys[torch.rand(n, device=dev, generator=g) < 0.1] = KC.SENT
+        pay = torch.randint(0, 1 << 30, (n,), device=dev, generator=g,
+                            dtype=torch.int32)
+        err = max(err, _check_same(f"K5 sort_pairs k={k}",
+                                   KC.sort_pairs(keys, pay, k),
+                                   KC.sort_pairs_ref(keys, pay, k)))
+        ms = cuda_ms(lambda: KC.sort_pairs(keys, pay, k), 5)
+        plain = cuda_ms(lambda: KC.sort_pairs_ref(keys, pay, k), 3)
+        log(f"K5 sort_pairs k={k}: {n} pairs, {-(-(2 * k + 1) // 8)} "
+            f"passes: kernel {ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
+        if k == K:
+            res["sort_pairs"] = dict(ms=ms, plain_ms=plain)
+    res["sort_pairs"]["max_abs_err"] = err
+    del keys, pay
+
+    # K6: a sorted 2^26-element run of 2^22 distinct keys, sentinel tail
+    keys = _hash_keys(torch.randint(0, 1 << 22, (n,), device=dev,
+                                    generator=g))
+    keys[-(n // 20):] = KC.SENT
+    keys = torch.sort(keys).values
+    counts = torch.randint(1, 50, (n,), device=dev, generator=g,
+                           dtype=torch.int32)
+    got = KC.fold_runs(keys, counts)
+    err = _check_same("K6 fold_runs", got, KC.fold_runs_ref(keys, counts))
+    ms = cuda_ms(lambda: KC.fold_runs(keys, counts), 10)
+    plain = cuda_ms(lambda: KC.fold_runs_ref(keys, counts), 3)
+    log(f"K6 fold_runs: {n} sorted keys, {int(got[2])} distinct: kernel "
+        f"{ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
+    res["fold_runs"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    del keys, counts, got
+
+    # K7: 2^26 counts, mostly low, some above high, pads of 0
+    counts = torch.randint(0, 60, (n,), device=dev, generator=g,
+                           dtype=torch.int32)
+    counts[::997] = torch.randint(0, 40000, (counts[::997].numel(),),
+                                  device=dev, generator=g,
+                                  dtype=torch.int32)
+    err = _check_same("K7 count_stats", KC.count_stats(counts, 10000),
+                      KC.count_stats_ref(counts, 10000))
+    ms = cuda_ms(lambda: KC.count_stats(counts, 10000), 20)
+    plain = cuda_ms(lambda: KC.count_stats_ref(counts, 10000), 3)
+    log(f"K7 count_stats: {n} counts, high 10000: kernel {ms:.4f} ms, twin "
+        f"{plain:.4f} ms, bit-exact")
+    res["count_stats"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    del counts
+
+    # K8: two 2^25-row runs sharing half their keys, 2^16 pads each
+    rows, pads = 1 << 25, 1 << 16
+    args = []
+    for start in (0, rows // 2):
+        keys = torch.sort(_hash_keys(torch.arange(
+            start, start + rows - pads, device=dev))).values
+        keys = torch.cat([keys, torch.full((pads,), KC.SENT, device=dev)])
+        counts = torch.randint(1, 60, (rows,), device=dev, generator=g,
+                               dtype=torch.int32)
+        counts[-pads:] = 0
+        args += [keys, counts, rows - pads]
+    err = 0.0
+    for bounds in ((9, 33, 9, 33), (0, 2**31 - 1, 0, 2**31 - 1)):
+        got = KC.marker_filter(*args, bounds)
+        err = max(err, _check_same(f"K8 marker_filter {bounds}", got,
+                                   KC.marker_filter_ref(*args, bounds)))
+        ms = cuda_ms(lambda: KC.marker_filter(*args, bounds), 10)
+        plain = cuda_ms(lambda: KC.marker_filter_ref(*args, bounds), 3)
+        log(f"K8 marker_filter: 2 x {rows} rows, bounds {bounds}, kept "
+            f"{int(got[1])} + {int(got[3])}: kernel {ms:.4f} ms, twin "
+            f"{plain:.4f} ms, bit-exact")
+        if bounds[0] == 9:
+            res["marker_filter"] = dict(ms=ms, plain_ms=plain)
+    res["marker_filter"]["max_abs_err"] = err
+    return res
+
+
 def _index_of(words, q):
     import numpy as np
     order = np.argsort(words)
@@ -275,6 +452,75 @@ def phase_goldens(tmp: str) -> None:
                     fail(f"golden {name} ({engine} reader) differs on cuda")
         log(f"golden {name}: byte-identical on cuda (native and python "
             "readers)")
+
+
+def _same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def _sorted_lines(path: str) -> list:
+    with open(path, "rb") as f:
+        return sorted(f.read().split())
+
+
+def phase_goldens00(tmp: str) -> None:
+    """Stage 00 goldens on the card, then the e2e 00->01 chain."""
+    from hast_tpu_torch import cli
+    from hast_tpu_torch.pipeline import markers as M
+    pat = [os.path.join(GOLD00, "paternal.reads.fa.gz")]
+    mat = [os.path.join(GOLD00, "maternal.reads.fa.gz")]
+    for engine, parts in (("device", None), ("host", None), ("device", 3)):
+        out = os.path.join(tmp, f"stage00_{engine}_{parts}")
+        os.makedirs(out)
+        with open(os.devnull, "w") as devnull:
+            paths = M.build_unshared_markers(
+                pat, mat, out, auto_bounds=True, batch_size=16384,
+                engine=engine, n_parts=parts, device="cuda", log=devnull)
+        for parent in ("maternal", "paternal"):
+            for ours, golden in ((f"{parent}.kmercount.histo",
+                                  f"{parent}.histo"),
+                                 (f"{parent}.bounds.txt",
+                                  f"{parent}.bounds.txt")):
+                if not _same_bytes(os.path.join(out, ours),
+                                   os.path.join(GOLD00, golden)):
+                    fail(f"stage-00 {ours} differs on cuda ({engine}, "
+                         f"parts {parts})")
+            if _sorted_lines(paths[parent]) != _sorted_lines(os.path.join(
+                    GOLD00, f"{parent}.unique.filter.mer")):
+                fail(f"stage-00 {parent} markers differ on cuda ({engine},"
+                     f" parts {parts})")
+        log(f"golden stage00 ({engine} engine, parts {parts}): histo and "
+            "bounds byte-identical, markers equal to jellyfish's on cuda")
+
+    d00, d01 = os.path.join(tmp, "e2e00"), os.path.join(tmp, "e2e01")
+    os.makedirs(d00)
+    os.makedirs(d01)
+    cli.main(["build-markers", "--out-dir", d00, "--auto_bounds",
+              "--paternal", os.path.join(E2E, "paternal.fa.gz"),
+              "--maternal", os.path.join(E2E, "maternal.fa.gz"),
+              "--batch-size", "16384", "--device", "cuda"])
+    mer = os.path.join(d00, "{}.unique.filter.mer")
+    cli.main(["classify-reads",
+              "--paternal_mer", mer.format("paternal"),
+              "--maternal_mer", mer.format("maternal"),
+              "--filial", os.path.join(E2E, "son.r1.fq.gz"),
+              "--filial", os.path.join(E2E, "son.r2.fq"),
+              "--workdir", d01, "--batch-size", "4096", "--device", "cuda"])
+    if not _same_bytes(os.path.join(d01, "phased.barcodes"),
+                       os.path.join(E2E, "stage01", "phased.barcodes")):
+        fail("e2e 00->01 chain: phased.barcodes differs on cuda")
+    for r in (1, 2):
+        for name in ("paternal", "maternal", "homozygous", "nobarcode"):
+            f = f"son.r{r}.fq.{name}.fastq"
+            golden = os.path.join(E2E, "stage01", f)
+            ours = os.path.join(d01, f)
+            if os.path.exists(golden) != os.path.exists(ours) or (
+                    os.path.exists(golden) and not _same_bytes(ours,
+                                                               golden)):
+                fail(f"e2e 00->01 chain: {f} differs on cuda")
+    log("golden e2e: build-markers + classify-reads --device cuda, "
+        "phased.barcodes and binned fastqs byte-identical")
 
 
 def phase_main_path(tmp: str) -> dict:
@@ -352,6 +598,235 @@ def phase_main_path(tmp: str) -> dict:
     return dict(launches=launches, wall=wall, timings=timings)
 
 
+def phase_markers_main(tmp: str) -> dict:
+    """build-markers --device cuda on bench.py's stage-00 trio."""
+    import itertools
+    from hast_tpu_torch import cli
+    from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.utils import synthetic as S
+
+    d = os.path.join(tmp, "stage00")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    reads = {"paternal": os.path.join(d, "pat_parent.fa"),
+             "maternal": os.path.join(d, "mat_parent.fa")}
+    genomes = S.make_trio_genomes(77, GENOME_LEN, het_rate=0.001)
+    for seed, g, parent in zip((1, 2), genomes, ("paternal", "maternal")):
+        S.make_parent_reads_vectorized(seed, g, reads[parent], COVERAGE, 100,
+                                       0.002)
+    n_reads = {p: os.path.getsize(f) // 104 for p, f in reads.items()}
+    log(f"inputs: {GENOME_LEN} bp trio, {COVERAGE}x 100-bp reads "
+        f"({n_reads['paternal']} + {n_reads['maternal']} reads), generated "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    out = os.path.join(d, "00")
+    os.makedirs(out)
+    _build.LAUNCHES.clear()
+    _build.TWIN_CALLS.clear()
+    t0 = time.perf_counter()
+    cli.main(["build-markers", "--paternal", reads["paternal"],
+              "--maternal", reads["maternal"], "--out-dir", out,
+              "--auto_bounds", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    twins = dict(_build.TWIN_CALLS)
+    windows = sum(n_reads.values()) * (100 - K + 1)
+    log(f"build-markers --device cuda: {wall:.3f} s end to end "
+        f"({windows / wall:.0f} windows/s); launches {launches}; twin calls "
+        f"{twins}")
+    for name in STAGE00_KERNELS:
+        if launches.get(name, 0) <= 0:
+            fail(f"the stage-00 main path launched no {name} kernel")
+    if any(twins.values()):
+        fail(f"the stage-00 main path called twins: {twins}")
+    for parent in ("paternal", "maternal"):
+        with open(os.path.join(out, f"{parent}.bounds.txt")) as f:
+            b = dict(line.strip().split("=") for line in f)
+        n = len(_sorted_lines(os.path.join(out,
+                                           f"{parent}.unique.filter.mer")))
+        if not (1 <= int(b["LOWER_INDEX"]) < int(b["UPPER_INDEX"])
+                and n > 0):
+            fail(f"stage-00 {parent}: bounds {b}, {n} markers")
+        log(f"{parent}: {n} markers, bounds {b}")
+
+    # the first 2x10^5 reads of each parent on the card and on the CPU
+    small = {}
+    for parent, f in reads.items():
+        small[parent] = os.path.join(d, f"{parent}.head.fa")
+        with open(f, "rb") as src, open(small[parent], "wb") as w:
+            w.writelines(itertools.islice(src, 2 * N_CPU_PARENT_READS))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = os.path.join(d, f"head_{dev}")
+        os.makedirs(outs[dev])
+        t0 = time.perf_counter()
+        cli.main(["build-markers", "--paternal", small["paternal"],
+                  "--maternal", small["maternal"], "--out-dir", outs[dev],
+                  "--auto_bounds", "--device", dev])
+        log(f"build-markers {N_CPU_PARENT_READS} reads/parent --device "
+            f"{dev}: {time.perf_counter() - t0:.3f} s")
+    for f in sorted(os.listdir(outs["cpu"])):
+        if f.startswith("step_"):
+            continue
+        if not _same_bytes(os.path.join(outs["cuda"], f),
+                           os.path.join(outs["cpu"], f)):
+            fail(f"first {N_CPU_PARENT_READS} reads: {f} differs between "
+                 "cuda and cpu")
+    log(f"first {N_CPU_PARENT_READS} reads/parent: cuda and cpu write "
+        "equal bytes")
+    return dict(launches=launches, wall=wall, reads=reads)
+
+
+def _device_us(event) -> float:
+    us = getattr(event, "self_device_time_total", None)
+    return us if us is not None else event.self_cuda_time_total
+
+
+def phase_stage00_breakdown(tmp: str, reads: dict) -> None:
+    """Where stage 00's time goes: the reader alone, then the device
+    engine under torch.profiler (device time by kernel, idle share)."""
+    import torch
+    from hast_tpu_torch.ops import kmer_count as KC
+    from hast_tpu_torch.pipeline import markers as M
+
+    t0 = time.perf_counter()
+    n_batches = 0
+    for f in reads.values():
+        reader = KC.open_count_reader(f, 1 << 14)
+        if reader is None:
+            fail(f"the native counting reader cannot open {f}")
+        try:
+            for b in reader:
+                KC.batch_is_clean(b.good, b.lengths)
+                n_batches += 1
+        finally:
+            reader.close()
+    log(f"stage-00 native reader alone (parse, pack, mask, clean test), "
+        f"both parents: {time.perf_counter() - t0:.3f} s, {n_batches} "
+        "batches")
+
+    groups = (("K4 count_windows", ("count_windows_kernel",)),
+              ("K5 sort_pairs", ("radix_", "HistVal")),
+              ("K6 fold_runs", ("StartFlag", "fill_kernel",
+                                "n_unique_kernel")),
+              ("K7 count_stats", ("count_stats_kernel",)),
+              ("K8 marker_filter", ("keep_kernel", "KeepVal")),
+              ("scan tiles (K5, K6, K8)", ("scan_tiles_kernel",)),
+              ("copies", ("Memcpy", "Memset")))
+    out = os.path.join(tmp, "stage00_profiled")
+    os.makedirs(out)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        with open(os.devnull, "w") as devnull:
+            M.build_unshared_markers([reads["paternal"]],
+                                     [reads["maternal"]], out,
+                                     auto_bounds=True, device="cuda",
+                                     log=devnull)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sums = {name: 0.0 for name, _ in groups}
+    sums["other (torch glue)"] = 0.0
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if not us:
+            continue
+        name = next((g for g, keys in groups
+                     if any(x in e.key for x in keys)), "other (torch glue)")
+        sums[name] += us
+    busy = sum(sums.values()) / 1e6
+    idle = f"{1 - busy / wall:.4f}" if busy else "not measured"
+    log(f"stage-00 device engine under torch.profiler: wall {wall:.3f} s, "
+        f"device busy {busy:.4f} s, idle share {idle}; "
+        "device s by kernel: " + ", ".join(
+            f"{k} {v / 1e6:.4f}" for k, v in sums.items()))
+
+
+def phase_scale() -> None:
+    """Two parents of 6x10^8 windows each through the DeviceCounter, the
+    histogram and the marker algebra: kernels, then twins, on the card."""
+    import contextlib
+    import torch
+    from hast_tpu_torch.ops import kmer_count as KC
+
+    dev = torch.device("cuda")
+    starts = {"paternal": 0, "maternal": SCALE_POOL * 3 // 4}
+
+    @contextlib.contextmanager
+    def twins_on_card():
+        saved = {n: getattr(KC, n) for n in STAGE00_KERNELS}
+        for n in STAGE00_KERNELS:
+            setattr(KC, n, getattr(KC, f"{n}_ref"))
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(KC, n, fn)
+
+    def count(parent: str, seed: int):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        dc = KC.DeviceCounter(K, dev)
+        lo = starts[parent]
+        for s in range(0, SCALE_WINDOWS, SCALE_CHUNK):
+            idx = torch.randint(lo, lo + SCALE_POOL,
+                                (min(SCALE_CHUNK, SCALE_WINDOWS - s),),
+                                device=dev, generator=g)
+            dc.add_sorted_chunk(_hash_keys(idx))
+        return dc.finalize_device(), dc.n_folds
+
+    results = {}
+    for mode in ("kernels", "twins"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = {}
+        with twins_on_card() if mode == "twins" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            pat, folds_p = count("paternal", 1)
+            mat, folds_m = count("maternal", 2)
+            torch.cuda.synchronize()
+            times["count"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            hists = (pat.histo(), mat.histo())
+            times["histo"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            markers = KC.device_marker_algebra(pat, mat, 2, 8, 2, 8)
+            times["marker_algebra"] = time.perf_counter() - t0
+        if mode == "kernels":
+            # the marker algebra is K8 plus the fetch of the kept words
+            k8 = cuda_ms(lambda: KC.marker_filter(
+                pat.keys, pat.counts, pat.n_valid, mat.keys, mat.counts,
+                mat.n_valid, (2, 8, 2, 8)), 3)
+            log(f"scale: K8 marker_filter alone on {pat.n_valid} + "
+                f"{mat.n_valid} rows: {k8:.4f} ms")
+        peak = torch.cuda.max_memory_allocated() - base
+        results[mode] = (pat, mat, hists, markers)
+        log(f"scale ({mode}): 2 x {SCALE_WINDOWS} windows in "
+            f"{SCALE_CHUNK}-key chunks; distinct {pat.n_distinct} + "
+            f"{mat.n_distinct}, folds {folds_p} + {folds_m}; markers "
+            f"{markers[0].size} + {markers[1].size}; peak device memory "
+            f"{peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB "
+            "before; " + ", ".join(f"{k} {v:.3f} s"
+                                   for k, v in times.items()))
+    (kp, km, kh, kw), (tp, tm, th, tw) = results["kernels"], results["twins"]
+    for a, b in ((kp, tp), (km, tm)):
+        if a.n_valid != b.n_valid or not (torch.equal(a.keys, b.keys)
+                                          and torch.equal(a.counts,
+                                                          b.counts)):
+            fail("scale: the kernels' and the twins' tables differ")
+    import numpy as np
+    if not all(np.array_equal(a, b) for a, b in zip(kh + kw, th + tw)):
+        fail("scale: histograms or markers differ between kernels and twins")
+    if not (1.4e8 < kp.n_distinct < 1.6e8 and kw[0].size and kw[1].size):
+        fail(f"scale: {kp.n_distinct} distinct, markers {kw[0].size} + "
+             f"{kw[1].size}")
+    log("scale: tables, histograms and markers equal between kernels and "
+        "twins")
+
+
 def main() -> None:
     try:
         import torch
@@ -369,22 +844,34 @@ def main() -> None:
     log(f"card: {smi}")
     phase_toolchain()
     kernels = phase_kernels()
+    kernels.update(phase_kernels00())
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_goldens(tmp)
-        main_path = phase_main_path(tmp)
+        phase_goldens00(tmp)
+        launches = phase_main_path(tmp)["launches"]
+        markers = phase_markers_main(tmp)
+        launches.update(markers["launches"])
+        phase_stage00_breakdown(tmp, markers["reads"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_scale()
 
-    sources = {"canonical_windows": ("hast_tpu_torch/ops/csrc/kmer.cu",
-                                     "hast_tpu/ops/encode.py:53"),
-               "probe": ("hast_tpu_torch/ops/csrc/probe.cu",
-                         "hast_tpu/ops/hashtable.py:444"),
-               "classify_tally": ("hast_tpu_torch/ops/csrc/classify.cu",
-                                  "hast_tpu/pipeline/classify.py:217")}
-    rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=main_path["launches"].get(name, 0),
-                 **kernels[name]) for name, (src, rep) in sources.items()]
+    csrc = "hast_tpu_torch/ops/csrc/"
+    sources = {"canonical_windows": ("kmer.cu", "hast_tpu/ops/encode.py:53"),
+               "probe": ("probe.cu", "hast_tpu/ops/hashtable.py:444"),
+               "classify_tally": ("classify.cu",
+                                  "hast_tpu/pipeline/classify.py:217"),
+               "count_windows": ("count.cu",
+                                 "hast_tpu/ops/kmer_count.py:58"),
+               "sort_pairs": ("sort.cu", "hast_tpu/ops/kmer_count.py:333"),
+               "fold_runs": ("fold.cu", "hast_tpu/ops/kmer_count.py:333"),
+               "count_stats": ("stats.cu", "hast_tpu/ops/kmer_count.py:535"),
+               "marker_filter": ("markers.cu",
+                                 "hast_tpu/ops/kmer_count.py:560")}
+    rows = [dict(name=name, route="cuda", source=csrc + src, replaces=rep,
+                 launches=launches.get(name, 0), **kernels[name])
+            for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
-"""The PyTorch port's command line, stage 01 (hast_tpu/cli.py:120-260).
+"""The PyTorch port's command line, stages 00 and 01 (hast_tpu/cli.py:37-260).
 
+  build-markers     00.build_unshare_kmers: parental count tables, histos,
+                    bounds and unique.filter.mer files behind the
+                    step_00_markers checkpoint
   classify          the reference `classify` binary (phased.barcodes)
   classify-reads    classify_stlfr_reads.sh: classify, barcode splits and
                     fastq quartering behind step_9/10/11 checkpoints
 
-Both take the JAX package's flags plus --device (default cuda).  A CUDA
-device that is not there is an error; the run never moves to the CPU on
-its own.
+Each takes the JAX package's flags (build-markers without --mesh) plus
+--device (default cuda).  A CUDA device that is not there is an error;
+the run never moves to the CPU on its own.
 
 Usage: python -m hast_tpu_torch <subcommand> --help
 """
@@ -54,6 +57,58 @@ def _common(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device of the marker table and the kernels "
                         "(default cuda; cpu runs the plain twins)")
+
+
+def _add_build_markers(sub):
+    p = sub.add_parser("build-markers", help="stage 00: unique marker mers")
+    p.add_argument("--paternal", action="append", required=True)
+    p.add_argument("--maternal", action="append", required=True)
+    p.add_argument("--mer", type=int, default=21)
+    p.add_argument("--auto_bounds", action="store_true")
+    p.add_argument("--m-lower", type=int, default=9)
+    p.add_argument("--m-upper", type=int, default=33)
+    p.add_argument("--p-lower", type=int, default=9)
+    p.add_argument("--p-upper", type=int, default=33)
+    p.add_argument("--out-dir", default=".")
+    p.add_argument("--batch-size", type=int, default=1 << 14)
+    p.add_argument("--count-parts", type=int, default=1,
+                   help="split the k-mer key space into N ranges counted "
+                        "in N passes (bounded device memory for inputs "
+                        "whose distinct set exceeds it); default 1")
+    p.add_argument("--engine", choices=("auto", "device", "host"),
+                   default="auto",
+                   help="device (and auto, the default): count tables stay "
+                        "on the device, only final markers fetched (one "
+                        "all-or-nothing checkpoint); host: per-substep "
+                        ".counts.npz snapshots and finer resume")
+    p.add_argument("--thread", type=int, default=None,
+                   help="accepted for reference compatibility (unused)")
+    p.add_argument("--memory", type=int, default=None,
+                   help="accepted for reference compatibility (unused)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the count tables and the kernels "
+                        "(default cuda; cpu runs the plain twins)")
+
+    def run(a):
+        from hast_tpu.utils.checkpoint import step
+        from hast_tpu_torch.pipeline import markers as M
+        # reference sanity bounds (build_unshared_kmers.sh:145-152)
+        if a.mer < 11 or a.mer > 31:
+            sys.exit("ERROR : arguments invalid ... exit!!! (11 <= mer <= 31)")
+        if not (1 <= a.m_lower and a.m_upper <= 100000000
+                and 1 <= a.p_lower and a.p_upper <= 100000000):
+            sys.exit("ERROR : arguments invalid ... exit!!! ")
+        device = _device(a.device)
+        with step("00_markers", a.out_dir) as todo:
+            if todo:
+                M.build_unshared_markers(
+                    _split_paths(a.paternal), _split_paths(a.maternal),
+                    a.out_dir, k=a.mer, auto_bounds=a.auto_bounds,
+                    p_lower=a.p_lower, p_upper=a.p_upper,
+                    m_lower=a.m_lower, m_upper=a.m_upper,
+                    batch_size=a.batch_size, n_parts=a.count_parts,
+                    engine=a.engine, device=device)
+    p.set_defaults(func=run)
 
 
 def _add_classify(sub):
@@ -135,6 +190,7 @@ def main(argv=None):
         prog="hast_tpu_torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="cmd", required=True)
+    _add_build_markers(sub)
     _add_classify(sub)
     _add_classify_reads(sub)
     args = parser.parse_args(argv)

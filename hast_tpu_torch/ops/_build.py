@@ -1,17 +1,18 @@
 """Build the CUDA kernels with nvcc at first use and bind them with ctypes.
 
-All sources under ``csrc/`` compile in one ``nvcc`` call for ``sm_90a``
-into one shared library with a plain C interface (no PyTorch headers,
-so the build takes seconds).  The library lands in
-``hast_tpu_torch/build/`` under a name derived from a hash of the
-sources and flags, so an edited kernel is rebuilt and an unchanged one
-is loaded as it is.
+Each ``.cu`` under ``csrc/`` compiles for ``sm_90a`` in its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects
+into a shared library with a plain C interface (no PyTorch headers, so
+the build takes seconds).  The library lands in ``hast_tpu_torch/build/``
+under a name derived from a hash of the sources and flags, so an edited
+kernel is rebuilt and an unchanged one is loaded as it is.
 
 Each C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.  The
-launch counters count kernel launches made by the wrappers, the twin
-counters calls of the plain PyTorch twins; ``chip_smoke.py`` reads both
-to show which of the two ran the main path.
+launch counters ``LAUNCHES`` count the wrappers' calls of their C
+entries, one each (an entry may launch several kernels: K5 launches
+up to five a radix pass), the twin counters calls of the plain PyTorch twins;
+``chip_smoke.py`` reads both to show which of the two ran the main path.
 """
 
 from __future__ import annotations
@@ -22,29 +23,39 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: collections.Counter = collections.Counter()
 TWIN_CALLS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_U64 = ctypes.c_uint64
 _I = ctypes.c_int
 _SIGNATURES = {
     "hast_canonical_windows": [_P, _P, _I64, _I, _I, _P, _P, _P],
+    "hast_count_windows": [_P, _P, _P, _I, _I64, _I, _I, _I, _U64, _U64, _P,
+                           _P],
+    "hast_sort_pairs": [_P, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
+    "hast_fold_runs": [_P, _P, _I64, _P, _P, _P, _P, _P],
+    "hast_count_stats": [_P, _I64, _I, _P, _P, _P],
+    "hast_marker_filter": [_P, _P, _I64, _P, _I64, _I64, _I64, _P, _P, _P,
+                           _P],
     "hast_probe": [_P, _I64, _I, _I, _I, _I, _P, _I64, _P, _P],
     "hast_classify_tally": [_P, _I64, _I, _I, _I, _I, _P, _P, _P, _P, _I64,
                             _I, _P, _I64, _P],
 }
 
 _lib = None
+_LOCK = threading.Lock()   # stage 00 counts two parents on two threads
 
 
 def _sources() -> list[str]:
@@ -70,33 +81,55 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libhast_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands together; wait for all, then raise on a failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> str:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(s for s in _sources() if s.endswith(".cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stderr}")
-    os.replace(tmp, out)
+    objs = {src: f"{tmp}.{os.path.basename(src)}.o"
+            for src in _sources() if src.endswith(".cu")}
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                  for src, obj in objs.items()])
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                   *objs.values()]])
+        os.replace(tmp, out)
+    finally:
+        for obj in objs.values():
+            if os.path.exists(obj):
+                os.remove(obj)
     return out
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use (once, across threads)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

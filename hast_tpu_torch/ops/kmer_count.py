@@ -1,0 +1,948 @@
+"""Sort-based canonical k-mer counting, stage 00 (port of
+hast_tpu/ops/kmer_count.py).
+
+Host side, copied without jax: the ACGT mask packing and clean-batch
+test, the run-length encoder, the host :class:`CountTable` and
+:class:`Counter`, the jellyfish-style string dump and the key-range
+boundary estimate.  Host tables keep the JAX layout: uint64 words
+``(hi << 32) | lo``, int64 counts.
+
+Device side: a key is one int64 word per canonical k-mer, the same word
+(below 2^62, as k <= 31); invalid or out-of-range windows are the
+sentinel ``INT64_MAX``, which sorts after every real key (the JAX pair
+(0xFFFFFFFF, 0xFFFFFFFF) read as int64 would be -1 and sort first).
+Counts are int32, as in the JAX package.  Five kernels in ``csrc/``:
+
+  K4 count_windows   count.cu    packed reads -> window keys
+  K5 sort_pairs      sort.cu     stable radix sort, int32 payload
+  K6 fold_runs       fold.cu     counts of equal keys summed to the front
+  K7 count_stats     stats.cu    histogram bins and total, int64
+  K8 marker_filter   markers.cu  unique, in-bounds keys, compacted
+
+Each wrapper runs its plain PyTorch twin (``*_ref``) for CPU tensors and
+launches its kernel for CUDA tensors; the twins carry everything in int64
+because torch on the CPU has no uint32/uint64 shifts or compares.
+:class:`DeviceCounter` folds chunks of keys into one resident sorted run
+(K5 + K6), :class:`DeviceCountTable` is that run, and
+:func:`device_marker_algebra` is the marker algebra over two of them
+(K8); only the final markers come to the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import threading
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from hast_tpu_torch.ops import _build
+from hast_tpu_torch.ops import encode as E
+
+SENT = torch.iinfo(torch.int64).max
+FOLD_ABOVE = 48_000_000   # DeviceCounter's smallest fold, in keys
+_KEY_LIMIT = 1 << 62      # every canonical key (k <= 31) is below it
+_REF_SENT = np.uint32(0xFFFFFFFF)
+
+_ACGT = np.zeros(256, bool)
+for _c in b"ACGTacgt":
+    _ACGT[_c] = True
+_POPCNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# host side (numpy)
+# ---------------------------------------------------------------------------
+
+
+def batch_is_clean(good: np.ndarray, lengths: np.ndarray) -> bool:
+    """True iff every in-length base is ACGT.
+
+    Exact via popcount: the native reader sets mask bits only for
+    positions < length, so the batch is clean iff the number of set bits
+    equals the number of bases."""
+    set_bits = int(_POPCNT8[good].sum(dtype=np.int64))
+    return set_bits == int(np.minimum(
+        lengths.astype(np.int64), good.shape[1] * 8).sum())
+
+
+def pack_good_np(seqs_u8: np.ndarray) -> np.ndarray:
+    """(..., L) ASCII -> (..., L/8) uint8 ACGT-validity bitmask."""
+    good = _ACGT[seqs_u8].astype(np.uint8)
+    out = good[..., 0::8]
+    for j in range(1, 8):
+        out = out | (good[..., j::8] << np.uint8(j))
+    return out
+
+
+def _rle_sorted(words: np.ndarray, weights: np.ndarray | None = None):
+    """Run-length encode a sorted uint64 array -> (unique, counts)."""
+    if words.size == 0:
+        return words, np.zeros(0, np.int64)
+    new = np.empty(words.size, bool)
+    new[0] = True
+    np.not_equal(words[1:], words[:-1], out=new[1:])
+    idx = np.flatnonzero(new)
+    if weights is None:
+        counts = np.diff(np.append(idx, words.size)).astype(np.int64)
+    else:
+        csum = np.concatenate([[0], np.cumsum(weights, dtype=np.int64)])
+        counts = csum[np.append(idx[1:], words.size)] - csum[idx]
+    return words[idx], counts
+
+
+@dataclasses.dataclass
+class CountTable:
+    """Sorted (canonical k-mer -> count) table, host resident.
+
+    words: uint64 = (hi << 32) | lo, strictly ascending; counts: int64.
+    """
+
+    words: np.ndarray
+    counts: np.ndarray
+    k: int
+
+    @classmethod
+    def from_reference(cls, ref) -> "CountTable":
+        """A hast_tpu.ops.kmer_count.CountTable, copied."""
+        return cls(np.array(ref.words, np.uint64),
+                   np.array(ref.counts, np.int64), int(ref.k))
+
+    def to_reference(self) -> tuple:
+        """(words, counts, k): the fields of hast_tpu's CountTable."""
+        return self.words.copy(), self.counts.copy(), self.k
+
+    @property
+    def n_distinct(self) -> int:
+        return int(self.words.size)
+
+    @property
+    def total(self) -> int:
+        return int(self.counts.sum())
+
+    def histo(self, low: int = 1, high: int = 10000) -> np.ndarray:
+        """jellyfish-histo bins: index v holds #kmers with count v for
+        v in [low, high]; index high+1 lumps every count > high."""
+        clipped = np.clip(self.counts, 0, high + 1)
+        return np.bincount(clipped, minlength=high + 2)
+
+    def filter_range(self, lower: int, upper: int) -> "CountTable":
+        """Keep counts in [lower, upper] inclusive (jellyfish dump -L -U)."""
+        m = (self.counts >= lower) & (self.counts <= upper)
+        return CountTable(self.words[m], self.counts[m], self.k)
+
+    def difference(self, other: "CountTable") -> "CountTable":
+        """Keys of self not present in other (meryl difference)."""
+        m = ~np.isin(self.words, other.words, assume_unique=True)
+        return CountTable(self.words[m], self.counts[m], self.k)
+
+    def dump_mer_text(self, path: str) -> int:
+        """Write one-kmer-per-line text (the .mer interface file)."""
+        return dump_words(self.words, self.k, path)
+
+    def save(self, path: str) -> None:
+        """Binary snapshot, the format of hast_tpu's .counts.npz."""
+        np.savez(path, words=self.words, counts=self.counts,
+                 k=np.int64(self.k))
+
+    @classmethod
+    def load(cls, path: str) -> "CountTable":
+        with np.load(path, allow_pickle=False) as z:
+            return cls(z["words"], z["counts"], int(z["k"]))
+
+
+def words_to_strings(words: np.ndarray, k: int) -> np.ndarray:
+    """uint64 canonical words -> jellyfish-representative byte strings."""
+    n = words.size
+    arr = np.empty((n, k), np.uint8)
+    int2base = np.frombuffer(b"ACTG", np.uint8)  # HAST encoding order
+    for i in range(k):
+        arr[:, k - 1 - i] = int2base[
+            (words >> np.uint64(2 * i)).astype(np.uint32) & 3]
+    # jellyfish emits min(s, revcomp(s)) under ASCII (A<C<G<T) order
+    comp = np.zeros(256, np.uint8)
+    for a, b in zip(b"ACGT", b"TGCA"):
+        comp[a] = b
+    rc = comp[arr[:, ::-1]]
+    fwd_b = np.ascontiguousarray(arr).view(f"S{k}").reshape(n)
+    rc_b = np.ascontiguousarray(rc).view(f"S{k}").reshape(n)
+    return np.where(fwd_b <= rc_b, fwd_b, rc_b)
+
+
+def dump_words(words: np.ndarray, k: int, path: str) -> int:
+    """One jellyfish-style k-mer a line, in the order of words."""
+    s = words_to_strings(words, k)
+    with open(path, "wb") as f:
+        if s.size:
+            f.write(b"\n".join(s.tolist()) + b"\n")
+    return int(s.size)
+
+
+class Counter:
+    """Host union-sum of finalized tables (several input files)."""
+
+    def __init__(self, k: int):
+        self.k = k
+        self._runs: list[tuple[np.ndarray, np.ndarray]] = []
+
+    def add_table(self, table: CountTable) -> None:
+        if table.words.size:
+            self._runs.append((table.words, table.counts))
+
+    def finalize(self) -> CountTable:
+        if not self._runs:
+            return CountTable(np.zeros(0, np.uint64), np.zeros(0, np.int64),
+                              self.k)
+        words = np.concatenate([u for u, _ in self._runs])
+        counts = np.concatenate([c for _, c in self._runs])
+        order = np.argsort(words, kind="stable")
+        u, c = _rle_sorted(words[order], counts[order])
+        self._runs = [(u, c)]
+        return CountTable(u, c, self.k)
+
+
+# ---------------------------------------------------------------------------
+# K4: window keys of packed reads
+# ---------------------------------------------------------------------------
+
+
+def _check_range(key_range) -> tuple[int, int]:
+    lo, hi = (int(b) for b in key_range)
+    if not (0 <= lo < 1 << 64 and 0 <= hi < 1 << 64):
+        raise ValueError(f"key_range bounds must be uint64, got {key_range}")
+    return lo, hi
+
+
+def count_windows_ref(packed: torch.Tensor, lengths: torch.Tensor, k: int,
+                      good: torch.Tensor | None = None,
+                      key_range=None) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`count_windows`."""
+    _build.TWIN_CALLS["count_windows_ref"] += 1
+    keys, valid = E.canonical_windows_ref(packed, lengths, k)
+    n_win = keys.shape[1]
+    if good is not None and n_win:
+        shifts = torch.arange(8, device=good.device)
+        bits = ((good.to(torch.int64)[..., None] >> shifts) & 1).reshape(
+            good.shape[0], -1).to(torch.bool)
+        for j in range(k):
+            valid &= bits[:, j:j + n_win]
+    if key_range is not None:
+        # every real key is below 2^62, so clamping the uint64 bounds
+        # there keeps the int64 compare exact (2^64 - 1 read as int64
+        # would be -1 and drop every key)
+        lo, hi = (min(b, _KEY_LIMIT) for b in _check_range(key_range))
+        valid &= (keys >= lo) & (keys < hi)
+    return torch.where(valid, keys, SENT).reshape(-1)
+
+
+def count_windows(packed: torch.Tensor, lengths: torch.Tensor, k: int,
+                  good: torch.Tensor | None = None,
+                  key_range=None) -> torch.Tensor:
+    """Canonical window keys of packed reads, invalid ones the sentinel (K4).
+
+    packed: (N, Lp) uint8, 4 bases a byte; lengths: (N,) int32; good:
+    None (every in-length base is ACGT) or (N, Lp/2) uint8, bit j of
+    byte m for base 8m+j; key_range: None or uint64 bounds [lo, hi).
+    Returns (N * (4*Lp - k + 1),) int64, read-major: a window is its key
+    iff it lies in the read, its bases are all good and its key is in
+    range, else INT64_MAX.
+    """
+    E._check_k(k)
+    E.check_packed(packed, lengths)
+    n, lp = packed.shape
+    if good is not None and (good.dtype != torch.uint8
+                             or good.shape != (n, lp // 2) or lp % 2):
+        raise ValueError(f"good must be ({n}, {lp // 2}) uint8 for an even "
+                         f"packed stride, got {tuple(good.shape)} "
+                         f"{good.dtype} for stride {lp}")
+    lo, hi = _check_range(key_range) if key_range is not None else (0, 0)
+    if packed.device.type == "cpu":
+        return count_windows_ref(packed, lengths, k, good, key_range)
+    _build.require_cuda("count_windows", packed, lengths,
+                        *(() if good is None else (good,)))
+    n_win = max(4 * lp - k + 1, 0)
+    keys = torch.empty(n * n_win, dtype=torch.int64, device=packed.device)
+    if keys.numel() == 0:
+        return keys
+    rc = _build.load_library().hast_count_windows(
+        packed.data_ptr(), lengths.data_ptr(),
+        None if good is None else good.data_ptr(),
+        0 if good is None else good.shape[1], n, lp, k,
+        int(key_range is not None), lo, hi, keys.data_ptr(),
+        _build.stream_of(packed))
+    _build.check(rc, "count_windows")
+    _build.LAUNCHES["count_windows"] += 1
+    return keys
+
+
+# ---------------------------------------------------------------------------
+# K5: stable sort of keys with an int32 payload
+# ---------------------------------------------------------------------------
+
+_SORT_TILE = 8192     # sort.cu kTile
+_SCAN_TILE = 4096     # scan.cuh kScanTile
+
+
+def _scan_scratch(n: int, device) -> torch.Tensor:
+    return torch.empty(-(-n // _SCAN_TILE) + 1, dtype=torch.int64,
+                       device=device)
+
+
+def _check_keys(name: str, keys: torch.Tensor, *int32s) -> None:
+    if keys.dtype != torch.int64 or keys.dim() != 1:
+        raise ValueError(f"{name}: keys must be 1-D int64, got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    for t in int32s:
+        if t is not None and (t.dtype != torch.int32
+                              or t.shape != keys.shape):
+            raise ValueError(f"{name}: counts must be {tuple(keys.shape)} "
+                             f"int32, got {tuple(t.shape)} {t.dtype}")
+
+
+def sort_pairs_ref(keys: torch.Tensor, payload: torch.Tensor | None,
+                   k: int, scratch=None):
+    """Plain PyTorch twin of :func:`sort_pairs` (new tensors always)."""
+    _build.TWIN_CALLS["sort_pairs_ref"] += 1
+    out, order = torch.sort(keys, stable=True)
+    return out, None if payload is None else payload[order]
+
+
+def sort_pairs(keys: torch.Tensor, payload: torch.Tensor | None, k: int,
+               scratch=None):
+    """Stable ascending sort of int64 keys carrying an int32 payload (K5).
+
+    Every key must be a canonical k-mer word (below 2^(2k)) or INT64_MAX:
+    the kernel sorts the low 2k+1 bits only, which orders such keys as a
+    full sort does.  payload may be None.  Returns (keys, payload) sorted;
+    equal keys keep their input order.
+
+    scratch: None, or a (keys, payload) pair of buffers shaped like the
+    input.  Without it the sort allocates two buffer pairs and leaves the
+    input as it was.  With it the passes alternate between scratch and
+    the input itself, which is overwritten: the result is returned as
+    one of the two pairs (``result[0] is keys`` after an even number of
+    passes) and the other is free.  The twin ignores it.
+    """
+    E._check_k(k)
+    _check_keys("sort_pairs", keys, payload)
+    if scratch is not None:
+        _check_keys("sort_pairs", scratch[0], scratch[1])
+        if scratch[0].shape != keys.shape or (payload is None) != (
+                scratch[1] is None):
+            raise ValueError("sort_pairs: scratch must be shaped like the "
+                             "keys and the payload")
+    if keys.device.type == "cpu":
+        return sort_pairs_ref(keys, payload, k)
+    tensors = (keys,) if payload is None else (keys, payload)
+    _build.require_cuda("sort_pairs", *tensors,
+                        *(t for t in scratch or () if t is not None))
+    n = keys.numel()
+    if n >= 1 << 31:
+        raise ValueError(f"sort_pairs: {n} keys, at most 2^31 - 1")
+    if n == 0:
+        return keys.clone(), None if payload is None else payload.clone()
+    dev = keys.device
+    if scratch is None:
+        ka, kb = torch.empty_like(keys), torch.empty_like(keys)
+        pa, pb = ((None, None) if payload is None else
+                  (torch.empty_like(payload), torch.empty_like(payload)))
+    else:
+        (ka, pa), (kb, pb) = scratch, (keys, payload)
+    hist = torch.empty(256 * -(-n // _SORT_TILE), dtype=torch.int32,
+                       device=dev)
+    tile_sums = _scan_scratch(hist.numel(), dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = _build.load_library().hast_sort_pairs(
+        keys.data_ptr(), ptr(payload), ka.data_ptr(), ptr(pa),
+        kb.data_ptr(), ptr(pb), n, 2 * k + 1, hist.data_ptr(),
+        tile_sums.data_ptr(), _build.stream_of(keys))
+    _build.check(rc, "sort_pairs")
+    _build.LAUNCHES["sort_pairs"] += 1
+    if -(-(2 * k + 1) // 8) % 2:
+        return ka, pa
+    return kb, pb
+
+
+# ---------------------------------------------------------------------------
+# K6: fold a sorted run
+# ---------------------------------------------------------------------------
+
+
+def fold_runs_ref(keys: torch.Tensor, counts: torch.Tensor, out=None):
+    """Plain PyTorch twin of :func:`fold_runs` (new tensors always)."""
+    _build.TWIN_CALLS["fold_runs_ref"] += 1
+    n = keys.numel()
+    out_keys = torch.full_like(keys, SENT)
+    if n == 0:
+        return out_keys, torch.zeros_like(counts), \
+            torch.zeros((), dtype=torch.int64, device=keys.device)
+    start = torch.ones(n, dtype=torch.bool, device=keys.device)
+    start[1:] = keys[1:] != keys[:-1]
+    group = torch.cumsum(start, 0) - 1
+    is_sent = keys == SENT
+    out_keys[group[start]] = keys[start]
+    sums = torch.zeros(n, dtype=torch.int64, device=keys.device).index_add_(
+        0, group, torch.where(is_sent, 0, counts).to(torch.int64))
+    # int32 atomics in the kernel wrap as this cast does
+    return out_keys, sums.to(torch.int32), (start & ~is_sent).sum()
+
+
+def fold_runs(keys: torch.Tensor, counts: torch.Tensor, out=None):
+    """Sum the counts of equal keys of a sorted run into the front (K6).
+
+    keys: (n,) int64 ascending (real keys, then INT64_MAX pads); counts:
+    (n,) int32.  Returns (out_keys, out_counts, n_unique): slot g < groups
+    holds the g-th distinct key and its count sum, the pads' group keeps
+    INT64_MAX with count 0, other slots are (INT64_MAX, 0); n_unique is a
+    0-d int64 tensor on the keys' device counting the real groups.
+    out: None, or an (out_keys, out_counts) pair of buffers shaped like
+    the input and apart from it, which the kernel fills and returns; the
+    twin ignores it.
+    """
+    _check_keys("fold_runs", keys, counts)
+    if out is not None:
+        _check_keys("fold_runs", out[0], out[1])
+        if out[0].shape != keys.shape:
+            raise ValueError("fold_runs: out must be shaped like the keys")
+    if keys.device.type == "cpu":
+        return fold_runs_ref(keys, counts)
+    _build.require_cuda("fold_runs", keys, counts, *(out or ()))
+    if out is None:
+        out_keys, out_counts = torch.empty_like(keys), torch.empty_like(counts)
+    else:
+        out_keys, out_counts = out
+        if keys.numel() and out_keys.data_ptr() == keys.data_ptr():
+            raise ValueError("fold_runs: out must not be the input")
+    n_unique = torch.zeros((), dtype=torch.int64, device=keys.device)
+    if keys.numel() == 0:
+        return out_keys, out_counts, n_unique
+    tile_sums = _scan_scratch(keys.numel(), keys.device)
+    rc = _build.load_library().hast_fold_runs(
+        keys.data_ptr(), counts.data_ptr(), keys.numel(),
+        out_keys.data_ptr(), out_counts.data_ptr(), n_unique.data_ptr(),
+        tile_sums.data_ptr(), _build.stream_of(keys))
+    _build.check(rc, "fold_runs")
+    _build.LAUNCHES["fold_runs"] += 1
+    return out_keys, out_counts, n_unique
+
+
+# ---------------------------------------------------------------------------
+# K7: histogram and total
+# ---------------------------------------------------------------------------
+
+
+def count_stats_ref(counts: torch.Tensor, high: int):
+    """Plain PyTorch twin of :func:`count_stats`."""
+    _build.TWIN_CALLS["count_stats_ref"] += 1
+    bins = torch.bincount(counts.clamp(0, high + 1).to(torch.int64),
+                          minlength=high + 2)
+    bins[0] = 0
+    return bins, counts.sum(dtype=torch.int64)
+
+
+def count_stats(counts: torch.Tensor, high: int):
+    """Histogram bins and total of a count table (K7).
+
+    Returns bins, (high+2,) int64 with bins[v] = #counts equal to v for
+    1 <= v <= high, bins[high+1] = #counts above high and bins[0] = 0,
+    and the 0-d int64 total of the counts, both on counts' device.
+    """
+    if counts.dtype != torch.int32 or counts.dim() != 1:
+        raise ValueError(f"count_stats: counts must be 1-D int32, got "
+                         f"{tuple(counts.shape)} {counts.dtype}")
+    if not 0 <= high < 1 << 30:
+        raise ValueError(f"count_stats: high must be in [0, 2^30), got "
+                         f"{high}")
+    if counts.device.type == "cpu":
+        return count_stats_ref(counts, high)
+    _build.require_cuda("count_stats", counts)
+    bins = torch.zeros(high + 2, dtype=torch.int64, device=counts.device)
+    total = torch.zeros((), dtype=torch.int64, device=counts.device)
+    rc = _build.load_library().hast_count_stats(
+        counts.data_ptr(), counts.numel(), high, bins.data_ptr(),
+        total.data_ptr(), _build.stream_of(counts))
+    _build.check(rc, "count_stats")
+    _build.LAUNCHES["count_stats"] += 1
+    return bins, total
+
+
+# ---------------------------------------------------------------------------
+# K8: the marker algebra
+# ---------------------------------------------------------------------------
+
+
+def _filter_side_ref(x_keys, x_counts, y_keys, y_n: int, lower: int,
+                     upper: int):
+    if y_n:
+        y = y_keys[:y_n]
+        pos = torch.searchsorted(y, x_keys).clamp_(max=y_n - 1)
+        shared = y[pos] == x_keys
+    else:
+        shared = torch.zeros(x_keys.shape, dtype=torch.bool,
+                             device=x_keys.device)
+    keep = (~shared & (x_keys != SENT) & (x_counts >= lower)
+            & (x_counts <= upper))
+    kept = x_keys[keep]
+    out = torch.full_like(x_keys, SENT)
+    out[:kept.numel()] = kept
+    return out, torch.tensor(kept.numel(), dtype=torch.int64,
+                             device=x_keys.device)
+
+
+def marker_filter_ref(a_keys, a_counts, a_n: int, b_keys, b_counts,
+                      b_n: int, bounds):
+    """Plain PyTorch twin of :func:`marker_filter`."""
+    _build.TWIN_CALLS["marker_filter_ref"] += 1
+    a_lower, a_upper, b_lower, b_upper = bounds
+    return (*_filter_side_ref(a_keys, a_counts, b_keys, b_n, a_lower,
+                              a_upper),
+            *_filter_side_ref(b_keys, b_counts, a_keys, a_n, b_lower,
+                              b_upper))
+
+
+def _filter_side(lib, x_keys, x_counts, y_keys, y_n: int, lower: int,
+                 upper: int):
+    n = x_keys.numel()
+    out = torch.empty_like(x_keys)
+    keep = torch.empty(n, dtype=torch.uint8, device=x_keys.device)
+    tile_sums = _scan_scratch(n, x_keys.device)
+    rc = lib.hast_marker_filter(
+        x_keys.data_ptr(), x_counts.data_ptr(), n, y_keys.data_ptr(), y_n,
+        lower, upper, keep.data_ptr(), tile_sums.data_ptr(), out.data_ptr(),
+        _build.stream_of(x_keys))
+    _build.check(rc, "marker_filter")
+    _build.LAUNCHES["marker_filter"] += 1
+    return out, tile_sums[-1]
+
+
+def marker_filter(a_keys: torch.Tensor, a_counts: torch.Tensor, a_n: int,
+                  b_keys: torch.Tensor, b_counts: torch.Tensor, b_n: int,
+                  bounds):
+    """Keys unique to each of two count tables, within its bounds (K8).
+
+    a_keys / b_keys: ascending distinct int64 runs whose first a_n / b_n
+    rows are real and the rest INT64_MAX pads; counts int32 beside them;
+    bounds = (a_lower, a_upper, b_lower, b_upper), inclusive.  Returns
+    (a_out, a_kept, b_out, b_kept): each out holds the kept keys
+    ascending at its front and INT64_MAX after them; each kept is a 0-d
+    int64 tensor on the device.  A key is kept iff it is real, absent
+    from the other table and its count lies within the bounds.
+    """
+    _check_keys("marker_filter", a_keys, a_counts)
+    _check_keys("marker_filter", b_keys, b_counts)
+    if not (0 <= a_n <= a_keys.numel() and 0 <= b_n <= b_keys.numel()):
+        raise ValueError(f"marker_filter: n_valid {a_n}, {b_n} outside the "
+                         f"tables ({a_keys.numel()}, {b_keys.numel()})")
+    a_lower, a_upper, b_lower, b_upper = (int(b) for b in bounds)
+    if a_keys.device.type == "cpu":
+        return marker_filter_ref(a_keys, a_counts, a_n, b_keys, b_counts,
+                                 b_n, (a_lower, a_upper, b_lower, b_upper))
+    _build.require_cuda("marker_filter", a_keys, a_counts, b_keys, b_counts)
+    lib = _build.load_library()
+    out = (*_filter_side(lib, a_keys, a_counts, b_keys, b_n, a_lower,
+                         a_upper),
+           *_filter_side(lib, b_keys, b_counts, a_keys, a_n, b_lower,
+                         b_upper))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# device-resident count tables
+# ---------------------------------------------------------------------------
+
+
+def _words_np(keys: torch.Tensor) -> np.ndarray:
+    return keys.cpu().numpy().astype(np.uint64)
+
+
+@dataclasses.dataclass
+class DeviceCountTable:
+    """Sorted (canonical k-mer -> count) table resident on a device.
+
+    keys: (n,) int64 ascending, real for the first n_valid rows and
+    INT64_MAX after; counts: (n,) int32, 0 on pads.  Histogram and total
+    reduce on the device (K7), the marker algebra runs there (K8), and
+    only its result comes to the host.
+    """
+
+    keys: torch.Tensor
+    counts: torch.Tensor
+    n_valid: int
+    k: int
+
+    @classmethod
+    def from_reference(cls, ref, device="cpu") -> "DeviceCountTable":
+        """A hast_tpu DeviceCountTable's (hi, lo, counts) on ``device``."""
+        hi = np.asarray(ref.hi).astype(np.int64)
+        lo = np.asarray(ref.lo).astype(np.int64)
+        sent = (hi == _REF_SENT) & (lo == _REF_SENT)
+        keys = np.where(sent, SENT, (hi << 32) | lo)
+        return cls(torch.from_numpy(keys).to(device),
+                   torch.from_numpy(np.array(ref.counts, np.int32)).to(
+                       device), int(ref.n_valid), int(ref.k))
+
+    def to_reference(self) -> tuple:
+        """(hi, lo, counts, n_valid, k): hast_tpu's DeviceCountTable fields
+        as numpy, sentinel pads as (0xFFFFFFFF, 0xFFFFFFFF)."""
+        keys = self.keys.cpu().numpy()
+        sent = keys == SENT
+        hi = np.where(sent, _REF_SENT, keys >> 32).astype(np.uint32)
+        lo = np.where(sent, _REF_SENT, keys & 0xFFFFFFFF).astype(np.uint32)
+        return hi, lo, self.counts.cpu().numpy(), self.n_valid, self.k
+
+    @property
+    def n_distinct(self) -> int:
+        return self.n_valid
+
+    @property
+    def total(self) -> int:
+        return int(count_stats(self.counts, 0)[1])
+
+    def histo(self, low: int = 1, high: int = 10000) -> np.ndarray:
+        """:meth:`CountTable.histo` computed on the device, int64 bins."""
+        return count_stats(self.counts, high)[0].cpu().numpy()
+
+    def fetch(self) -> CountTable:
+        """Full device->host copy (tests and the host engine)."""
+        n = self.n_valid
+        return CountTable(_words_np(self.keys[:n]),
+                          self.counts[:n].cpu().numpy().astype(np.int64),
+                          self.k)
+
+
+def device_marker_algebra(pat: DeviceCountTable, mat: DeviceCountTable,
+                          p_lower: int, p_upper: int,
+                          m_lower: int, m_upper: int
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """unique(parent) ∩ count-range(parent) for both parents, on device.
+
+    The reference stage-00 algebra (jellyfish dump -L/-U range filters,
+    the 2*mat+1*pat mix-count uniqueness trick and the count==2
+    intersection) as one K8 call over the two resident tables; only the
+    kept words come to the host.  Returns (paternal_words,
+    maternal_words), ascending uint64.
+    """
+    p_out, p_n, m_out, m_n = marker_filter(
+        pat.keys, pat.counts, pat.n_valid, mat.keys, mat.counts,
+        mat.n_valid, (p_lower, p_upper, m_lower, m_upper))
+    return _words_np(p_out[:int(p_n)]), _words_np(m_out[:int(m_n)])
+
+
+class DeviceCounter:
+    """Streaming counter whose table stays on the device.
+
+    Chunks of window keys pile up on the device and fold into one sorted
+    run of distinct keys and their counts (K5 sort + K6 fold); only
+    finalize() copies distinct rows to the host.  The jellyfish
+    "-s MEM in-memory hash" analog.
+    """
+
+    # A fold holds twice its concatenated input: the sort ping-pongs
+    # between the concat and one more buffer pair, and the fold writes
+    # into whichever pair the sort left free (12 B an element each), as
+    # the JAX fold budgets.  One fold at a time across counters bounds
+    # the peak to one such transient plus the resident runs when two
+    # parents count on two threads.  Each fold waits for its n_unique, so
+    # its buffers are free when it releases the lock.
+    _FOLD_LOCK = threading.Lock()
+
+    def __init__(self, k: int, device="cpu", fold_above: int = FOLD_ABOVE):
+        self.k = k
+        self.device = torch.device(device)
+        self._chunks: list[tuple[torch.Tensor, torch.Tensor | None]] = []
+        self._chunk_elems = 0
+        self._run: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._run_valid = 0
+        self._fold_above = fold_above
+        self.n_folds = 0
+
+    def _fold_threshold(self) -> int:
+        """Amortized fold trigger: let chunks pile up to about the size of
+        the resident run (about 2 sorted rows per new row), capping the
+        fold's concat at 250M elements, so that its transient (two
+        buffer pairs of 12 B an element) stays near 6 GB."""
+        run = self._run_valid
+        cap = 250_000_000
+        return max(self._fold_above, min(run, max(0, cap - run)))
+
+    def add_sorted_chunk(self, keys: torch.Tensor) -> None:
+        """Queue a chunk of window keys (pads INT64_MAX), count 1 each."""
+        keys = keys.reshape(-1)
+        self._chunks.append((keys, None))
+        self._chunk_elems += keys.numel()
+        if self._chunk_elems >= self._fold_threshold():
+            self._fold()
+
+    def merge_device(self, other: "DeviceCounter") -> None:
+        """Union-sum another counter's run into this one, on the device
+        (its run enters the next fold as a weighted chunk)."""
+        other._fold()
+        if other._run is not None:
+            self._chunks.append(other._run)
+            self._chunk_elems += other._run[0].numel()
+            other._run = None
+            other._run_valid = 0
+            if self._chunk_elems >= self._fold_threshold():
+                self._fold()
+
+    def _fold(self) -> None:
+        with self._FOLD_LOCK:
+            if not self._chunks:
+                return
+            parts = self._chunks
+            if self._run is not None:
+                parts.append(self._run)
+            self._chunks = []
+            self._chunk_elems = 0
+            keys = torch.cat([c for c, _ in parts])
+            counts = torch.cat([
+                n if n is not None else
+                torch.ones(c.numel(), dtype=torch.int32, device=c.device)
+                for c, n in parts])
+            del parts
+            self._run = None
+            spare = (torch.empty_like(keys), torch.empty_like(counts))
+            sorted_ = sort_pairs(keys, counts, self.k, scratch=spare)
+            free = spare if sorted_[0] is keys else (keys, counts)
+            del keys, counts, spare
+            keys, counts, n_unique = fold_runs(*sorted_, out=free)
+            del sorted_, free
+            n = int(n_unique)
+            # clone: the slice alone would keep the whole fold buffer alive
+            self._run = ((keys[:n].clone(), counts[:n].clone()) if n
+                         else None)
+            self._run_valid = n
+            self.n_folds += 1
+
+    def finalize_device(self) -> DeviceCountTable:
+        """Finish folding and keep the table on the device."""
+        self._fold()
+        if self._run is None:
+            return DeviceCountTable(
+                torch.zeros(0, dtype=torch.int64, device=self.device),
+                torch.zeros(0, dtype=torch.int32, device=self.device), 0,
+                self.k)
+        return DeviceCountTable(*self._run, self._run_valid, self.k)
+
+    def finalize(self) -> CountTable:
+        return self.finalize_device().fetch()
+
+
+# ---------------------------------------------------------------------------
+# counting over batches and files
+# ---------------------------------------------------------------------------
+
+
+def _assemble_ascii(buf: list):
+    """Packed reads, ACGT mask and lengths of ASCII ReadBatches, stacked
+    row-wise with the stride padded to 8 bases (8 mask bits a byte)."""
+    L = max(b.seqs.shape[1] for b in buf)
+    L = -(-L // 8) * 8
+    seqs = np.zeros((sum(b.seqs.shape[0] for b in buf), L), np.uint8)
+    lengths = np.zeros(seqs.shape[0], np.int32)
+    r = 0
+    for b in buf:
+        rows = b.seqs.shape[0]
+        seqs[r:r + rows, :b.seqs.shape[1]] = b.seqs
+        lengths[r:r + b.lengths.shape[0]] = b.lengths
+        r += rows
+    return E.pack_codes_np(seqs), pack_good_np(seqs), lengths
+
+
+def _on(device, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays]
+
+
+def count_batches(batches: Iterable, k: int, super_batch: int = 8,
+                  finalize: bool = True, key_range=None,
+                  fold_above: int = FOLD_ABOVE, device="cpu"
+                  ) -> "CountTable | DeviceCounter":
+    """Count canonical k-mers over an iterable of ASCII ReadBatches.
+
+    Every super_batch batches are packed on the host and go to the
+    device as one K4 launch; the keys fold in a :class:`DeviceCounter`.
+    key_range=(lo, hi) keeps only canonical keys in [lo, hi) (one pass
+    of the partitioned counter).  finalize=False returns the counter,
+    still on the device.
+    """
+    dcounter = DeviceCounter(k, device, fold_above)
+    buf: list = []
+
+    def flush():
+        packed, good, lengths = _on(dcounter.device, *_assemble_ascii(buf))
+        buf.clear()
+        dcounter.add_sorted_chunk(count_windows(packed, lengths, k, good,
+                                                key_range))
+
+    for batch in batches:
+        buf.append(batch)
+        if len(buf) >= super_batch:
+            flush()
+    if buf:
+        flush()
+    return dcounter if not finalize else dcounter.finalize()
+
+
+def estimate_boundaries(batches_sample, k: int, n_parts: int,
+                        device="cpu") -> np.ndarray:
+    """Key-space split points equalizing mass, from a sample's sorted
+    canonical k-mers (canonical keys skew low, so even splits would
+    unbalance the passes).  Returns (n_parts + 1,) uint64 ascending
+    bounds, [0, 2^64) padded."""
+    chunks = []
+    for b in batches_sample:
+        packed, good, lengths = _on(device, *_assemble_ascii([b]))
+        keys, _ = sort_pairs(count_windows(packed, lengths, k, good), None,
+                             k)
+        w = keys.cpu().numpy()
+        chunks.append(w[w != SENT].astype(np.uint64))
+    sample = np.sort(np.concatenate(chunks)) if chunks else \
+        np.zeros(0, np.uint64)
+    bounds = np.empty(n_parts + 1, np.uint64)
+    bounds[0] = 0
+    bounds[-1] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    for p in range(1, n_parts):
+        if sample.size:
+            bounds[p] = sample[min(sample.size - 1,
+                                   sample.size * p // n_parts)]
+        else:
+            # python-int arithmetic: uint64 p * 2^62 would wrap
+            bounds[p] = np.uint64((p * 2**64) // n_parts)
+    return bounds
+
+
+def sample_boundaries(batch_source: Callable, k: int, n_parts: int,
+                      n_sample: int = 16, scan_cap: int = 512,
+                      device="cpu") -> np.ndarray:
+    """Quantile split points from a strided sample: every
+    (scan_cap // n_sample)-th of the first scan_cap batches, since
+    genomic input is locally correlated."""
+    stride = max(1, scan_cap // n_sample)
+    sample = []
+    for i, b in enumerate(batch_source()):
+        if i >= scan_cap:
+            break
+        if i % stride == 0:
+            sample.append(b)
+    return estimate_boundaries(sample, k, n_parts, device)
+
+
+def count_pass_device(batch_source: Callable, k: int, lo_bound, hi_bound,
+                      super_batch: int = 8, fold_above: int = FOLD_ABOVE,
+                      device="cpu") -> DeviceCounter:
+    """One key-range pass: stream the whole input and fold only canonical
+    k-mers in [lo_bound, hi_bound) into a device-resident counter."""
+    return count_batches(batch_source(), k, super_batch, finalize=False,
+                         key_range=(lo_bound, hi_bound),
+                         fold_above=fold_above, device=device)
+
+
+def count_batches_partitioned(batch_source: Callable, k: int, n_parts: int,
+                              super_batch: int = 8,
+                              boundaries: np.ndarray | None = None,
+                              device="cpu") -> CountTable:
+    """Multi-pass counting with a resident run of ~1/n_parts of the
+    distinct set: pass p streams the whole input and keeps only key range
+    p; the ranges are disjoint, so the tables concatenate.
+
+    batch_source: callable returning a fresh iterator of ReadBatches.
+    """
+    if boundaries is None:
+        boundaries = sample_boundaries(batch_source, k, n_parts,
+                                       device=device)
+    parts: list[CountTable] = []
+    for p in range(n_parts):
+        t = count_pass_device(batch_source, k, boundaries[p],
+                              boundaries[p + 1], super_batch,
+                              device=device).finalize()
+        print(f"  count pass {p + 1}/{n_parts}: {t.n_distinct} distinct "
+              f"k-mers resident", file=sys.stderr)
+        parts.append(t)
+    words = np.concatenate([t.words for t in parts])
+    counts = np.concatenate([t.counts for t in parts])
+    if not np.all(words[1:] > words[:-1]):
+        raise RuntimeError("key-range passes overlap")
+    return CountTable(words, counts, k)
+
+
+def open_count_reader(path: str, batch_size: int = 1 << 14):
+    """The native counting reader of a fasta/fastq file, or None when it
+    cannot take the file (no library, unreadable or unknown format).
+
+    Iterating it yields batches of packed reads, their ACGT masks and
+    lengths, decoded on its C++ threads; the caller closes it."""
+    from hast_tpu.io import fastq as FQ
+    try:
+        from hast_tpu.io import native as N
+        if N.get_lib() is None or not hasattr(N.get_lib(),
+                                              "hastio_open_count"):
+            return None
+        fmt = FQ.detect_format(path)
+        return N.NativeCountReader(path, batch_size, fastq=(fmt == "fastq"))
+    except (ImportError, RuntimeError, FileNotFoundError, ValueError):
+        return None
+
+
+def count_file_native(path: str, k: int, batch_size: int = 1 << 14,
+                      super_batch: int = 8, finalize: bool = True,
+                      key_range=None, fold_above: int = FOLD_ABOVE,
+                      device="cpu") -> "CountTable | DeviceCounter | None":
+    """Count one fasta/fastq file through the native counting reader.
+
+    Its C++ threads decode, 2-bit pack and build the ACGT mask.  A super
+    batch whose bases are all ACGT (the common case) goes to K4 without
+    its mask.  Returns None when the reader cannot take the file (no
+    library, a read beyond its length cap, multi-line fasta): callers
+    fall back to the python reader; the fold is abandoned whole.
+    """
+    reader = open_count_reader(path, batch_size)
+    if reader is None:
+        return None
+    dcounter = DeviceCounter(k, device, fold_above)
+    buf: list = []
+    clean: list = []
+
+    def flush():
+        sp = max(b.packed.shape[1] for b in buf)
+        rows = sum(b.packed.shape[0] for b in buf)
+        packed = np.zeros((rows, sp), np.uint8)
+        lengths = np.zeros(rows, np.int32)
+        good = None if all(clean) else np.zeros((rows, sp // 2), np.uint8)
+        r = 0
+        for b in buf:
+            n = b.packed.shape[0]
+            packed[r:r + n, :b.packed.shape[1]] = b.packed
+            lengths[r:r + n] = b.lengths
+            if good is not None:
+                good[r:r + n, :b.good.shape[1]] = b.good
+            r += n
+        buf.clear()
+        clean.clear()
+        packed_t, lengths_t = _on(dcounter.device, packed, lengths)
+        good_t = None if good is None else _on(dcounter.device, good)[0]
+        dcounter.add_sorted_chunk(count_windows(packed_t, lengths_t, k,
+                                                good_t, key_range))
+
+    # only reader errors (truncation, multi-line fasta) may trigger the
+    # python fallback; a device error from flush() propagates
+    it = iter(reader)
+    try:
+        while True:
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            except RuntimeError:
+                return None
+            buf.append(batch)
+            clean.append(batch_is_clean(batch.good, batch.lengths))
+            if len(buf) >= super_batch:
+                flush()
+        if buf:
+            flush()
+    finally:
+        reader.close()
+    return dcounter if not finalize else dcounter.finalize()

@@ -1,0 +1,396 @@
+"""Stage 00: parental unique-marker construction (port of
+hast_tpu/pipeline/markers.py).
+
+The reference jellyfish pipeline (build_unshared_kmers.sh) and its
+counterparts here:
+
+  count -C per parent              (:188-221)   count_files(_device)
+  histo + find_bounds.awk                       histo_rows + find_bounds
+  dump -L lo -U up                 (:257-268)   filter_range / K8 bounds
+  2*mat.fa + 1*pat.fa count trick  (:271-283)   difference / K8 search
+  unique∩filter re-count           (:285-298)   the same K8 call
+  *.unique.filter.mer text dump    (:290-291)   dump_words
+
+A k-mer of parent A is "unique" iff absent from parent B's count table,
+and the markers of A are unique(A) ∩ count-range(A).  Engine ``device``
+(the default) keeps both count tables on the device and fetches only the
+markers; engine ``host`` fetches each table and snapshots it per
+sub-step (``.counts.npz``), for the reference's finer resume.  On
+``--device cpu`` both run the kernels' plain PyTorch twins.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import threading
+import time
+from typing import Sequence
+
+import numpy as np
+
+from hast_tpu.io import fastq as FQ
+from hast_tpu_torch.ops import kmer_count as KC
+
+DEFAULT_K = 21
+DEFAULT_LOWER = 9
+DEFAULT_UPPER = 33
+HIGH = 10000        # jellyfish histo's default high bin
+
+
+def count_files(paths: Sequence[str], k: int,
+                batch_size: int = FQ.DEFAULT_BATCH, n_parts: int = 1,
+                device="cpu") -> KC.CountTable:
+    """Count canonical k-mers over fasta/fastq files (jellyfish count -C)
+    into a host table.  n_parts > 1 counts in key-range passes, each with
+    a resident run of ~1/n_parts of the distinct set."""
+    if n_parts > 1:
+        def source():
+            for path in paths:
+                yield from FQ.sequence_batches(path, k, batch_size)
+        return KC.count_batches_partitioned(source, k, n_parts,
+                                            device=device)
+    counter = KC.Counter(k)
+    for path in paths:
+        t = KC.count_file_native(path, k, batch_size, device=device)
+        if t is None:
+            t = KC.count_batches(FQ.sequence_batches(path, k, batch_size),
+                                 k, device=device)
+        counter.add_table(t)
+    return counter.finalize()
+
+
+def count_files_device(paths: Sequence[str], k: int,
+                       batch_size: int = FQ.DEFAULT_BATCH, device="cpu"
+                       ) -> KC.DeviceCountTable:
+    """Count canonical k-mers keeping the table on the device: the files'
+    runs union-sum with DeviceCounter.merge_device."""
+    total = KC.DeviceCounter(k, device)
+    for path in paths:
+        dc = KC.count_file_native(path, k, batch_size, finalize=False,
+                                  device=device)
+        if dc is None:
+            dc = KC.count_batches(FQ.sequence_batches(path, k, batch_size),
+                                  k, finalize=False, device=device)
+        total.merge_device(dc)
+    return total.finalize_device()
+
+
+def count_files_device_pair(a_paths: Sequence[str],
+                            b_paths: Sequence[str], k: int,
+                            batch_size: int = FQ.DEFAULT_BATCH,
+                            device="cpu"):
+    """Count both parents on two threads, so that one parent's reader and
+    host packing run while the other's folds hold the device.  Each
+    parent's stream and fold are its own, so the tables equal those of
+    counting one after the other.  Returns (a_table, b_table)."""
+    out: dict = {}
+
+    def work(tag, paths):
+        try:
+            out[tag] = count_files_device(paths, k, batch_size, device)
+        except BaseException as e:   # re-raised on the caller's thread
+            out[tag] = e
+
+    t = threading.Thread(target=work, args=("a", a_paths),
+                         name="hast-count-a")
+    t.start()
+    work("b", b_paths)
+    t.join()
+    for tag in ("a", "b"):
+        if isinstance(out[tag], BaseException):
+            raise out[tag]
+    return out["a"], out["b"]
+
+
+def histo_rows(table, high: int = HIGH):
+    """(count_value, n_kmers) rows exactly as `jellyfish histo` prints:
+    non-zero bins only, counts > high lumped into the high+1 row."""
+    return _rows_from_hist(table.histo(high=high))
+
+
+def _rows_from_hist(hist) -> list[tuple[int, int]]:
+    return [(v, int(hist[v])) for v in range(1, len(hist)) if hist[v] > 0]
+
+
+def find_bounds(rows) -> dict[str, int]:
+    """find_bounds.awk byte for byte on jellyfish histo rows.
+
+    State 0 walks down to the first local minimum: a row whose freq does
+    not set a new minimum flips to state 1 without being considered for
+    the max; state 1 then tracks the running maximum.
+    LOWER = MIN_INDEX+1, UPPER = 3*MAX_INDEX - 2*MIN_INDEX - 1.
+    """
+    MIN = MIN_INDEX = MAX = MAX_INDEX = 0
+    state = 0
+    for i, c in rows:
+        if state == 0:
+            if MIN == 0 or c < MIN:
+                MIN, MIN_INDEX = c, i
+            else:
+                state = 1
+        else:
+            if MAX == 0 or c > MAX:
+                MAX, MAX_INDEX = c, i
+    return {
+        "MIN_INDEX": MIN_INDEX,
+        "MAX_INDEX": MAX_INDEX,
+        "LOWER_INDEX": MIN_INDEX + 1,
+        "UPPER_INDEX": 3 * MAX_INDEX - 2 * MIN_INDEX - 1,
+    }
+
+
+def write_bounds(bounds: dict[str, int], path: str) -> None:
+    """maternal.bounds.txt / paternal.bounds.txt format."""
+    with open(path, "w") as f:
+        for key in ("MIN_INDEX", "MAX_INDEX", "LOWER_INDEX", "UPPER_INDEX"):
+            f.write(f"{key}={bounds[key]}\n")
+
+
+def write_histo(rows, path: str) -> None:
+    with open(path, "w") as f:
+        for v, c in rows:
+            f.write(f"{v} {c}\n")
+
+
+def _write_histos(m_rows, p_rows, auto_bounds: bool, j) -> None:
+    """Both parents' .kmercount.histo, and .bounds.txt with auto_bounds."""
+    write_histo(m_rows, j("maternal.kmercount.histo"))
+    write_histo(p_rows, j("paternal.kmercount.histo"))
+    if auto_bounds:
+        write_bounds(find_bounds(m_rows), j("maternal.bounds.txt"))
+        write_bounds(find_bounds(p_rows), j("paternal.bounds.txt"))
+
+
+def _bounds_in_use(m_rows, p_rows, auto_bounds: bool, bounds, log):
+    """(m_lower, m_upper, p_lower, p_upper): the histos' with
+    auto_bounds, else the given ones; logged as the reference does."""
+    if auto_bounds:
+        mb, pb = find_bounds(m_rows), find_bounds(p_rows)
+        bounds = (mb["LOWER_INDEX"], mb["UPPER_INDEX"],
+                  pb["LOWER_INDEX"], pb["UPPER_INDEX"])
+    _log_bounds(bounds, log)
+    return bounds
+
+
+def _log_bounds(bounds, log) -> None:
+    m_lower, m_upper, p_lower, p_upper = bounds
+    print(f"  the real used kmer-count bounds of maternal is "
+          f"[ {m_lower} , {m_upper} ] ", file=log)
+    print(f"  the real used kmer-count bounds of paternal is "
+          f"[ {p_lower} , {p_upper} ] ", file=log)
+
+
+def _count_lines(path: str) -> int:
+    with open(path, "rb") as f:
+        return sum(1 for _ in f)
+
+
+def build_unshared_markers(
+    paternal: Sequence[str], maternal: Sequence[str], out_dir: str = ".",
+    k: int = DEFAULT_K, auto_bounds: bool = False,
+    p_lower: int = DEFAULT_LOWER, p_upper: int = DEFAULT_UPPER,
+    m_lower: int = DEFAULT_LOWER, m_upper: int = DEFAULT_UPPER,
+    batch_size: int = FQ.DEFAULT_BATCH, log=sys.stderr,
+    n_parts: int | None = None, engine: str | None = None, device="cpu",
+) -> dict[str, str]:
+    """Stage 00: parent counting -> bounds -> unique.filter.mer files.
+
+    Returns the paths of the two marker files (the stage 00/01
+    interface).  engine "device" (also None and "auto"): one
+    all-or-nothing checkpoint, both tables resident, only the markers
+    fetched; n_parts > 1 counts in key-range passes.  engine "host":
+    per-substep checkpoints with ``.counts.npz`` snapshots.
+    """
+    n_parts = n_parts or 1
+    bounds = (m_lower, m_upper, p_lower, p_upper)
+    if engine in (None, "auto", "device"):
+        return _build_unshared_markers_device(
+            paternal, maternal, out_dir, k, auto_bounds, bounds,
+            batch_size, log, n_parts, device)
+    if engine != "host":
+        raise ValueError(f"engine must be auto, device or host, got "
+                         f"{engine!r}")
+
+    from hast_tpu.utils.checkpoint import step
+    from hast_tpu.utils.profiling import PhaseTimer
+    timer = PhaseTimer(log=log)
+    j = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    print("extract unique mers (host count tables) ...", file=log)
+
+    mat = pat = None
+    with step("00.1_count_maternal", out_dir, log=log) as todo:
+        if todo:
+            with timer.phase("count_maternal"):
+                mat = count_files(maternal, k, batch_size, n_parts, device)
+            timer.add_items("count_maternal", mat.total)
+            mat.save(j("maternal.counts.npz"))
+    if mat is None:
+        mat = KC.CountTable.load(j("maternal.counts.npz"))
+    with step("00.2_count_paternal", out_dir, log=log) as todo:
+        if todo:
+            with timer.phase("count_paternal"):
+                pat = count_files(paternal, k, batch_size, n_parts, device)
+            timer.add_items("count_paternal", pat.total)
+            pat.save(j("paternal.counts.npz"))
+    if pat is None:
+        pat = KC.CountTable.load(j("paternal.counts.npz"))
+    for name, t in (("maternal", mat), ("paternal", pat)):
+        print(f"  {name}: {t.n_distinct} distinct / {t.total} total "
+              f"{k}-mers", file=log)
+
+    m_rows, p_rows = histo_rows(mat), histo_rows(pat)
+    with step("00.3_bounds", out_dir, log=log) as todo:
+        if todo:
+            _write_histos(m_rows, p_rows, auto_bounds, j)
+    m_lower, m_upper, p_lower, p_upper = _bounds_in_use(
+        m_rows, p_rows, auto_bounds, bounds, log)
+
+    paths = {
+        "paternal": j("paternal.unique.filter.mer"),
+        "maternal": j("maternal.unique.filter.mer"),
+    }
+    with step("00.4_markers", out_dir, log=log) as todo:
+        if todo:
+            with timer.phase("marker_algebra"):
+                pat_final = pat.difference(mat).filter_range(p_lower,
+                                                             p_upper)
+                mat_final = mat.difference(pat).filter_range(m_lower,
+                                                             m_upper)
+            n_p = pat_final.dump_mer_text(paths["paternal"])
+            n_m = mat_final.dump_mer_text(paths["maternal"])
+        else:
+            n_p = _count_lines(paths["paternal"])
+            n_m = _count_lines(paths["maternal"])
+    print(f"final paternal unique kmer is : {n_p}", file=log)
+    print(f"final maternal unique kmer is : {n_m}", file=log)
+    timer.report()
+    return paths
+
+
+def _build_unshared_markers_device(paternal, maternal, out_dir, k,
+                                   auto_bounds, bounds, batch_size, log,
+                                   n_parts: int, device) -> dict[str, str]:
+    """Device-resident stage 00 (see build_unshared_markers).
+
+    Everything between the reader and the `.mer`/`.histo`/`.bounds.txt`
+    text happens on the device: the host receives the histograms and the
+    final marker words only.
+
+    n_parts > 1: the key space splits into quantile ranges shared by
+    both parents, and the run is two sweeps of n_parts passes each --
+    sweep A sums the per-range histograms (the bounds need all ranges),
+    sweep B counts each range with both parents resident and fetches
+    that range's markers.
+    """
+    from hast_tpu.utils.checkpoint import step
+    from hast_tpu.utils.profiling import PhaseTimer
+    timer = PhaseTimer(log=log)
+    j = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    print("extract unique mers (device-resident count tables) ...",
+          file=log)
+    paths = {
+        "paternal": j("paternal.unique.filter.mer"),
+        "maternal": j("maternal.unique.filter.mer"),
+    }
+    with step("00.device_markers", out_dir, log=log) as todo:
+        if not todo:
+            n_p = _count_lines(paths["paternal"])
+            n_m = _count_lines(paths["maternal"])
+        elif n_parts <= 1:
+            with timer.phase("count_parents"):
+                mat, pat = count_files_device_pair(maternal, paternal, k,
+                                                   batch_size, device)
+            totals = {"maternal": mat.total, "paternal": pat.total}
+            timer.add_items("count_parents", sum(totals.values()))
+            for name, t in (("maternal", mat), ("paternal", pat)):
+                print(f"  {name}: {t.n_distinct} distinct / "
+                      f"{totals[name]} total {k}-mers", file=log)
+            with timer.phase("bounds"):
+                m_rows, p_rows = histo_rows(mat), histo_rows(pat)
+                _write_histos(m_rows, p_rows, auto_bounds, j)
+                m_lower, m_upper, p_lower, p_upper = _bounds_in_use(
+                    m_rows, p_rows, auto_bounds, bounds, log)
+            with timer.phase("marker_algebra"):
+                p_words, m_words = KC.device_marker_algebra(
+                    pat, mat, p_lower, p_upper, m_lower, m_upper)
+            n_p = KC.dump_words(p_words, k, paths["paternal"])
+            n_m = KC.dump_words(m_words, k, paths["maternal"])
+        else:
+            n_p, n_m = _markers_partitioned(paternal, maternal, k,
+                                            auto_bounds, bounds,
+                                            batch_size, log, n_parts,
+                                            device, timer, j, paths)
+    print(f"final paternal unique kmer is : {n_p}", file=log)
+    print(f"final maternal unique kmer is : {n_m}", file=log)
+    timer.report()
+    return paths
+
+
+def _markers_partitioned(paternal, maternal, k, auto_bounds, bounds,
+                         batch_size, log, n_parts, device, timer, j, paths):
+    """The two sweeps of the n_parts > 1 device engine; returns the
+    marker counts (paternal, maternal)."""
+    def mat_source():
+        for path in maternal:
+            yield from FQ.sequence_batches(path, k, batch_size)
+
+    # a range pass keeps ~1/n_parts of the stream, so bigger, fewer folds
+    # fit the same memory
+    fold_above = min(192_000_000, KC.FOLD_ABOVE * n_parts)
+
+    def count_range(files, lo_b, hi_b) -> KC.DeviceCountTable:
+        """One key-range pass over a parent's files: the native reader
+        where it takes the file, else the python reader."""
+        total = KC.DeviceCounter(k, device, fold_above=fold_above)
+        for path in files:
+            dc = KC.count_file_native(path, k, batch_size, finalize=False,
+                                      key_range=(lo_b, hi_b),
+                                      fold_above=fold_above, device=device)
+            if dc is None:
+                dc = KC.count_pass_device(
+                    lambda p=path: FQ.sequence_batches(p, k, batch_size),
+                    k, lo_b, hi_b, fold_above=fold_above, device=device)
+            total.merge_device(dc)
+        return total.finalize_device()
+
+    boundaries = KC.sample_boundaries(mat_source, k, n_parts,
+                                      device=device)
+    parents = (("maternal", maternal), ("paternal", paternal))
+    hists = {name: np.zeros(HIGH + 2, np.int64) for name, _ in parents}
+    stats = {name: [0, 0] for name, _ in parents}
+    with timer.phase("histo_sweep"):
+        for p in range(n_parts):
+            for name, files in parents:
+                t0 = time.perf_counter()
+                t = count_range(files, boundaries[p], boundaries[p + 1])
+                hists[name] += t.histo(high=HIGH)
+                stats[name][0] += t.n_distinct
+                stats[name][1] += t.total
+                print(f"  count pass {p + 1}/{n_parts} {name}: "
+                      f"{t.n_distinct} distinct resident, "
+                      f"{time.perf_counter() - t0:.1f}s", file=log)
+                del t
+    for name, _ in parents:
+        print(f"  {name}: {stats[name][0]} distinct / {stats[name][1]} "
+              f"total {k}-mers", file=log)
+    with timer.phase("bounds"):
+        m_rows = _rows_from_hist(hists["maternal"])
+        p_rows = _rows_from_hist(hists["paternal"])
+        _write_histos(m_rows, p_rows, auto_bounds, j)
+        m_lower, m_upper, p_lower, p_upper = _bounds_in_use(
+            m_rows, p_rows, auto_bounds, bounds, log)
+    p_parts, m_parts = [], []
+    with timer.phase("marker_sweep"):
+        for p in range(n_parts):
+            dmat = count_range(maternal, boundaries[p], boundaries[p + 1])
+            dpat = count_range(paternal, boundaries[p], boundaries[p + 1])
+            pw, mw = KC.device_marker_algebra(dpat, dmat, p_lower, p_upper,
+                                              m_lower, m_upper)
+            print(f"  marker pass {p + 1}/{n_parts}: {pw.size}+{mw.size} "
+                  "markers", file=log)
+            p_parts.append(pw)
+            m_parts.append(mw)
+            del dmat, dpat
+    return (KC.dump_words(np.concatenate(p_parts), k, paths["paternal"]),
+            KC.dump_words(np.concatenate(m_parts), k, paths["maternal"]))

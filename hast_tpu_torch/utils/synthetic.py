@@ -1,7 +1,7 @@
-"""Seeded synthetic marker files and stLFR reads, vectorized with numpy.
+"""Seeded synthetic marker files, stLFR reads and parental reads, numpy only.
 
-The inputs of ``bench.py``'s classify workload, made without jax and
-without a per-read Python loop, so a million reads take seconds:
+The inputs of ``bench.py``'s classify and stage-00 workloads, made without
+jax and without a per-read Python loop, so a million reads take seconds:
 
 * :func:`make_marker_files`: two disjoint sets of random distinct
   canonical k-mers, each line in a random orientation (as jellyfish dumps
@@ -11,6 +11,9 @@ without a per-read Python loop, so a million reads take seconds:
   1% with a null barcode (0_0_0, 0_0 or 0); the others carry
   ``@V<index>#<a>_<b>_<c>/1`` heads with a, b, c drawn from [1000, 1500),
   so almost every read has a barcode of its own, as in ``bench.py``.
+* :func:`make_trio_genomes` and :func:`make_parent_reads_vectorized`: a
+  child's two haplotypes and shotgun fasta reads of a parent, the same
+  bytes for the same seed as ``hast_tpu.utils.synthetic``'s.
 """
 
 from __future__ import annotations
@@ -84,6 +87,53 @@ def make_stlfr_fastq(seed: int, path: str, markers0: np.ndarray,
             n_rows = np.flatnonzero((which >= 0.30) & (which < 0.32))
             seqs[n_rows, pos[n_rows]] = ord("N")
             f.write(_records(s, seqs, _barcodes(rng, n)))
+
+
+def make_trio_genomes(seed: int, length: int, het_rate: float = 0.01):
+    """A child diploid: a shared backbone plus per-haplotype SNPs.
+
+    Returns (paternal, maternal) genome byte strings.
+    """
+    rng = np.random.default_rng(seed)
+    base = BASES[rng.integers(0, 4, length)]
+    pat, mat = base.copy(), base.copy()
+    pos = rng.choice(length, size=int(length * het_rate), replace=False)
+    for p in pos:
+        alt = BASES[rng.integers(0, 4)]
+        while alt == pat[p]:
+            alt = BASES[rng.integers(0, 4)]
+        if rng.integers(0, 2):
+            pat[p] = alt
+        else:
+            mat[p] = alt
+    return pat.tobytes(), mat.tobytes()
+
+
+def make_parent_reads_vectorized(seed: int, genome: bytes, path: str,
+                                 coverage: float, read_len: int = 100,
+                                 err_rate: float = 0.0) -> int:
+    """Write shotgun fasta reads of a genome (">r" heads, i.i.d. per-base
+    substitution errors, a reverse-complement coin per read); return how
+    many."""
+    rng = np.random.default_rng(seed)
+    g = np.frombuffer(genome, np.uint8)
+    n = int(len(genome) * coverage / read_len)
+    pos = rng.integers(0, len(genome) - read_len + 1, n)
+    reads = g[pos[:, None] + np.arange(read_len)]
+    if err_rate > 0:
+        err = rng.random((n, read_len)) < err_rate
+        reads = np.where(err, BASES[rng.integers(0, 4, (n, read_len))],
+                         reads)
+    flip = rng.integers(0, 2, n).astype(bool)
+    reads[flip] = _revcomp_rows(reads[flip])
+    head = np.frombuffer(b">r\n", np.uint8)
+    with open(path, "wb", buffering=1 << 22) as f:
+        for s in range(0, n, 1 << 18):
+            e = min(n, s + (1 << 18))
+            f.write(np.concatenate(
+                [np.broadcast_to(head, (e - s, 3)), reads[s:e],
+                 np.full((e - s, 1), ord("\n"), np.uint8)], axis=1).tobytes())
+    return n
 
 
 def _barcodes(rng, n: int) -> tuple[np.ndarray, np.ndarray]:

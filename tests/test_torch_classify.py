@@ -74,9 +74,22 @@ def super_batch(seed: int, key_words: np.ndarray, k: int, s: int = 2,
             ids.reshape(s, b), has_n.reshape(s, b), acc)
 
 
-@pytest.mark.parametrize("fmt,k", [("quot", 15), ("quot", 21), ("full", 21),
-                                   ("full", 31)])
+TALLY_CASES = [("quot", 15), ("quot", 21), ("full", 21), ("full", 31)]
+
+
+@pytest.mark.parametrize("fmt,k", TALLY_CASES)
 def test_tally_step_twin_matches_jax(fmt, k):
+    """The id -1 rows are reads that hit markers."""
+    _tally_vs_jax(fmt, k, empty_pads=False)
+
+
+@pytest.mark.parametrize("fmt,k", TALLY_CASES)
+def test_tally_step_empty_pads_match_jax(fmt, k):
+    """The id -1 rows are empty, as the pipeline's pad rows are."""
+    _tally_vs_jax(fmt, k, empty_pads=True)
+
+
+def _tally_vs_jax(fmt: str, k: int, empty_pads: bool):
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from hast_tpu.ops import hashtable as JH
@@ -91,7 +104,17 @@ def test_tally_step_twin_matches_jax(fmt, k):
                              ref.n_keys, ref.set_sizes, ref.fmt)
     packed, lengths, ids, has_n, acc = super_batch(
         k, (hi.astype(np.int64) << 32) | lo, k)
+    if empty_pads:
+        lengths[ids == -1] = 0
     lp = packed.shape[-1]
+    cap = acc.shape[0]
+
+    def jax_tally(ids):
+        return np.asarray(JC.tally_step(
+            jnp.asarray(ref.data), jnp.asarray(acc), jnp.asarray(packed),
+            jnp.asarray(lengths), jnp.asarray(ids), jnp.asarray(has_n), k,
+            ref.max_probe, fmt))
+
     twin_calls = _build.TWIN_CALLS["tally_step_ref"]
     got = C.tally_step(table, torch.from_numpy(acc.copy()),
                        torch.from_numpy(packed.reshape(-1, lp)),
@@ -99,16 +122,25 @@ def test_tally_step_twin_matches_jax(fmt, k):
                        torch.from_numpy(ids.reshape(-1)),
                        torch.from_numpy(has_n.reshape(-1))).numpy()
     assert _build.TWIN_CALLS["tally_step_ref"] == twin_calls + 1
-    want = np.asarray(JC.tally_step(
-        jnp.asarray(ref.data), jnp.asarray(acc), jnp.asarray(packed),
-        jnp.asarray(lengths), jnp.asarray(ids), jnp.asarray(has_n), k,
-        ref.max_probe, fmt))
+    want = jax_tally(ids)
     assert (got[:, :2] > acc[:, :2]).any()       # markers were hit
-    # JAX normalises id -1 to the last row before mode="drop", so rows with
-    # id -1 add into want[-1]; the port drops them.  No read here carries
-    # id cap-1 (in the pipeline only pad rows carry -1).
+    # The contract drops id -1 rows, and the port does.  JAX normalises
+    # id -1 to the last row before mode="drop", so the id -1 rows land in
+    # want[-1] as if their id were cap-1; no other read carries cap-1.
+    n_pads = int((ids == -1).sum())
+    assert n_pads > 0
     np.testing.assert_array_equal(got[:-1], want[:-1])
     np.testing.assert_array_equal(got[-1], acc[-1])
+    # JAX over the id -1 rows alone, moved to cap-1 (the others to cap,
+    # out of range, dropped)
+    alone = jax_tally(np.where(ids == -1, cap - 1, cap).astype(np.int32))
+    np.testing.assert_array_equal(alone[:-1], acc[:-1])
+    np.testing.assert_array_equal(want[-1], alone[-1])
+    if empty_pads:
+        # an empty row votes for nothing: only the unknown column grows
+        np.testing.assert_array_equal(want[-1] - acc[-1], [0, 0, n_pads])
+    else:
+        assert (want[-1, :2] > acc[-1, :2]).any()   # the pads hit markers
 
 
 def test_tally_step_rejects_bad_input():

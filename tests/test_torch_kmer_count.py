@@ -1,0 +1,587 @@
+"""hast_tpu_torch.ops.kmer_count against hast_tpu.ops.kmer_count.
+
+The twins of K4-K8 (what the wrappers run on CPU tensors) are held
+against the JAX kernels they replace on the same numpy-seeded inputs:
+count_windows against count_kernel_multi, its _clean and _range forms
+and chunk_sorted_kmers; sort_pairs against lax.sort; fold_runs against
+_merge_rle_kernel; count_stats against _histo_kernel and _total_kernel;
+marker_filter against device_marker_algebra.  Then the counters built on
+them: DeviceCounter (merge_device included), the key-range passes with
+bounds at and beyond 2^63, the native-reader path and the boundary
+estimate.  Every value is an integer and the kernels use integer
+atomics, so the tolerance is exact equality throughout; the kernels are
+held against the twins on the card (marked cuda).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hast_tpu_torch.ops import _build
+from hast_tpu_torch.ops import encode as E
+from hast_tpu_torch.ops import kmer_count as KC
+
+SENT = KC.SENT
+U32 = 0xFFFFFFFF
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def jax_modules():
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from hast_tpu.ops import kmer_count as JKC
+    return jax, jnp, JKC
+
+
+def ref_keys(hi, lo) -> np.ndarray:
+    """JAX (hi, lo) uint32 pairs -> the port's int64 keys."""
+    hi = np.asarray(hi).astype(np.int64)
+    lo = np.asarray(lo).astype(np.int64)
+    return np.where((hi == U32) & (lo == U32), SENT, (hi << 32) | lo)
+
+
+def ascii_reads(seed: int, k: int, n: int = 48, L: int = 64,
+                alphabet: bytes = b"ACGTacgt" * 3 + b"N"):
+    """Zero-padded ASCII reads: N bases, lowercase, and lengths 0, < k, k
+    and the full stride."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(alphabet, np.uint8)
+    seqs = letters[rng.integers(0, letters.size, (n, L))]
+    lengths = rng.integers(0, L + 1, n).astype(np.int32)
+    lengths[:4] = (0, k - 1, k, L)
+    seqs[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    return seqs, lengths
+
+
+def packed_reads(seqs, lengths):
+    return (torch.from_numpy(E.pack_codes_np(seqs)),
+            torch.from_numpy(KC.pack_good_np(seqs)),
+            torch.from_numpy(lengths))
+
+
+def batches_of(seed: int, k: int, n_batches: int = 5, B: int = 64,
+               L: int = 72, alphabet: bytes = b"ACGT" * 6 + b"N"):
+    """ReadBatch-like objects with duplicate rows, so counts exceed 1."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(alphabet, np.uint8)
+    out = []
+    for _ in range(n_batches):
+        seqs = letters[rng.integers(0, letters.size, (B, L))]
+        seqs[1::3] = seqs[0]
+        lengths = rng.integers(k, L + 1, B).astype(np.int32)
+        out.append(type("B", (), dict(seqs=seqs, lengths=lengths))())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4 count_windows
+# ---------------------------------------------------------------------------
+
+RANGES = {
+    "middle": None,                                    # quartiles
+    "to_top": None,                                    # median, 2^64 - 1
+    "above_int64": ((1 << 63) + 5, (1 << 64) - 1),     # empty: all >= 2^63
+    "from_zero": (0, (1 << 64) // 2),                  # hi = 2^63
+}
+
+
+@pytest.mark.parametrize("k", [15, 21, 31])
+@pytest.mark.parametrize("variant", ["masked", "clean", "range",
+                                     "sorted"])
+def test_count_windows_twin_matches_jax(k, variant):
+    jax, jnp, JKC = jax_modules()
+    seqs, lengths = ascii_reads(k, k, **(dict(alphabet=b"ACGTacgt")
+                                         if variant == "clean" else {}))
+    packed, good, lens = packed_reads(seqs, lengths)
+    jp, jg, jl = (jnp.asarray(x.numpy()[None]) for x in (packed, good, lens))
+    before = dict(_build.LAUNCHES)
+    if variant == "masked":
+        got = KC.count_windows(packed, lens, k, good)
+        want = [ref_keys(*JKC.count_kernel_multi(jp, jg, jl, k,
+                                                 sort=False))[0]]
+    elif variant == "clean":
+        got = KC.count_windows(packed, lens, k)
+        want = [ref_keys(*JKC.count_kernel_multi_clean(jp, jl, k,
+                                                       sort=False))[0]]
+    elif variant == "range":
+        real = KC.count_windows(packed, lens, k, good).numpy()
+        real = np.sort(real[real != SENT])
+        ranges = dict(RANGES, middle=(int(real[real.size // 4]),
+                                      int(real[3 * real.size // 4])),
+                      to_top=(int(real[real.size // 2]), (1 << 64) - 1))
+        got, want = [], []
+        for lo_b, hi_b in ranges.values():
+            got.append(KC.count_windows(packed, lens, k, good,
+                                        (lo_b, hi_b)).numpy())
+            want.append(ref_keys(*JKC.count_kernel_multi_range(
+                jp, jg, jl, k, jnp.uint32(lo_b >> 32),
+                jnp.uint32(lo_b & U32), jnp.uint32(hi_b >> 32),
+                jnp.uint32(hi_b & U32), sort=False))[0])
+        assert (got[0] != SENT).any() and (got[1] != SENT).any()
+        assert (got[2] == SENT).all()
+        got = np.concatenate(got)
+    else:
+        keys = KC.count_windows(packed, lens, k, good)
+        got, _ = KC.sort_pairs(keys, None, k)
+        want = [ref_keys(*JKC.chunk_sorted_kmers(
+            jnp.asarray(seqs), jnp.asarray(lengths), k))]
+    assert dict(_build.LAUNCHES) == before     # CPU tensors take the twins
+    got = np.asarray(got)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, np.concatenate(want))
+    assert (got != SENT).any() and (got == SENT).any()
+
+
+def test_count_windows_rejects_bad_input():
+    packed = torch.zeros((2, 8), dtype=torch.uint8)
+    lengths = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="good"):
+        KC.count_windows(packed, lengths, 21, torch.zeros((2, 3),
+                                                          dtype=torch.uint8))
+    with pytest.raises(ValueError, match="uint64"):
+        KC.count_windows(packed, lengths, 21, key_range=(0, 1 << 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        KC.count_windows(packed.to("meta"), lengths.to("meta"), 21)
+    assert KC.count_windows(torch.zeros((3, 2), dtype=torch.uint8),
+                            torch.full((3,), 8, dtype=torch.int32),
+                            15).numel() == 0
+
+
+# ---------------------------------------------------------------------------
+# K5 sort_pairs, K6 fold_runs
+# ---------------------------------------------------------------------------
+
+
+def dup_heavy_keys(seed: int, k: int, n: int = 4000):
+    """Few distinct real keys drawn many times, sentinels mixed in, and
+    int32 counts."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 1 << (2 * k), 300, dtype=np.int64)
+    pool[:2] = (0, (1 << (2 * k)) - 1)
+    keys = pool[rng.integers(0, pool.size, n)]
+    keys[rng.random(n) < 0.2] = SENT
+    counts = rng.integers(1, 50, n).astype(np.int32)
+    return keys, counts
+
+
+def split_ref(keys):
+    sent = keys == SENT
+    hi = np.where(sent, U32, keys >> 32).astype(np.uint32)
+    lo = np.where(sent, U32, keys & U32).astype(np.uint32)
+    return hi, lo
+
+
+@pytest.mark.parametrize("k", [15, 21, 31])
+def test_sort_pairs_twin_matches_lax_sort(k):
+    jax, jnp, _ = jax_modules()
+    keys, counts = dup_heavy_keys(k, k)
+    got_k, got_c = KC.sort_pairs(torch.from_numpy(keys),
+                                 torch.from_numpy(counts), k)
+    hi, lo = split_ref(keys)
+    whi, wlo, wc = jax.lax.sort((jnp.asarray(hi), jnp.asarray(lo),
+                                 jnp.asarray(counts)), num_keys=2)
+    np.testing.assert_array_equal(got_k.numpy(), ref_keys(whi, wlo))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(wc))
+    alone, none = KC.sort_pairs(torch.from_numpy(keys), None, k)
+    assert none is None and torch.equal(alone, got_k)
+
+
+@pytest.mark.parametrize("k", [15, 21, 31])
+def test_fold_runs_twin_matches_merge_rle(k):
+    _, jnp, JKC = jax_modules()
+    keys, counts = dup_heavy_keys(100 + k, k)
+    skeys, scounts = KC.sort_pairs(torch.from_numpy(keys),
+                                   torch.from_numpy(counts), k)
+    out_k, out_c, n_unique = KC.fold_runs(skeys, scounts)
+    hi, lo = split_ref(keys)
+    whi, wlo, wc, wn = JKC._merge_rle_kernel(jnp.asarray(hi),
+                                             jnp.asarray(lo),
+                                             jnp.asarray(counts))
+    n = int(wn)
+    assert int(n_unique) == n and 0 < n < keys.size // 2
+    np.testing.assert_array_equal(out_k.numpy(), ref_keys(whi, wlo))
+    np.testing.assert_array_equal(out_c.numpy(), np.asarray(wc))
+    assert (out_k.numpy()[n:] == SENT).all() and (out_c.numpy()[n:] == 0
+                                                  ).all()
+
+
+def test_fold_runs_edges():
+    empty = torch.zeros(0, dtype=torch.int64)
+    k, c, n = KC.fold_runs(empty, torch.zeros(0, dtype=torch.int32))
+    assert k.numel() == 0 and c.numel() == 0 and int(n) == 0
+    only_pads = torch.full((5,), SENT, dtype=torch.int64)
+    k, c, n = KC.fold_runs(only_pads, torch.ones(5, dtype=torch.int32))
+    assert int(n) == 0 and (k == SENT).all() and (c == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# K7 count_stats
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("high", [100, 10000])
+def test_count_stats_twin_matches_histo_and_total(high):
+    _, jnp, JKC = jax_modules()
+    rng = np.random.default_rng(high)
+    counts = rng.integers(1, 3 * high, 5000).astype(np.int32)
+    counts[rng.random(counts.size) < 0.3] = 0           # pads
+    counts[:3] = (high, high + 1, 2**31 - 1)
+    bins, total = KC.count_stats(torch.from_numpy(counts), high)
+    want = np.asarray(JKC._histo_kernel(jnp.asarray(counts), high))
+    lo, hi = JKC._total_kernel(jnp.asarray(counts))
+    want_total = (np.asarray(lo).astype(np.int64).sum()
+                  + (np.asarray(hi).astype(np.int64).sum() << 14))
+    assert bins.dtype == torch.int64 and total.dtype == torch.int64
+    np.testing.assert_array_equal(bins.numpy(), want)
+    assert int(total) == want_total == counts.astype(np.int64).sum()
+
+
+# ---------------------------------------------------------------------------
+# K8 marker_filter, DeviceCountTable
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_tables():
+    """Two parents counted by the JAX DeviceCounter, as resident tables."""
+    _, _, JKC = jax_modules()
+    k = 21
+    mat = JKC.count_batches(batches_of(21, k), k,
+                            finalize=False).finalize_device()
+    pat = JKC.count_batches(batches_of(22, k), k,
+                            finalize=False).finalize_device()
+    return pat, mat
+
+
+@pytest.mark.parametrize("bounds", [(1, 3, 1, 3), (2, 10, 1, 1),
+                                    (1, 10**6, 1, 10**6), (0, 2**31 - 1,
+                                                           0, 2)])
+def test_marker_algebra_matches_jax(jax_tables, bounds):
+    _, _, JKC = jax_modules()
+    pat, mat = jax_tables
+    tpat = KC.DeviceCountTable.from_reference(pat)
+    tmat = KC.DeviceCountTable.from_reference(mat)
+    assert tpat.keys.numel() > tpat.n_valid        # padded, as in JAX
+    before = _build.TWIN_CALLS["marker_filter_ref"]
+    got = KC.device_marker_algebra(tpat, tmat, *bounds)
+    assert _build.TWIN_CALLS["marker_filter_ref"] == before + 1
+    want = JKC.device_marker_algebra(pat, mat, *bounds)
+    for g, w in zip(got, want):
+        assert g.dtype == np.uint64
+        np.testing.assert_array_equal(g, w)
+    assert got[0].size and got[1].size
+
+
+def test_marker_filter_lone_sentinel_at_lower_zero():
+    """A lone pad row and lower = 0 keep no pad (test_stage00_parity's
+    case), in the twin and in JAX."""
+    _, jnp, JKC = jax_modules()
+    S = np.uint32(U32)
+    ref_p = JKC.DeviceCountTable(
+        jnp.asarray(np.array([0, 1, S], np.uint32)),
+        jnp.asarray(np.array([5, 6, S], np.uint32)),
+        jnp.asarray(np.array([3, 2, 0], np.int32)), 2, 21)
+    ref_m = JKC.DeviceCountTable(
+        jnp.asarray(np.array([0, 2, 3], np.uint32)),
+        jnp.asarray(np.array([5, 7, 8], np.uint32)),
+        jnp.asarray(np.array([4, 1, 1], np.int32)), 3, 21)
+    pat = KC.DeviceCountTable.from_reference(ref_p)
+    mat = KC.DeviceCountTable.from_reference(ref_m)
+    assert int(pat.keys[2]) == SENT
+    p, m = KC.device_marker_algebra(pat, mat, 0, 100, 0, 100)
+    assert p.tolist() == [(1 << 32) | 6]
+    assert m.tolist() == [(2 << 32) | 7, (3 << 32) | 8]
+    wp, wm = JKC.device_marker_algebra(ref_p, ref_m, 0, 100, 0, 100)
+    np.testing.assert_array_equal(p, wp)
+    np.testing.assert_array_equal(m, wm)
+
+
+def test_device_table_round_trips_and_matches_jax(jax_tables):
+    _, _, JKC = jax_modules()
+    pat, _ = jax_tables
+    t = KC.DeviceCountTable.from_reference(pat)
+    hi, lo, counts, n_valid, k = t.to_reference()
+    np.testing.assert_array_equal(hi, np.asarray(pat.hi))
+    np.testing.assert_array_equal(lo, np.asarray(pat.lo))
+    np.testing.assert_array_equal(counts, np.asarray(pat.counts))
+    assert (n_valid, k) == (pat.n_valid, pat.k)
+    assert t.total == pat.total and t.n_distinct == pat.n_distinct
+    np.testing.assert_array_equal(t.histo(), pat.histo())
+    f, wf = t.fetch(), pat.fetch()
+    np.testing.assert_array_equal(f.words, wf.words)
+    np.testing.assert_array_equal(f.counts, wf.counts)
+    ct = KC.CountTable.from_reference(wf)
+    back = JKC.CountTable(*ct.to_reference())
+    np.testing.assert_array_equal(back.words, wf.words)
+    np.testing.assert_array_equal(back.counts, wf.counts)
+    assert back.k == wf.k
+
+
+# ---------------------------------------------------------------------------
+# counters
+# ---------------------------------------------------------------------------
+
+
+def test_device_counter_matches_jax_counters():
+    """The port's DeviceCounter == the JAX DeviceCounter and host Counter
+    on duplicate-heavy batches with N bases, folding several times."""
+    _, _, JKC = jax_modules()
+    k = 21
+    batches = batches_of(11, k, n_batches=7)
+    got = KC.count_batches(batches, k, super_batch=2)
+    small = KC.DeviceCounter(k, fold_above=5000)
+    for b in batches:
+        packed, good, lengths = (torch.from_numpy(x) for x in
+                                 KC._assemble_ascii([b]))
+        small.add_sorted_chunk(KC.count_windows(packed, lengths, k, good))
+    folded = small.finalize()
+    assert small.n_folds >= 2
+    for want in (JKC.count_batches(batches, k, super_batch=2,
+                                   engine="device"),
+                 JKC.count_batches(batches, k, super_batch=2,
+                                   engine="host")):
+        for t in (got, folded):
+            np.testing.assert_array_equal(t.words, want.words)
+            np.testing.assert_array_equal(t.counts, want.counts)
+    assert got.total > got.n_distinct > 0
+
+
+def test_merge_device_union_sums():
+    _, _, JKC = jax_modules()
+    k = 21
+    r = np.random.default_rng(9)
+    seqs = np.frombuffer(b"ACGT", np.uint8)[r.integers(0, 4, (64, 60))]
+    b1 = type("B", (), dict(seqs=seqs[:32],
+                            lengths=np.full(32, 60, np.int32)))()
+    b2 = type("B", (), dict(seqs=seqs[16:],
+                            lengths=np.full(48, 60, np.int32)))()
+    c1 = KC.count_batches([b1], k, finalize=False)
+    c1.merge_device(KC.count_batches([b2], k, finalize=False))
+    got = c1.finalize_device().fetch()
+    want = JKC.count_batches([b1, b2], k)
+    np.testing.assert_array_equal(got.words, want.words)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    empty = KC.DeviceCounter(k).finalize_device()
+    assert empty.n_valid == 0 and empty.keys.numel() == 0
+
+
+@pytest.mark.parametrize("n_parts", [4, 8])
+def test_partitioned_count_with_bounds_beyond_int64(n_parts):
+    """An empty sample gives even bounds, half of them >= 2^63 and the
+    last 2^64 - 1; the passes must still cover every key exactly once."""
+    _, _, JKC = jax_modules()
+    k = 21
+    bounds = KC.estimate_boundaries([], k, n_parts)
+    np.testing.assert_array_equal(bounds,
+                                  JKC.estimate_boundaries([], k, n_parts))
+    assert int(bounds[n_parts // 2]) >= 1 << 63
+    batches = batches_of(3, k, n_batches=3)
+    got = KC.count_batches_partitioned(lambda: iter(batches), k, n_parts,
+                                       boundaries=bounds)
+    want = KC.count_batches(batches, k)
+    np.testing.assert_array_equal(got.words, want.words)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    sampled = KC.count_batches_partitioned(lambda: iter(batches), k,
+                                           n_parts)
+    np.testing.assert_array_equal(sampled.words, want.words)
+
+
+def test_boundaries_match_jax():
+    _, _, JKC = jax_modules()
+    k = 21
+    batches = batches_of(5, k, n_batches=4, alphabet=b"ACGTNacgt")
+    for n_parts in (2, 3, 5):
+        np.testing.assert_array_equal(
+            KC.estimate_boundaries(batches, k, n_parts),
+            JKC.estimate_boundaries(batches, k, n_parts))
+    np.testing.assert_array_equal(
+        KC.sample_boundaries(lambda: iter(batches), k, 3, n_sample=2,
+                             scan_cap=4),
+        JKC.sample_boundaries(lambda: iter(batches), k, 3, n_sample=2,
+                              scan_cap=4))
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+def test_count_file_native_matches_jax(tmp_path, with_n):
+    """The native reader's packed batches (clean ones go without their
+    mask) and key-range passes against the JAX package's."""
+    _, _, JKC = jax_modules()
+    from hast_tpu.io import native as N
+    if N.get_lib() is None:
+        pytest.skip("libhastio.so unavailable")
+    k = 21
+    rng = np.random.default_rng(17)
+    letters = np.frombuffer(b"ACGTN" if with_n else b"ACGT", np.uint8)
+    path = tmp_path / "r.fq"
+    with open(path, "wb") as f:
+        for i in range(700):
+            L = int(rng.integers(10, 140))
+            seq = letters[rng.integers(0, letters.size, L)].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * L))
+    for key_range in (None, (1 << 35, (1 << 64) - 1)):
+        got = KC.count_file_native(str(path), k, batch_size=128,
+                                   super_batch=2, key_range=key_range)
+        want = JKC.count_file_native(str(path), k, batch_size=128,
+                                     super_batch=2, key_range=key_range)
+        np.testing.assert_array_equal(got.words, want.words)
+        np.testing.assert_array_equal(got.counts, want.counts)
+        assert got.n_distinct > 0
+
+
+def test_load_library_builds_once_across_threads(monkeypatch):
+    """count_files_device_pair's two threads may both reach the first
+    kernel launch: the library must be built and bound once."""
+    import threading
+    import time
+    import types
+    builds = []
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)
+        return "libhast_kernels-test.so"
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(
+        _build.load_library())) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1
+    assert len(got) == 4 and all(lib is got[0] for lib in got)
+    assert got[0].hast_sort_pairs.restype is _build.ctypes.c_int
+
+
+def test_batch_is_clean_and_pack_good():
+    seqs = np.frombuffer(b"ACGTacgtNACG" + b"\0" * 4 + b"ACGTacgtACG"
+                         + b"\0" * 5, np.uint8).reshape(2, 16)
+    good = KC.pack_good_np(seqs)
+    assert good.tolist() == [[0xFF, 0x0E], [0xFF, 0x07]]
+    assert not KC.batch_is_clean(good, np.array([12, 11], np.int32))
+    assert KC.batch_is_clean(good[1:], np.array([11], np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the kernels against their twins, on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [15, 21, 31])
+def test_count_windows_kernel_matches_twin(card, k):
+    seqs, lengths = ascii_reads(k, k, n=3000, L=128)
+    packed, good, lens = (x.to(card) for x in packed_reads(seqs, lengths))
+    for g in (None, good):
+        for key_range in (None, (1 << 30, (1 << 64) - 1),
+                          ((1 << 63) + 1, (1 << 64) - 1)):
+            launches = _build.LAUNCHES["count_windows"]
+            got = KC.count_windows(packed, lens, k, g, key_range)
+            assert _build.LAUNCHES["count_windows"] == launches + 1
+            assert torch.equal(got, KC.count_windows_ref(packed, lens, k, g,
+                                                         key_range))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [15, 17, 21, 31])
+def test_sort_and_fold_kernels_match_twins(card, k):
+    """Also the fold's buffer reuse: the sort in the input and one
+    scratch pair (5 passes at k = 17, an even number at the others), the
+    fold into the pair the sort left free."""
+    keys, counts = dup_heavy_keys(k, k, n=300_000)
+    keys, counts = torch.from_numpy(keys).to(card), \
+        torch.from_numpy(counts).to(card)
+    got = KC.sort_pairs(keys, counts, k)
+    want = KC.sort_pairs_ref(keys, counts, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(KC.sort_pairs(keys, None, k)[0], want[0])
+    folded = KC.fold_runs(*got)
+    wfold = KC.fold_runs_ref(*want)
+    for g, w in zip(folded, wfold):
+        assert torch.equal(g, w)
+
+    inp = (keys.clone(), counts.clone())
+    scratch = (torch.empty_like(keys), torch.empty_like(counts))
+    got = KC.sort_pairs(*inp, k, scratch=scratch)
+    even = -(-(2 * k + 1) // 8) % 2 == 0
+    assert got[0] is (inp[0] if even else scratch[0])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    free = scratch if even else inp
+    folded = KC.fold_runs(*got, out=free)
+    assert folded[0] is free[0] and folded[1] is free[1]
+    for g, w in zip(folded, wfold):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_parts", [1, 4, 8])
+def test_counting_on_card_matches_cpu(card, n_parts):
+    """The DeviceCounter on the card, folding several times (n_parts 1),
+    and the key-range passes with an empty sample's even bounds, half of
+    them >= 2^63 and the last 2^64 - 1 (n_parts 4, 8), equal the CPU
+    count."""
+    k = 21
+    batches = batches_of(3, k, n_batches=7)
+    want = KC.count_batches(batches, k, super_batch=2)
+    launches = _build.LAUNCHES["count_windows"]
+    if n_parts == 1:
+        counter = KC.count_batches(batches, k, super_batch=2,
+                                   finalize=False, fold_above=5000,
+                                   device=card)
+        assert counter.n_folds >= 2
+        got = counter.finalize()
+    else:
+        bounds = KC.estimate_boundaries([], k, n_parts)
+        got = KC.count_batches_partitioned(lambda: iter(batches), k,
+                                           n_parts, super_batch=2,
+                                           boundaries=bounds, device=card)
+    assert _build.LAUNCHES["count_windows"] >= launches + 4 * n_parts
+    np.testing.assert_array_equal(got.words, want.words)
+    np.testing.assert_array_equal(got.counts, want.counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("high", [100, 10000, 20000])
+def test_count_stats_kernel_matches_twin(card, high):
+    rng = np.random.default_rng(high)
+    counts = torch.from_numpy(
+        rng.integers(0, 3 * high, 1_000_000).astype(np.int32)).to(card)
+    for g, w in zip(KC.count_stats(counts, high),
+                    KC.count_stats_ref(counts, high)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_marker_filter_kernel_matches_twin(card):
+    rng = np.random.default_rng(8)
+    pool = np.unique(rng.integers(0, 1 << 42, 400_000, dtype=np.int64))
+    a = np.sort(rng.choice(pool, 150_000, replace=False))
+    b = np.sort(rng.choice(pool, 120_000, replace=False))
+    args = []
+    for keys in (a, b):
+        pad = np.full(1000, SENT, np.int64)
+        counts = np.concatenate([rng.integers(1, 60, keys.size),
+                                 np.zeros(pad.size)]).astype(np.int32)
+        args += [torch.from_numpy(np.concatenate([keys, pad])).to(card),
+                 torch.from_numpy(counts).to(card), keys.size]
+    for bounds in ((9, 33, 9, 33), (0, 2**31 - 1, 0, 2**31 - 1)):
+        got = KC.marker_filter(*args, bounds)
+        want = KC.marker_filter_ref(*args, bounds)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
