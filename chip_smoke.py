@@ -11,11 +11,14 @@ when the package is not beside it.  Phases, each fatal on failure:
    k = 15, 21, 31; K2 probe on a 2M-key quot table (2^20 rows), the same
    keys in a forced full table (2^21 rows) and a 4e7-key quot table
    (2^24 rows, 268 MB, past the 50 MB L2); K3 classify_tally against
-   tally_step_ref with N reads, id -1 rows and reads shorter than k.
+   tally_step_ref with N reads, id -1 rows and reads shorter than k; K10
+   grow_tally from 2^19 to 2^20 rows and K11 pack_tally on 10^6 rows
+   (the main path's tally shapes).
 3. the stage-00 kernels the same way: K4 count_windows on 65,536 packed
    100-bp reads at k = 15, 21, 31 (masked, clean, key range up to
    2^64 - 1); K5 sort_pairs on 2^26 pairs at k = 21 and 31; K6
-   fold_runs on a 2^26-element duplicate-heavy sorted run; K7
+   fold_runs on a 2^26-element duplicate-heavy sorted run and K12
+   shrink_run on its distinct rows; K7
    count_stats on 2^26 counts, high = 10000; K8 marker_filter on two
    2^25-row runs sharing half their keys, bounds (9, 33) and
    (0, 2^31 - 1).
@@ -28,14 +31,14 @@ when the package is not beside it.  Phases, each fatal on failure:
    and the binned fastqs byte-identical.
 5. the stage-01 main path at bench.py's scale: 10^6 markers per
    haplotype at k = 21 and 10^6 100-bp stLFR reads, through
-   ``classify-reads --device cuda`` (classify, splits, quartering); K3
-   must have been launched and tally_step_ref never called.  The first
+   ``classify-reads --device cuda`` (classify, splits, quartering); K3,
+   K10 and K11 must have been launched and no twin called.  The first
    10^5 reads are classified on the card and on the CPU twins, and the
    outputs must be equal bytes.
 6. the stage-00 main path at bench.py's scale: a 3 Mb trio, 100-bp reads
    at 33x with 0.2 % errors (about 990,000 reads a parent), through
-   ``build-markers --auto_bounds --device cuda``; K4-K8 must each have
-   been launched and no twin called.  The first 2x10^5 reads of each
+   ``build-markers --auto_bounds --device cuda``; K4-K8 and K12 must each
+   have been launched and no twin called.  The first 2x10^5 reads of each
    parent go through the card and the CPU twins, and the outputs must be
    equal bytes.  Then where the time goes: the native reader alone, and
    a torch.profiler run of the device engine (device time by kernel,
@@ -46,10 +49,30 @@ when the package is not beside it.  Phases, each fatal on failure:
    histogram and marker algebra through the kernels and again through
    the twins on the card must agree; fold counts, peak device memory,
    times and K8's share of the marker algebra are printed.
+8. K9 segment_votes against its twin on the card, bit-exact, with both
+   times: 4,096 random records of 0-20 kb (2 % soft-masked, 1 % N, a few
+   IUPAC bytes, planted table keys) plus records of k - 1, k, 4096 + k - 1
+   and 50,000 bytes, on phase 2's 2^20-row quot table, the same keys in
+   the forced full table and the 2^24-row quot table.
+9. the stage-03 goldens on the card: ``mkoutput --device cuda`` on
+   tests/golden/stage03 (the 13 files and the primary link),
+   ``classify-segments --format fastq``, and ``run --device cuda`` (HAST.sh
+   00->01->02->03 with a stand-in Supernova) on tests/golden/e2e, every
+   kernel of the chain launched and no twin called.
+10. the stage-03 main path at scale: a seeded pseudohap2 assembly of
+   2,000 scaffolds with 10^8 phased bases a branch and 10^7 markers per
+   haplotype at k = 21 (a 2^24-row segment table, past the L2), through
+   ``rephase.mkoutput(device="cuda")`` (what ``mkoutput --device cuda``
+   runs); K9 must have been launched and its twin never called.  Time
+   by step, the first 2x10^6 bases of phb.12.fa classified on the card and on the CPU twins (equal bytes), and a
+   torch.profiler run of the classify step (K9's device time, device
+   idle share).
 
-Before the last line it prints one JSON line of kernel results and the
-``nvidia-smi`` name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+Before the last line it prints one JSON line of kernel results (with each
+kernel's bound: the larger of the bytes it must move at the H100's
+3.35 TB/s and the int32 operations it must do at the card's 16.7 T/s;
+the log names both counts) and the ``nvidia-smi`` name and power limit;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -60,12 +83,14 @@ import sys
 import tempfile
 import time
 
-sys.modules["jax"] = None          # the port must run without jax
+sys.modules["jax"] = None          # the port runs without jax
+sys.modules["hast_tpu"] = None     # and imports nothing of the JAX package
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLD = os.path.join(ROOT, "tests", "golden", "stage01")
 GOLD00 = os.path.join(ROOT, "tests", "golden", "stage00")
 E2E = os.path.join(ROOT, "tests", "golden", "e2e")
+GOLD03 = os.path.join(ROOT, "tests", "golden", "stage03")
 N_MARKERS = 1_000_000
 N_READS = 1_000_000
 N_CPU_READS = 100_000
@@ -77,7 +102,40 @@ SCALE_WINDOWS = 600_000_000   # per parent
 SCALE_POOL = 160_000_000
 SCALE_CHUNK = 1 << 25
 STAGE00_KERNELS = ("count_windows", "sort_pairs", "fold_runs",
-                   "count_stats", "marker_filter")
+                   "shrink_run", "count_stats", "marker_filter")
+SEG_RECORDS = 4096            # K9 check: random records of 0-20 kb
+SEG_SCAFFOLDS = 2000          # stage-03 scale phase
+SEG_PHASED_BASES = 100_000_000   # per branch
+SEG_MARKERS = 10_000_000      # per haplotype
+SEG_HEAD_BASES = 2_000_000
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
+# H100 SXM int32 rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper
+# white paper); the 67 T/s float32 rate counts an FMA as two operations
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations the work needs, counted from the kernels' arithmetic
+# with 64-bit words as two 32-bit halves, where the data allow the least:
+# a window rolled one base a step (code 2, forward word 4, reverse
+# complement 5, 64-bit min 4, run of good bases 3)
+WINDOW_OPS = 18
+# one two-bucket probe: quot = Feistel split 5 + 4 rounds of 11 + bucket
+# and quotient 4 + alternate bucket 12 + 8 slot tests of 8 + the maxima 7;
+# full = two hashes of 9 and 11, masks 2, 4 slot tests of 6, maxima 4
+PROBE_OPS = {"quot": 136, "full": 50}
+VOTE_OPS = 4          # payload bits into the two vote sums
+READ_OPS = 10         # K3 per read: id and N tests, unknown flag, 3 adds
+COUNT_RANGE_OPS = 4   # K4: the key-range test and the sentinel select
+SORT_PASS_OPS = 8     # K5 per key and 8-bit pass: digit, count, rank, place
+FOLD_OPS = 8          # K6 per key: neighbour compare, flag, scan, sum
+STATS_OPS = 4         # K7 per count: clamp, bin, total
+MERGE_OPS = 12        # K8 per row, as a merge of two sorted runs
+GROW_OPS = 1          # K10 per element of the new tally: copy or zero
+PACK_OPS = 8          # K11 per entry: two masks, two shifts, two tests, sums
+STAGE03_FILES = (
+    "output.phb.1.fa", "output.phb.2.fa", "output.homo.fa", "phasing.out",
+    "output.phb.12.father.idx", "output.phb.12.mother.idx",
+    "output.phb.12.ambiguous.idx", "output.merge.father.ids",
+    "output.merge.mother.ids", "output.merge.homo.ids", "output.father.fa",
+    "output.father.idx", "output.supplement.fa")
 
 
 def log(msg: str) -> None:
@@ -102,6 +160,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(name: str, n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of n_bytes (each input read once, each output written once; probing
+    kernels add the two 16-byte table rows a probed window touches) over
+    the HBM rate and n_ops int32 operations over the int32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    log(f"bound of {name}: {n_bytes:.6g} bytes ({t_bytes:.4f} ms), "
+        f"{n_ops:.6g} int32 operations ({t_ops:.4f} ms)")
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def max_abs_err(a, b) -> float:
@@ -166,8 +237,11 @@ def phase_kernels() -> dict:
         log(f"K1 canonical_windows k={k} {n} reads x {keys.shape[1]} "
             f"windows: kernel {ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
         if k == K:
-            res["canonical_windows"] = dict(max_abs_err=err, ms=ms,
-                                            plain_ms=plain)
+            # packed reads and lengths in, 8-byte keys and a valid byte out
+            res["canonical_windows"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                **bound("K1", n * lp + 4 * n + 9 * keys.numel(),
+                        WINDOW_OPS * keys.numel()))
     res["canonical_windows"]["max_abs_err"] = err
 
     # K2 on the bench-scale key count, quot and forced full
@@ -202,7 +276,10 @@ def phase_kernels() -> dict:
             f" s), {queries.numel()} keys: kernel {ms:.4f} ms, twin "
             f"{plain:.4f} ms, bit-exact")
         if fmt == "quot":
-            res["probe"] = dict(ms=ms, plain_ms=plain)
+            # 8-byte key in, 4-byte payload out, two 16-byte rows a key
+            res["probe"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                **bound("K2", queries.numel() * (8 + 4 + 32),
+                                        PROBE_OPS[fmt] * queries.numel()))
 
     # K2 and K3 past the L2: 4e7 random keys -> 2^24 quot rows (the few
     # duplicate draws merge in the build)
@@ -254,8 +331,62 @@ def phase_kernels() -> dict:
         plain = cuda_ms(lambda: C.tally_step_ref(table, acc_ref, *batch), 3)
         log(f"K3 classify_tally {name} table, {b}-read batch: kernel "
             f"{ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
-    res["classify_tally"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
-    del big, bq
+    # the last batch (bench-scale table): reads, lengths, ids, N flags and
+    # the tally read and written, two rows per probed window
+    packed, lengths, ids, has_n = batch
+    probed = ((lengths.long() - K + 1).clamp(0, 4 * packed.shape[1] - K + 1)
+              * ((ids >= 0) & (ids < acc.shape[0]) & (has_n == 0))).sum()
+    res["classify_tally"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+        **bound("K3", packed.numel() + 9 * b + 2 * acc.numel() * 4
+                + 32 * int(probed),
+                (WINDOW_OPS + PROBE_OPS[tables["quot"].fmt] + VOTE_OPS)
+                * int(probed) + READ_OPS * b))
+    del bq
+    res.update(_tally_kernels(rng))
+    return res, dict(quot=tables["quot"], full=tables["full"], big=big), \
+        words, bwords
+
+
+def _tally_kernels(rng) -> dict:
+    """K10 and K11 at the main path's tally shapes: 2^19 rows grown to
+    2^20 (the native path doubles from 2^16 as 10^6 barcode ids arrive),
+    and the image of 10^6 barcodes' rows, some entries past 8 bits."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.pipeline import classify as C
+    dev = torch.device("cuda")
+    res = {}
+    acc = torch.from_numpy(rng.integers(0, 200, (1 << 19, 3)).astype(
+        np.int32)).to(dev)
+    acc[::997] = 300
+    max_id = acc.shape[0]
+    err = _check_same("K10 grow_tally", [C.grow_tally(acc, max_id)],
+                      [C.grow_tally_ref(acc, max_id)])
+    ms = cuda_ms(lambda: C.grow_tally(acc, max_id), 20)
+    plain = cuda_ms(lambda: C.grow_tally_ref(acc, max_id), 5)
+    lib = cuda_ms(lambda: torch.nn.functional.pad(acc, (0, 0, 0, max_id)),
+                  20)
+    log(f"K10 grow_tally {acc.shape[0]} -> {2 * acc.shape[0]} rows: kernel "
+        f"{ms:.4f} ms, twin {plain:.4f} ms, torch.nn.functional.pad "
+        f"{lib:.4f} ms, bit-exact")
+    res["grow_tally"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+        **bound("K10", 4 * acc.numel() + 8 * acc.numel(),
+                GROW_OPS * 2 * acc.numel()))
+    rows = C.grow_tally(acc, max_id)[:1_000_000]
+    err = _check_same("K11 pack_tally", C.pack_tally(rows),
+                      C.pack_tally_ref(rows))
+    if C.pack_tally(rows)[2].tolist() != [int(((rows >> 8) != 0).sum()), 0]:
+        fail("K11 pack_tally: wrong counts of entries past 8 and 16 bits")
+    ms = cuda_ms(lambda: C.pack_tally(rows), 20)
+    plain = cuda_ms(lambda: C.pack_tally_ref(rows), 5)
+    log(f"K11 pack_tally {rows.shape[0]} rows: kernel {ms:.4f} ms, twin "
+        f"{plain:.4f} ms, bit-exact")
+    res["pack_tally"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+        **bound("K11", 4 * rows.numel() + 3 * rows.numel() + 16,
+                PACK_OPS * rows.numel()))
     return res
 
 
@@ -318,7 +449,12 @@ def phase_kernels00() -> dict:
                 f"{got.numel() // n} windows ({real} real): kernel "
                 f"{ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
             if k == K and variant == "masked":
-                res["count_windows"] = dict(ms=ms, plain_ms=plain)
+                # packed reads, the ACGT bitmask and lengths in, keys out
+                res["count_windows"] = dict(
+                    ms=ms, plain_ms=plain, library_ms=None,
+                    **bound("K4", packed.numel() + good.numel() + 4 * n
+                            + 8 * got.numel(),
+                            (WINDOW_OPS + COUNT_RANGE_OPS) * got.numel()))
     res["count_windows"]["max_abs_err"] = err
 
     # K5: 2^26 random keys, 10 % sentinels, int32 payload
@@ -337,7 +473,14 @@ def phase_kernels00() -> dict:
         log(f"K5 sort_pairs k={k}: {n} pairs, {-(-(2 * k + 1) // 8)} "
             f"passes: kernel {ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
         if k == K:
-            res["sort_pairs"] = dict(ms=ms, plain_ms=plain)
+            lib = cuda_ms(lambda: torch.sort(keys, stable=True), 5)
+            log(f"K5 sort_pairs k={k}: torch.sort(stable=True) of the keys "
+                f"{lib:.4f} ms")
+            # 8-byte keys and 4-byte payloads read once and written once
+            res["sort_pairs"] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib,
+                **bound("K5", 24 * n,
+                        SORT_PASS_OPS * n * -(-(2 * k + 1) // 8)))
     res["sort_pairs"]["max_abs_err"] = err
     del keys, pay
 
@@ -354,7 +497,20 @@ def phase_kernels00() -> dict:
     plain = cuda_ms(lambda: KC.fold_runs_ref(keys, counts), 3)
     log(f"K6 fold_runs: {n} sorted keys, {int(got[2])} distinct: kernel "
         f"{ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
-    res["fold_runs"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    res["fold_runs"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            library_ms=None,
+                            **bound("K6", 12 * n + 12 * int(got[2]) + 8,
+                                    FOLD_OPS * n))
+    # K12 on the fold's distinct rows, as DeviceCounter._fold runs it
+    m = int(got[2])
+    err = _check_same("K12 shrink_run", KC.shrink_run(got[0], got[1], m),
+                      KC.shrink_run_ref(got[0], got[1], m))
+    ms = cuda_ms(lambda: KC.shrink_run(got[0], got[1], m), 20)
+    plain = cuda_ms(lambda: KC.shrink_run_ref(got[0], got[1], m), 5)
+    log(f"K12 shrink_run: {m} of {n} rows: kernel {ms:.4f} ms, twin "
+        f"{plain:.4f} ms, bit-exact")
+    res["shrink_run"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             library_ms=None, **bound("K12", 24 * m, 0))
     del keys, counts, got
 
     # K7: 2^26 counts, mostly low, some above high, pads of 0
@@ -369,8 +525,14 @@ def phase_kernels00() -> dict:
     plain = cuda_ms(lambda: KC.count_stats_ref(counts, 10000), 3)
     log(f"K7 count_stats: {n} counts, high 10000: kernel {ms:.4f} ms, twin "
         f"{plain:.4f} ms, bit-exact")
-    res["count_stats"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
-    del counts
+    clamped = counts.clamp(0, 10001)
+    lib = cuda_ms(lambda: torch.bincount(clamped, minlength=10002), 20)
+    log(f"K7 count_stats: torch.bincount of the clamped counts {lib:.4f} ms")
+    res["count_stats"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              library_ms=lib,
+                              **bound("K7", 4 * n + 8 * 10002 + 8,
+                                      STATS_OPS * n))
+    del counts, clamped
 
     # K8: two 2^25-row runs sharing half their keys, 2^16 pads each
     rows, pads = 1 << 25, 1 << 16
@@ -394,7 +556,12 @@ def phase_kernels00() -> dict:
             f"{int(got[1])} + {int(got[3])}: kernel {ms:.4f} ms, twin "
             f"{plain:.4f} ms, bit-exact")
         if bounds[0] == 9:
-            res["marker_filter"] = dict(ms=ms, plain_ms=plain)
+            # two runs of 8-byte keys and 4-byte counts in, kept keys out
+            res["marker_filter"] = dict(
+                ms=ms, plain_ms=plain, library_ms=None,
+                **bound("K8", 2 * rows * 12
+                        + 8 * (int(got[1]) + int(got[3])) + 16,
+                        MERGE_OPS * 2 * rows))
     res["marker_filter"]["max_abs_err"] = err
     return res
 
@@ -554,10 +721,11 @@ def phase_main_path(tmp: str) -> dict:
     log(f"classify-reads --device cuda: {wall:.3f} s end to end "
         f"({N_READS / wall:.0f} reads/s, marker text parse and table build "
         f"included); launches {launches}; twin calls {twins}")
-    if launches.get("classify_tally", 0) <= 0:
-        fail("the main path launched no classify_tally kernel")
-    if twins.get("tally_step_ref", 0):
-        fail("the main path called tally_step_ref")
+    for name in ("classify_tally", "grow_tally", "pack_tally"):
+        if launches.get(name, 0) <= 0:
+            fail(f"the main path launched no {name} kernel")
+    if any(twins.values()):
+        fail(f"the main path called twins: {twins}")
     phased = os.path.join(wd, "phased.barcodes")
     with open(phased, "rb") as f:
         rows = [line.split(b"\t") for line in f]
@@ -744,6 +912,255 @@ def phase_stage00_breakdown(tmp: str, reads: dict) -> None:
             f"{k} {v / 1e6:.4f}" for k, v in sums.items()))
 
 
+def _segment_records(rng, k: int, key_sets):
+    """K9's check input: SEG_RECORDS random records of 0-20 kb plus ones of
+    k - 1, k, 4096 + k - 1 and 50,000 bytes, a table key planted every 200
+    bytes (from each key set in turn), then 2 % of bytes soft-masked, 1 %
+    N and 0.1 % IUPAC codes.  Returns (data, starts) numpy arrays."""
+    import numpy as np
+    from hast_tpu_torch.ops import encode as E
+    lengths = np.concatenate([rng.integers(0, 20_001, SEG_RECORDS),
+                              [k - 1, k, 4096 + k - 1, 50_000]])
+    starts = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    total = int(starts[-1])
+    data = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, total)]
+    pos = rng.integers(0, total - k, total // 200)
+    rec = np.searchsorted(starts, pos, side="right") - 1
+    pos = pos[pos + k <= starts[rec + 1]]
+    keys = np.concatenate([ks[rng.integers(0, ks.size, pos.size // 2 + 1)]
+                           for ks in key_sets])[:pos.size]
+    data[pos[:, None] + np.arange(k)] = E.words_to_bytes(keys, k)
+    u = rng.random(total)
+    data = np.where(u < 0.02, data | 0x20, data)
+    data = np.where((u >= 0.02) & (u < 0.03), ord("N"), data)
+    iupac = np.frombuffer(b"RYKMSWBDHV", np.uint8)
+    data = np.where((u >= 0.03) & (u < 0.031),
+                    iupac[rng.integers(0, iupac.size, total)], data)
+    return data.astype(np.uint8), starts
+
+
+def _valid_windows(data, starts, k: int) -> int:
+    """Windows of k uppercase A/C/G/T bytes inside their record."""
+    import torch
+    lut = torch.zeros(256, dtype=torch.bool, device=data.device)
+    lut[list(b"ACGT")] = True
+    good = torch.zeros(data.numel() + 1, dtype=torch.int64,
+                       device=data.device)
+    good[1:] = torch.cumsum(lut[data.long()].long(), 0)
+    g = torch.arange(data.numel() - k + 1, device=data.device)
+    rec = torch.searchsorted(starts, g, right=True) - 1
+    return int((((good[g + k] - good[g]) == k)
+                & (g + k <= starts[rec + 1])).sum())
+
+
+def phase_kernels03(tables: dict, words, bwords) -> dict:
+    """K9 segment_votes against its twin on the same card tensors, on
+    phase 2's tables: 2^20-row quot, 2^21-row full, 2^24-row quot."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.pipeline import rephase as R
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2026)
+    data_np, starts_np = _segment_records(rng, K, (words, bwords))
+    data = torch.from_numpy(data_np).to(dev)
+    starts = torch.from_numpy(starts_np).to(dev)
+    n_rec = starts.numel() - 1
+    n_valid = _valid_windows(data, starts, K)
+    err = 0.0
+    for name, table in (("quot", tables["quot"]), ("full", tables["full"]),
+                        ("quot 2^24-row", tables["big"])):
+        got = torch.zeros((n_rec, 2), dtype=torch.int64, device=dev)
+        want = got.clone()
+        R.segment_votes(table, data, starts, got)
+        R.segment_votes_ref(table, data, starts, want)
+        err = max(err, _check_same(f"K9 segment_votes ({name})", [got],
+                                   [want]))
+        if int(got.sum()) == 0 or int(got[n_rec - 4].sum()):
+            fail(f"K9 segment_votes ({name}): {int(got.sum())} votes, "
+                 f"{got[n_rec - 4].tolist()} for the record of k - 1 bytes")
+        out = torch.zeros_like(got)
+        ms = cuda_ms(lambda: R.segment_votes(table, data, starts, out), 10)
+        plain = cuda_ms(lambda: R.segment_votes_ref(table, data, starts,
+                                                    out), 1)
+        log(f"K9 segment_votes {name} table {table.n_buckets} rows, "
+            f"{n_rec} records, {data.numel()} bytes, {n_valid} valid "
+            f"windows, {int(got.sum())} votes: kernel {ms:.4f} ms, twin "
+            f"{plain:.4f} ms, bit-exact")
+    # the last, HBM-resident table: bytes and starts in, votes read and
+    # written, two rows per valid window
+    windows = int((starts[1:] - starts[:-1] - K + 1).clamp(min=0).sum())
+    return {"segment_votes": dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+        **bound("K9", data.numel() + 8 * (n_rec + 1) + 32 * n_rec
+                + 32 * n_valid, WINDOW_OPS * windows
+                + (PROBE_OPS[tables["big"].fmt] + VOTE_OPS) * n_valid))}
+
+
+def phase_goldens03(tmp: str) -> None:
+    """Stage-03 goldens and the whole HAST.sh run on the card."""
+    import contextlib
+    import io
+    from hast_tpu_torch import cli
+    from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.utils import synthetic as S
+    pat = os.path.join(GOLD03, "paternal.mer")
+    mat = os.path.join(GOLD03, "maternal.mer")
+    d = os.path.join(tmp, "stage03")
+    os.makedirs(d)
+    cli.main(["mkoutput", "--assembly_path", os.path.join(GOLD03, "assembly"),
+              "--paternal_mer", pat, "--maternal_mer", mat, "--prefer",
+              "paternal", "--workdir", d, "--device", "cuda"])
+    for f in STAGE03_FILES:
+        if not _same_bytes(os.path.join(d, f), os.path.join(GOLD03, f)):
+            fail(f"stage-03 golden {f} differs on cuda")
+    if os.readlink(os.path.join(d, "output.primary.fa")) != \
+            "output.father.fa":
+        fail("stage-03: output.primary.fa does not link output.father.fa")
+    buf = io.BytesIO()
+    text = io.TextIOWrapper(buf)
+    with contextlib.redirect_stdout(text):
+        cli.main(["classify-segments", "--hap", pat, "--hap", mat, "--read",
+                  os.path.join(GOLD03, "fastq_mode.fq"), "--format",
+                  "fastq", "--device", "cuda"])
+        text.flush()
+    with open(os.path.join(GOLD03, "fastq_mode.out"), "rb") as f:
+        if buf.getvalue() != f.read():
+            fail("classify-segments --format fastq differs on cuda")
+    log(f"golden stage03: mkoutput --device cuda, the {len(STAGE03_FILES)} "
+        "files byte-identical and the primary link; classify-segments "
+        "--format fastq byte-identical")
+
+    sn = S.write_fake_supernova(
+        tmp, os.path.join(E2E, "assembly"),
+        os.path.join(ROOT, "tests", "golden", "stage02", "whitelist.txt"))
+    run = os.path.join(tmp, "run")
+    os.makedirs(run)
+    _build.LAUNCHES.clear()
+    _build.TWIN_CALLS.clear()
+    t0 = time.perf_counter()
+    cli.main(["run", "--paternal", os.path.join(E2E, "paternal.fa.gz"),
+              "--maternal", os.path.join(E2E, "maternal.fa.gz"),
+              "--read1", os.path.join(E2E, "son.r1.fq.gz"),
+              "--read2", os.path.join(E2E, "son.r2.fq"), "--supernova", sn,
+              "--workdir", run, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches, twins = dict(_build.LAUNCHES), dict(_build.TWIN_CALLS)
+    if not _same_bytes(os.path.join(run, "01.classify_reads",
+                                    "phased.barcodes"),
+                       os.path.join(E2E, "stage01", "phased.barcodes")):
+        fail("run --device cuda: phased.barcodes differs")
+    for parent, fa in (("paternal", "father"), ("maternal", "mother")):
+        for f in (f"output.{fa}.fa", f"output.{fa}.idx",
+                  "output.supplement.fa"):
+            if not _same_bytes(os.path.join(run, f"03.{parent}_output", f),
+                               os.path.join(E2E, f"stage03_{parent}", f)):
+                fail(f"run --device cuda: {parent} {f} differs")
+    # the golden run's few barcodes never grow the tally (no K10)
+    for name in ("classify_tally", "pack_tally", *STAGE00_KERNELS,
+                 "segment_votes"):
+        if launches.get(name, 0) <= 0:
+            fail(f"run --device cuda launched no {name} kernel")
+    if any(twins.values()):
+        fail(f"run --device cuda called twins: {twins}")
+    log(f"golden e2e: run --device cuda (00->01->02->03, stand-in "
+        f"Supernova) in {wall:.3f} s: both final fastas, idx and "
+        f"supplements and phased.barcodes byte-identical; launches "
+        f"{launches}; twin calls {twins}")
+
+
+def phase_stage03_main(tmp: str) -> dict:
+    """mkoutput on the card on a seeded pseudohap2 assembly at scale."""
+    import io
+    import torch
+    from hast_tpu_torch.io import fastq as FQ
+    from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.pipeline import rephase as R
+    from hast_tpu_torch.utils import synthetic as S
+
+    d = os.path.join(tmp, "scale03")
+    asm, wd = os.path.join(d, "assembly"), os.path.join(d, "03")
+    os.makedirs(asm)
+    os.makedirs(wd)
+    mers = [os.path.join(d, "paternal.mer"), os.path.join(d, "maternal.mer")]
+    t0 = time.perf_counter()
+    made = S.make_pseudohap2_assembly(3, asm, *mers, n_scaffolds=SEG_SCAFFOLDS,
+                                      phased_bases=SEG_PHASED_BASES,
+                                      n_markers=SEG_MARKERS, k=K)
+    log(f"stage-03 inputs: {made}, generated in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    _build.LAUNCHES.clear()
+    _build.TWIN_CALLS.clear()
+    steps = {}
+    t0 = time.perf_counter()
+    R.mkoutput(asm, "output", *mers, "paternal", wd, device="cuda",
+               timings=steps)
+    wall = time.perf_counter() - t0
+    launches, twins = dict(_build.LAUNCHES), dict(_build.TWIN_CALLS)
+    log(f"mkoutput on cuda: {wall:.3f} s end to end; by step: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items())
+        + f"; launches {launches}; twin calls {twins}")
+    if launches.get("segment_votes", 0) <= 0:
+        fail("the stage-03 main path launched no segment_votes kernel")
+    if any(twins.values()):
+        fail(f"the stage-03 main path called twins: {twins}")
+    with open(os.path.join(wd, "phasing.out")) as f:
+        verdicts = [line.split("\t")[1] for line in f]
+    classes = {v: verdicts.count(v)
+               for v in ("haplotype0", "haplotype1", "ambiguous")}
+    with open(os.path.join(wd, "output.merge.homo.ids")) as f:
+        homo = sum(1 for _ in f)
+    if not all(classes.values()) or not homo or \
+            os.path.getsize(os.path.join(wd, "output.father.fa")) == 0:
+        fail(f"stage-03 scale: verdicts {classes}, {homo} final homo pairs")
+    log(f"stage-03 scale: {len(verdicts)} segments, verdicts {classes}, "
+        f"{homo} pairs left homozygous (supplement)")
+
+    # the first SEG_HEAD_BASES of phb.12.fa on the card and on the CPU
+    phb = os.path.join(wd, "output.phb.12.fa")
+    head = os.path.join(d, "head.fa")
+    n = 0
+    with open(head, "wb") as f:
+        for name, seq in FQ.fasta_records(phb):
+            f.write(b">" + name + b"\n" + R.wrap_seq(seq, 60))
+            n += len(seq)
+            if n >= SEG_HEAD_BASES:
+                break
+    table = R._build_segment_table(mers, "cuda")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = io.StringIO()
+        t0 = time.perf_counter()
+        R.write_verdicts(table.to(dev), head, outs[dev])
+        log(f"first {n} bases of phb.12.fa classified on {dev}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    if outs["cuda"].getvalue() != outs["cpu"].getvalue():
+        fail("stage-03 head: cuda and cpu verdicts differ")
+    log(f"first {n} bases of phb.12.fa: cuda and cpu verdicts equal")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        R.write_verdicts(table, phb, io.StringIO())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k9 = busy = 0.0
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if us:
+            busy += us / 1e6
+            if "segment_votes_kernel" in e.key:
+                k9 += us / 1e6
+    idle = f"{1 - busy / wall:.4f}" if busy else "not measured"
+    log(f"stage-03 classify step under torch.profiler ({table.n_buckets}-row "
+        f"{table.fmt} table): wall {wall:.3f} s, K9 device {k9:.4f} s, "
+        f"device busy {busy:.4f} s, idle share {idle}")
+    return launches
+
+
 def phase_scale() -> None:
     """Two parents of 6x10^8 windows each through the DeviceCounter, the
     histogram and the marker algebra: kernels, then twins, on the card."""
@@ -843,16 +1260,20 @@ def main() -> None:
                          text=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
     phase_toolchain()
-    kernels = phase_kernels()
+    kernels, tables, words, bwords = phase_kernels()
     kernels.update(phase_kernels00())
+    kernels.update(phase_kernels03(tables, words, bwords))
+    del tables, words, bwords
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_goldens(tmp)
         phase_goldens00(tmp)
+        phase_goldens03(tmp)
         launches = phase_main_path(tmp)["launches"]
         markers = phase_markers_main(tmp)
         launches.update(markers["launches"])
         phase_stage00_breakdown(tmp, markers["reads"])
+        launches.update(phase_stage03_main(tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_scale()
@@ -862,13 +1283,21 @@ def main() -> None:
                "probe": ("probe.cu", "hast_tpu/ops/hashtable.py:444"),
                "classify_tally": ("classify.cu",
                                   "hast_tpu/pipeline/classify.py:217"),
+               "grow_tally": ("tally.cu",
+                              "hast_tpu/pipeline/classify.py:262"),
+               "pack_tally": ("tally.cu",
+                              "hast_tpu/pipeline/classify.py:267"),
                "count_windows": ("count.cu",
                                  "hast_tpu/ops/kmer_count.py:58"),
                "sort_pairs": ("sort.cu", "hast_tpu/ops/kmer_count.py:333"),
                "fold_runs": ("fold.cu", "hast_tpu/ops/kmer_count.py:333"),
+               "shrink_run": ("shrink.cu",
+                              "hast_tpu/ops/kmer_count.py:361"),
                "count_stats": ("stats.cu", "hast_tpu/ops/kmer_count.py:535"),
                "marker_filter": ("markers.cu",
-                                 "hast_tpu/ops/kmer_count.py:560")}
+                                 "hast_tpu/ops/kmer_count.py:560"),
+               "segment_votes": ("segment.cu",
+                                 "hast_tpu/pipeline/rephase.py:276")}
     rows = [dict(name=name, route="cuda", source=csrc + src, replaces=rep,
                  launches=launches.get(name, 0), **kernels[name])
             for name, (src, rep) in sources.items()]

@@ -2,16 +2,19 @@
 
 A sibling of the JAX package, with its module names so each counterpart
 is easy to find; ``hast_tpu`` stays the reference it is held against.
-It imports torch and never jax: of ``hast_tpu`` it uses only the jax-free
-host modules ``io.native``, ``io.fastq``, ``utils.checkpoint`` and
-``utils.profiling``.
+It imports torch, never jax, and nothing of ``hast_tpu``: the host
+modules it needs are its own copies.
 
+  io/        fastq/fasta readers; the ctypes binding of native/hastio.cpp
+             (built by g++ at first use into build/)
   ops/       codec, marker table, k-mer counting and the CUDA kernels
              (csrc/, built by nvcc for sm_90a at first use)
   pipeline/  stage 00 markers; stage 01 classify, barcode splits and
-             quartering
-  utils/     seeded synthetic marker files and stLFR reads
-  cli.py     `build-markers`, `classify` and `classify-reads` with --device
+             quartering; stage 02 fake-10X conversion; stage 03 re-phasing
+  models/    the HAST.sh orchestrator (00 -> 01 -> 02 -> 03)
+  utils/     checkpoints, phase timers, seeded synthetic inputs
+  cli.py     `build-markers`, `classify`, `classify-reads`, `prepare-10x`,
+             `assemble`, `mkoutput`, `classify-segments` and `run`
 """
 
 __version__ = "0.1.0"

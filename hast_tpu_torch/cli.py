@@ -1,4 +1,4 @@
-"""The PyTorch port's command line, stages 00 and 01 (hast_tpu/cli.py:37-260).
+"""The PyTorch port's command line (hast_tpu/cli.py's pipeline commands).
 
   build-markers     00.build_unshare_kmers: parental count tables, histos,
                     bounds and unique.filter.mer files behind the
@@ -6,10 +6,16 @@
   classify          the reference `classify` binary (phased.barcodes)
   classify-reads    classify_stlfr_reads.sh: classify, barcode splits and
                     fastq quartering behind step_9/10/11 checkpoints
+  prepare-10x       02 barcode_freq + merge_barcodes + fake_10x (host only)
+  assemble          02 supernova wrapper (external binary required; host)
+  mkoutput          03 mkoutput_by_fabulous2.0 (Split->classify->merge->GenSq)
+  classify-segments 03 `classify` fasta binary
+  run               HAST.sh end-to-end orchestrator
 
-Each takes the JAX package's flags (build-markers without --mesh) plus
---device (default cuda).  A CUDA device that is not there is an error;
-the run never moves to the CPU on its own.
+Each takes the JAX package's flags (build-markers without --mesh).  The
+subcommands that run kernels take --device (default cuda); a CUDA device
+that is not there is an error, and the run never moves to the CPU on its
+own.  prepare-10x and assemble run no device work and take no --device.
 
 Usage: python -m hast_tpu_torch <subcommand> --help
 """
@@ -39,6 +45,12 @@ def _device(name: str) -> torch.device:
     return dev
 
 
+def _add_device(p, what: str) -> None:
+    p.add_argument("--device", default="cuda",
+                   help=f"torch device of {what} and the kernels (default "
+                        "cuda; cpu runs the plain twins)")
+
+
 def _adaptor_kw(a) -> dict:
     kw = {}
     if a.adaptor_f is not None:
@@ -54,9 +66,7 @@ def _common(p) -> None:
     p.add_argument("--batch-size", type=int, default=1 << 15)
     p.add_argument("--thread", type=int, default=None,
                    help="accepted for reference compatibility (unused)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device of the marker table and the kernels "
-                        "(default cuda; cpu runs the plain twins)")
+    _add_device(p, "the marker table")
 
 
 def _add_build_markers(sub):
@@ -85,12 +95,10 @@ def _add_build_markers(sub):
                    help="accepted for reference compatibility (unused)")
     p.add_argument("--memory", type=int, default=None,
                    help="accepted for reference compatibility (unused)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device of the count tables and the kernels "
-                        "(default cuda; cpu runs the plain twins)")
+    _add_device(p, "the count tables")
 
     def run(a):
-        from hast_tpu.utils.checkpoint import step
+        from hast_tpu_torch.utils.checkpoint import step
         from hast_tpu_torch.pipeline import markers as M
         # reference sanity bounds (build_unshared_kmers.sh:145-152)
         if a.mer < 11 or a.mer > 31:
@@ -148,7 +156,7 @@ def _add_classify_reads(sub):
     _common(p)
 
     def run(a):
-        from hast_tpu.utils.checkpoint import step
+        from hast_tpu_torch.utils.checkpoint import step
         from hast_tpu_torch.pipeline import classify as C
         from hast_tpu_torch.pipeline import partition as P
         device = _device(a.device)
@@ -185,15 +193,142 @@ def _add_classify_reads(sub):
     p.set_defaults(func=run)
 
 
-def main(argv=None):
+def _add_prepare_10x(sub):
+    p = sub.add_parser("prepare-10x", help="stage 02: fake-10X conversion")
+    p.add_argument("--read1", action="append", required=True)
+    p.add_argument("--read2", action="append", required=True)
+    p.add_argument("--whitelist", required=True)
+    p.add_argument("--min_rp", type=int, default=1)
+    p.add_argument("--out-dir", default=".")
+
+    def run(a):
+        from hast_tpu_torch.pipeline import tenx as T
+        total, used = T.prepare_10x(a.read1, a.read2, a.whitelist,
+                                    a.out_dir, a.min_rp)
+        print(f"Total {total} pairs and used {used} pairs")
+    p.set_defaults(func=run)
+
+
+def _add_assemble(sub):
+    p = sub.add_parser("assemble", help="stage 02: run external Supernova")
+    p.add_argument("--supernova", required=True)
+    p.add_argument("--read1", action="append", required=True)
+    p.add_argument("--read2", action="append", required=True)
+    p.add_argument("--prefix", default="output")
+    p.add_argument("--thread", type=int, default=30)
+    p.add_argument("--memory", type=int, default=800)
+    p.add_argument("--min_rp", type=int, default=1)
+    p.add_argument("--out-dir", default=".")
+
+    def run(a):
+        import glob
+        from hast_tpu_torch.pipeline import tenx as T
+        wl = glob.glob(os.path.join(
+            a.supernova, "supernova-cs", "*", "tenkit", "lib", "python",
+            "tenkit", "barcodes", "4M-with-alts-february-2016.txt"))
+        if not wl:
+            sys.exit(f"{a.supernova} is not a valid supernova path")
+        T.prepare_10x(a.read1, a.read2, wl[0], a.out_dir, a.min_rp)
+        T.assemble(a.supernova, a.out_dir, a.prefix, a.thread, a.memory)
+    p.set_defaults(func=run)
+
+
+def _add_mkoutput(sub):
+    p = sub.add_parser("mkoutput", help="stage 03: re-phase pseudohap2")
+    p.add_argument("--assembly_path", required=True)
+    p.add_argument("--paternal_mer", required=True)
+    p.add_argument("--maternal_mer", required=True)
+    p.add_argument("--prefix", default="output")
+    p.add_argument("--thread", type=int, default=None,
+                   help="accepted for reference compatibility (unused)")
+    p.add_argument("--prefer", choices=("paternal", "maternal"),
+                   help="default: whichever mer flag came first "
+                        "(reference order rule)")
+    p.add_argument("--workdir", default=".")
+    _add_device(p, "the segment table")
+
+    def run(a):
+        from hast_tpu_torch.pipeline import rephase as R
+        prefer = a.prefer
+        if prefer is None:
+            # reference rule: the first --*_mer on the command line wins
+            pi = a.argv.index("--paternal_mer")
+            mi = a.argv.index("--maternal_mer")
+            prefer = "paternal" if pi <= mi else "maternal"
+        timings = {}
+        R.mkoutput(a.assembly_path, a.prefix, a.paternal_mer,
+                   a.maternal_mer, prefer, a.workdir,
+                   device=_device(a.device), timings=timings)
+        print("[hast_tpu_torch] mkoutput steps: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in timings.items()), file=sys.stderr)
+    p.set_defaults(func=run)
+
+
+def _add_classify_segments(sub):
+    p = sub.add_parser("classify-segments",
+                       help="stage 03: per-sequence haplotype verdicts")
+    p.add_argument("--hap", action="append", required=True)
+    p.add_argument("--read", action="append", required=True)
+    p.add_argument("--format", choices=("fasta", "fastq"), default="fasta")
+    p.add_argument("--thread", type=int, default=None,
+                   help="accepted for reference compatibility (unused)")
+    _add_device(p, "the segment table")
+
+    def run(a):
+        from hast_tpu_torch.pipeline import rephase as R
+        R.classify_segments(a.hap, a.read, _StdoutText(), a.format,
+                            device=_device(a.device))
+    p.set_defaults(func=run)
+
+
+def _add_run(sub):
+    p = sub.add_parser("run", help="end-to-end HAST pipeline (HAST.sh)")
+    p.add_argument("--paternal", action="append", required=True)
+    p.add_argument("--maternal", action="append", required=True)
+    p.add_argument("--read1", action="append", required=True)
+    p.add_argument("--read2", action="append", required=True)
+    p.add_argument("--supernova", help="optional; stops after stage 01 "
+                                       "bins if absent")
+    p.add_argument("--thread", type=int, default=8)
+    p.add_argument("--memory", type=int, default=800)
+    p.add_argument("--workdir", default=".")
+    _add_device(p, "stages 00, 01 and 03")
+
+    def run(a):
+        from hast_tpu_torch.models.trio import TrioBinningPipeline
+        TrioBinningPipeline(
+            paternal=_split_paths(a.paternal),
+            maternal=_split_paths(a.maternal),
+            read1=_split_paths(a.read1), read2=_split_paths(a.read2),
+            supernova=a.supernova, threads=a.thread, memory_gb=a.memory,
+            workdir=a.workdir, device=str(_device(a.device))).run()
+    p.set_defaults(func=run)
+
+
+class _StdoutText:
+    """Text writer over sys.stdout.buffer (bytes as written, no newline
+    translation) that never closes it."""
+
+    def write(self, s: str) -> None:
+        sys.stdout.buffer.write(s.encode())
+
+    def flush(self) -> None:
+        sys.stdout.buffer.flush()
+
+
+def main(argv=None) -> None:
+    """Run one subcommand."""
     parser = argparse.ArgumentParser(
         prog="hast_tpu_torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="cmd", required=True)
-    _add_build_markers(sub)
-    _add_classify(sub)
-    _add_classify_reads(sub)
+    for add in (_add_build_markers, _add_classify, _add_classify_reads,
+                _add_prepare_10x, _add_assemble, _add_mkoutput,
+                _add_classify_segments, _add_run):
+        add(sub)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
+    args.argv = argv
     args.func(args)
 
 

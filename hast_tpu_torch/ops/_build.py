@@ -50,8 +50,13 @@ _SIGNATURES = {
     "hast_marker_filter": [_P, _P, _I64, _P, _I64, _I64, _I64, _P, _P, _P,
                            _P],
     "hast_probe": [_P, _I64, _I, _I, _I, _I, _P, _I64, _P, _P],
+    "hast_segment_votes": [_P, _I64, _I, _I, _I, _I, _P, _P, _P, _I64, _I64,
+                           _P, _P],
     "hast_classify_tally": [_P, _I64, _I, _I, _I, _I, _P, _P, _P, _P, _I64,
                             _I, _P, _I64, _P],
+    "hast_grow_tally": [_P, _I64, _P, _I64, _P],
+    "hast_pack_tally": [_P, _I64, _P, _P, _P, _P],
+    "hast_shrink_run": [_P, _P, _I64, _P, _P, _P],
 }
 
 _lib = None

@@ -39,4 +39,24 @@ __device__ __forceinline__ uint64_t canonical_window(const uint8_t* row,
   return fwd < rc ? fwd : rc;
 }
 
+// The same key over k ASCII bytes (hast_tpu/pipeline/rephase.py
+// `_strict_vote`): code (c >> 1) & 3 of any byte, and the window counts
+// only if all k bytes are uppercase A, C, G or T (soft-masked acgt, N and
+// IUPAC bytes make it invalid).  Returns whether the window is valid.
+__device__ __forceinline__ bool canonical_window_ascii(const uint8_t* s,
+                                                       int k,
+                                                       uint64_t& key) {
+  uint64_t fwd = 0, rc = 0;
+  bool ok = true;
+  for (int j = 0; j < k; ++j) {
+    const uint32_t b = s[j];
+    ok &= b == 'A' || b == 'C' || b == 'G' || b == 'T';
+    const uint64_t c = (b >> 1) & 3u;
+    fwd = (fwd << 2) | c;
+    rc |= (c ^ 2ull) << (2 * j);
+  }
+  key = fwd < rc ? fwd : rc;
+  return ok;
+}
+
 }  // namespace hast

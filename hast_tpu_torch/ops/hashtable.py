@@ -3,10 +3,11 @@
 The table layout is the JAX package's, unchanged: (n_buckets, 4) uint32
 rows of 16 bytes, either four 4-byte "quot" slots (quotient | which << 29
 | payload << 30) or two 8-byte "full" slots (hi | payload << 30, lo).
-The host build is the same code path (``hast_tpu.io.native``
-``sort_dedup_or`` / ``build_quot`` / ``place2``, numpy placement when
-``libhastio`` is absent), so both packages build identical tables and
-share the ``.probetable.npz`` snapshot.
+The host build is the same code path (``libhastio``'s
+``sort_dedup_or`` / ``build_quot`` / ``place2`` through the port's own
+binding ``hast_tpu_torch.io.native``, numpy placement when the library
+is absent), so both packages build identical tables and share the
+``.probetable.npz`` snapshot.
 
 The port keeps the table as a contiguous int32 tensor holding the uint32
 bits (torch has no uint32 arithmetic on the CPU).  K2 :func:`probe`
@@ -23,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from hast_tpu.io import native as N
+from hast_tpu_torch.io import native as N
 from hast_tpu_torch.ops import _build
 
 BUCKET = 2                       # slots per bucket, "full" format
@@ -69,7 +70,7 @@ class KmerTable:
 
 def from_reference(data, n_buckets: int, max_probe: int, k: int,
                    n_keys: int, set_sizes=(), fmt: str = "full",
-                   device="cpu") -> KmerTable:
+                   device="cuda") -> KmerTable:
     """The port's table from the JAX package's ``KmerTable`` fields."""
     rows = np.ascontiguousarray(np.asarray(data, np.uint32))
     if rows.shape != (n_buckets, 4):
@@ -262,7 +263,8 @@ def _dedup_or(hi, lo, payload):
 def build_table(hi, lo, payload, k: int, load: float = 0.35,
                 set_sizes: tuple[int, ...] = (),
                 fmt: str = "auto") -> KmerTable:
-    """Build the table from canonical (hi, lo) uint32 keys and payloads.
+    """Build the table on the host from canonical (hi, lo) uint32 keys and
+    payloads; ``KmerTable.to`` moves it to the card.
 
     Duplicate keys OR their payloads (a marker of both haplotypes gets 3).
     fmt "auto" takes "quot" whenever the quotient fits a slot
@@ -306,7 +308,7 @@ def build_table(hi, lo, payload, k: int, load: float = 0.35,
                 n_buckets *= 2
                 continue
             return from_reference(data, n_buckets, 2, k, n, set_sizes,
-                                  "quot")
+                                  "quot", device="cpu")
 
     n_buckets = _next_pow2(max(1, int(np.ceil(n / (BUCKET * load)))))
     hi_packed = hi | (payload << PAYLOAD_SHIFT)
@@ -321,7 +323,8 @@ def build_table(hi, lo, payload, k: int, load: float = 0.35,
     data = np.full((n_buckets, 2 * BUCKET), EMPTY, np.uint32)
     data[row, 2 * slot] = hi_packed
     data[row, 2 * slot + 1] = lo
-    return from_reference(data, n_buckets, 2, k, n, set_sizes, "full")
+    return from_reference(data, n_buckets, 2, k, n, set_sizes, "full",
+                          device="cpu")
 
 
 def probe_np(table: KmerTable, q_hi, q_lo) -> np.ndarray:

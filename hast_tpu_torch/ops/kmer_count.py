@@ -11,11 +11,12 @@ Device side: a key is one int64 word per canonical k-mer, the same word
 (below 2^62, as k <= 31); invalid or out-of-range windows are the
 sentinel ``INT64_MAX``, which sorts after every real key (the JAX pair
 (0xFFFFFFFF, 0xFFFFFFFF) read as int64 would be -1 and sort first).
-Counts are int32, as in the JAX package.  Five kernels in ``csrc/``:
+Counts are int32, as in the JAX package.  Six kernels in ``csrc/``:
 
   K4 count_windows   count.cu    packed reads -> window keys
   K5 sort_pairs      sort.cu     stable radix sort, int32 payload
   K6 fold_runs       fold.cu     counts of equal keys summed to the front
+  K12 shrink_run     shrink.cu   a fold's distinct rows, copied out
   K7 count_stats     stats.cu    histogram bins and total, int64
   K8 marker_filter   markers.cu  unique, in-bounds keys, compacted
 
@@ -23,7 +24,7 @@ Each wrapper runs its plain PyTorch twin (``*_ref``) for CPU tensors and
 launches its kernel for CUDA tensors; the twins carry everything in int64
 because torch on the CPU has no uint32/uint64 shifts or compares.
 :class:`DeviceCounter` folds chunks of keys into one resident sorted run
-(K5 + K6), :class:`DeviceCountTable` is that run, and
+(K5 + K6 + K12), :class:`DeviceCountTable` is that run, and
 :func:`device_marker_algebra` is the marker algebra over two of them
 (K8); only the final markers come to the host.
 """
@@ -38,6 +39,8 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from hast_tpu_torch.io import fastq as FQ
+from hast_tpu_torch.io import native as N
 from hast_tpu_torch.ops import _build
 from hast_tpu_torch.ops import encode as E
 
@@ -429,6 +432,38 @@ def fold_runs(keys: torch.Tensor, counts: torch.Tensor, out=None):
 
 
 # ---------------------------------------------------------------------------
+# K12: the folded run cut to its distinct rows
+# ---------------------------------------------------------------------------
+
+
+def shrink_run_ref(keys: torch.Tensor, counts: torch.Tensor, n: int):
+    """Plain PyTorch twin of :func:`shrink_run`."""
+    _build.TWIN_CALLS["shrink_run_ref"] += 1
+    return keys[:n].clone(), counts[:n].clone()
+
+
+def shrink_run(keys: torch.Tensor, counts: torch.Tensor, n: int):
+    """The first n rows of a fold's (keys int64, counts int32), copied into
+    tensors of their own (K12), so that the fold buffer can be freed.
+    CPU tensors take the twin; CUDA tensors launch the kernel."""
+    _check_keys("shrink_run", keys, counts)
+    if not 0 <= n <= keys.numel():
+        raise ValueError(f"shrink_run: n = {n} outside [0, {keys.numel()}]")
+    if keys.device.type == "cpu":
+        return shrink_run_ref(keys, counts, n)
+    _build.require_cuda("shrink_run", keys, counts)
+    out_keys = torch.empty(n, dtype=torch.int64, device=keys.device)
+    out_counts = torch.empty(n, dtype=torch.int32, device=keys.device)
+    if n:
+        rc = _build.load_library().hast_shrink_run(
+            keys.data_ptr(), counts.data_ptr(), n, out_keys.data_ptr(),
+            out_counts.data_ptr(), _build.stream_of(keys))
+        _build.check(rc, "shrink_run")
+        _build.LAUNCHES["shrink_run"] += 1
+    return out_keys, out_counts
+
+
+# ---------------------------------------------------------------------------
 # K7: histogram and total
 # ---------------------------------------------------------------------------
 
@@ -573,7 +608,7 @@ class DeviceCountTable:
     k: int
 
     @classmethod
-    def from_reference(cls, ref, device="cpu") -> "DeviceCountTable":
+    def from_reference(cls, ref, device="cuda") -> "DeviceCountTable":
         """A hast_tpu DeviceCountTable's (hi, lo, counts) on ``device``."""
         hi = np.asarray(ref.hi).astype(np.int64)
         lo = np.asarray(ref.lo).astype(np.int64)
@@ -648,7 +683,7 @@ class DeviceCounter:
     # its buffers are free when it releases the lock.
     _FOLD_LOCK = threading.Lock()
 
-    def __init__(self, k: int, device="cpu", fold_above: int = FOLD_ABOVE):
+    def __init__(self, k: int, device="cuda", fold_above: int = FOLD_ABOVE):
         self.k = k
         self.device = torch.device(device)
         self._chunks: list[tuple[torch.Tensor, torch.Tensor | None]] = []
@@ -710,9 +745,8 @@ class DeviceCounter:
             keys, counts, n_unique = fold_runs(*sorted_, out=free)
             del sorted_, free
             n = int(n_unique)
-            # clone: the slice alone would keep the whole fold buffer alive
-            self._run = ((keys[:n].clone(), counts[:n].clone()) if n
-                         else None)
+            # a copy: the slice alone would keep the whole fold buffer alive
+            self._run = shrink_run(keys, counts, n) if n else None
             self._run_valid = n
             self.n_folds += 1
 
@@ -758,7 +792,7 @@ def _on(device, *arrays):
 
 def count_batches(batches: Iterable, k: int, super_batch: int = 8,
                   finalize: bool = True, key_range=None,
-                  fold_above: int = FOLD_ABOVE, device="cpu"
+                  fold_above: int = FOLD_ABOVE, device="cuda"
                   ) -> "CountTable | DeviceCounter":
     """Count canonical k-mers over an iterable of ASCII ReadBatches.
 
@@ -787,7 +821,7 @@ def count_batches(batches: Iterable, k: int, super_batch: int = 8,
 
 
 def estimate_boundaries(batches_sample, k: int, n_parts: int,
-                        device="cpu") -> np.ndarray:
+                        device="cuda") -> np.ndarray:
     """Key-space split points equalizing mass, from a sample's sorted
     canonical k-mers (canonical keys skew low, so even splits would
     unbalance the passes).  Returns (n_parts + 1,) uint64 ascending
@@ -816,7 +850,7 @@ def estimate_boundaries(batches_sample, k: int, n_parts: int,
 
 def sample_boundaries(batch_source: Callable, k: int, n_parts: int,
                       n_sample: int = 16, scan_cap: int = 512,
-                      device="cpu") -> np.ndarray:
+                      device="cuda") -> np.ndarray:
     """Quantile split points from a strided sample: every
     (scan_cap // n_sample)-th of the first scan_cap batches, since
     genomic input is locally correlated."""
@@ -832,7 +866,7 @@ def sample_boundaries(batch_source: Callable, k: int, n_parts: int,
 
 def count_pass_device(batch_source: Callable, k: int, lo_bound, hi_bound,
                       super_batch: int = 8, fold_above: int = FOLD_ABOVE,
-                      device="cpu") -> DeviceCounter:
+                      device="cuda") -> DeviceCounter:
     """One key-range pass: stream the whole input and fold only canonical
     k-mers in [lo_bound, hi_bound) into a device-resident counter."""
     return count_batches(batch_source(), k, super_batch, finalize=False,
@@ -843,7 +877,7 @@ def count_pass_device(batch_source: Callable, k: int, lo_bound, hi_bound,
 def count_batches_partitioned(batch_source: Callable, k: int, n_parts: int,
                               super_batch: int = 8,
                               boundaries: np.ndarray | None = None,
-                              device="cpu") -> CountTable:
+                              device="cuda") -> CountTable:
     """Multi-pass counting with a resident run of ~1/n_parts of the
     distinct set: pass p streams the whole input and keeps only key range
     p; the ranges are disjoint, so the tables concatenate.
@@ -874,22 +908,19 @@ def open_count_reader(path: str, batch_size: int = 1 << 14):
 
     Iterating it yields batches of packed reads, their ACGT masks and
     lengths, decoded on its C++ threads; the caller closes it."""
-    from hast_tpu.io import fastq as FQ
     try:
-        from hast_tpu.io import native as N
-        if N.get_lib() is None or not hasattr(N.get_lib(),
-                                              "hastio_open_count"):
+        if N.get_lib() is None:
             return None
         fmt = FQ.detect_format(path)
         return N.NativeCountReader(path, batch_size, fastq=(fmt == "fastq"))
-    except (ImportError, RuntimeError, FileNotFoundError, ValueError):
+    except (RuntimeError, FileNotFoundError, ValueError):
         return None
 
 
 def count_file_native(path: str, k: int, batch_size: int = 1 << 14,
                       super_batch: int = 8, finalize: bool = True,
                       key_range=None, fold_above: int = FOLD_ABOVE,
-                      device="cpu") -> "CountTable | DeviceCounter | None":
+                      device="cuda") -> "CountTable | DeviceCounter | None":
     """Count one fasta/fastq file through the native counting reader.
 
     Its C++ threads decode, 2-bit pack and build the ACGT mask.  A super

@@ -4,8 +4,10 @@ Reads stream from the native reader as 2-bit packed batches.  Each batch
 is one launch of K3 :func:`tally_step` (``csrc/classify.cu``): canonical
 windows, the two-bucket probe of the combined marker table (payload
 bit 0 = hap0/paternal, bit 1 = hap1/maternal), per-read votes and a
-scatter-add into a device-resident int32 (cap, 3) tally.  The tally
-comes to the host once per file; the host merges files by barcode name,
+scatter-add into a device-resident int32 (cap, 3) tally, which K10
+:func:`grow_tally` doubles as barcode ids grow.  The tally comes to the
+host once per file, as the narrowest exact image that K11
+:func:`pack_tally` makes of it; the host merges files by barcode name,
 takes the float64 getHap decision and writes ``phased.barcodes``.
 
 Parity with the reference classify binary (classify.cpp) is the JAX
@@ -27,8 +29,8 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from hast_tpu.io import fastq as FQ
-from hast_tpu.io import native as N
+from hast_tpu_torch.io import fastq as FQ
+from hast_tpu_torch.io import native as N
 from hast_tpu_torch.ops import _build
 from hast_tpu_torch.ops import encode as E
 from hast_tpu_torch.ops import hashtable as H
@@ -70,7 +72,8 @@ def load_marker_table(hap0_path: str, hap1_path: str) -> H.KmerTable:
                     table = H.from_reference(
                         z["data"], int(z["n_buckets"]), int(z["max_probe"]),
                         int(z["k"]), int(z["n_keys"]), z["set_sizes"],
-                        str(z["fmt"]) if "fmt" in z else "full")
+                        str(z["fmt"]) if "fmt" in z else "full",
+                        device="cpu")
                     for h, n in enumerate(z["line_counts"].tolist()):
                         _log(f"Recorded {n} haplotype {h} specific "
                              f"{table.k}-mers")
@@ -309,11 +312,101 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _grown(acc: torch.Tensor, max_id: int) -> torch.Tensor:
-    """acc doubled until it has a row for max_id."""
-    while max_id >= acc.shape[0]:
-        acc = torch.cat([acc, torch.zeros_like(acc)])
-    return acc
+# ---------------------------------------------------------------------------
+# K10 and K11: growth of the device tally and its narrow fetch
+# ---------------------------------------------------------------------------
+
+# The native reader's first tally.  The JAX driver starts at 2^20 rows so
+# that the TPU compiles one tally shape; a launch compiles nothing, so the
+# port starts small and doubles as barcode ids grow.
+TALLY_ROWS = 1 << 16
+
+
+def _check_tally(acc: torch.Tensor) -> None:
+    if acc.dtype != torch.int32 or acc.dim() != 2 or acc.shape[1] != 3:
+        raise ValueError(f"the tally must be (rows, 3) int32, got "
+                         f"{tuple(acc.shape)} {acc.dtype}")
+
+
+def _grown_rows(rows: int, max_id: int) -> int:
+    rows = max(rows, 1)
+    while max_id >= rows:
+        rows *= 2
+    return rows
+
+
+def grow_tally_ref(acc: torch.Tensor, max_id: int) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`grow_tally` (always a new tensor)."""
+    _build.TWIN_CALLS["grow_tally_ref"] += 1
+    rows = _grown_rows(acc.shape[0], max_id)
+    return torch.cat([acc, acc.new_zeros((rows - acc.shape[0], 3))])
+
+
+def grow_tally(acc: torch.Tensor, max_id: int) -> torch.Tensor:
+    """The (rows, 3) int32 tally doubled until it has a row for max_id
+    (K10): its rows, then zero rows.  acc itself when it has the row
+    already.  CPU tensors take the twin; CUDA tensors launch the kernel."""
+    _check_tally(acc)
+    rows = _grown_rows(acc.shape[0], max_id)
+    if rows == acc.shape[0]:
+        return acc
+    if acc.device.type == "cpu":
+        return grow_tally_ref(acc, max_id)
+    _build.require_cuda("grow_tally", acc)
+    out = torch.empty((rows, 3), dtype=torch.int32, device=acc.device)
+    rc = _build.load_library().hast_grow_tally(
+        acc.data_ptr(), acc.numel(), out.data_ptr(), out.numel(),
+        _build.stream_of(acc))
+    _build.check(rc, "grow_tally")
+    _build.LAUNCHES["grow_tally"] += 1
+    return out
+
+
+def _int16_bits(x: torch.Tensor) -> torch.Tensor:
+    """Values 0..65535 as the int16 with the same 16 bits."""
+    return ((x ^ 0x8000) - 0x8000).to(torch.int16)
+
+
+def pack_tally_ref(acc: torch.Tensor):
+    """Plain PyTorch twin of :func:`pack_tally`."""
+    _build.TWIN_CALLS["pack_tally_ref"] += 1
+    over = torch.stack([((acc >> 8) != 0).sum(), ((acc >> 16) != 0).sum()])
+    return ((acc & 0xFF).to(torch.uint8), _int16_bits(acc & 0xFFFF),
+            over.to(torch.int64))
+
+
+def pack_tally(acc: torch.Tensor):
+    """The low-byte images of the (rows, 3) int32 tally (K11): (lo8 uint8,
+    lo16 int16 holding the uint16 bits, over (2,) int64), where over
+    counts the entries with v >> 8 != 0 and those with v >> 16 != 0.
+    CPU tensors take the twin; CUDA tensors launch the kernel."""
+    _check_tally(acc)
+    if acc.device.type == "cpu":
+        return pack_tally_ref(acc)
+    _build.require_cuda("pack_tally", acc)
+    lo8 = torch.empty(acc.shape, dtype=torch.uint8, device=acc.device)
+    lo16 = torch.empty(acc.shape, dtype=torch.int16, device=acc.device)
+    over = torch.zeros(2, dtype=torch.int64, device=acc.device)
+    if acc.numel():
+        rc = _build.load_library().hast_pack_tally(
+            acc.data_ptr(), acc.numel(), lo8.data_ptr(), lo16.data_ptr(),
+            over.data_ptr(), _build.stream_of(acc))
+        _build.check(rc, "pack_tally")
+        _build.LAUNCHES["pack_tally"] += 1
+    return lo8, lo16, over
+
+
+def fetch_tally(acc: torch.Tensor) -> np.ndarray:
+    """The tally on the host as int64 through the narrowest exact image
+    (the JAX `_fetch_acc`): uint8 when every entry fits 8 bits, else
+    uint16 when they fit 16, else the int32 tally itself."""
+    lo8, lo16, over = pack_tally(acc)
+    n8, n16 = over.tolist()
+    if not n8:
+        return lo8.cpu().numpy().astype(np.int64)
+    if not n16:
+        return lo16.cpu().numpy().view(np.uint16).astype(np.int64)
+    return acc.cpu().numpy().astype(np.int64)
 
 
 def classify_fastqs(table: H.KmerTable, paths: Iterable[str],
@@ -342,14 +435,14 @@ def classify_fastqs(table: H.KmerTable, paths: Iterable[str],
         _log(f"__process read: {path}")
         for b in FQ.fastq_batches(path, batch_size):
             ids = tally.ids(b.barcodes)
-            acc = _grown(acc, len(tally.index) - 1)
+            acc = grow_tally(acc, len(tally.index) - 1)
             n = b.n
             packed = E.pack_codes_np(b.seqs[:n])
             tally_step(table, acc, _tensor(packed, device),
                        _tensor(b.lengths[:n], device), _tensor(ids, device),
                        _tensor(b.has_n[:n], device))
         _log("__process read done__")
-    tally.add_counts(acc.cpu().numpy().astype(np.int64))
+    tally.add_counts(fetch_tally(acc[:len(tally.index)]))
     return tally
 
 
@@ -358,16 +451,16 @@ def _classify_native(table, path, batch_size, tally, device) -> None:
     _log(f"__process read: {path}")
     reader = N.NativeFastqReader(path, batch_size, len_cap=1024, packed=True)
     try:
-        acc = torch.zeros((1 << 20, 3), dtype=torch.int32, device=device)
+        acc = torch.zeros((TALLY_ROWS, 3), dtype=torch.int32, device=device)
         for b in reader:
             n = b.n
             ids = b.barcode_ids[:n]
-            acc = _grown(acc, int(ids.max(initial=-1)))
+            acc = grow_tally(acc, int(ids.max(initial=-1)))
             tally_step(table, acc, _tensor(b.seqs[:n], device),
                        _tensor(b.lengths[:n], device), _tensor(ids, device),
                        _tensor(b.has_n[:n], device))
-        local = acc.cpu().numpy().astype(np.int64)
         names = reader.barcodes_array()
+        local = fetch_tally(acc[:names.size])
     finally:
         reader.close()
     tally.merge_names(names, local[:names.size])

@@ -29,8 +29,10 @@ from typing import Sequence
 
 import numpy as np
 
-from hast_tpu.io import fastq as FQ
+from hast_tpu_torch.io import fastq as FQ
 from hast_tpu_torch.ops import kmer_count as KC
+from hast_tpu_torch.utils.checkpoint import step
+from hast_tpu_torch.utils.profiling import PhaseTimer
 
 DEFAULT_K = 21
 DEFAULT_LOWER = 9
@@ -40,7 +42,7 @@ HIGH = 10000        # jellyfish histo's default high bin
 
 def count_files(paths: Sequence[str], k: int,
                 batch_size: int = FQ.DEFAULT_BATCH, n_parts: int = 1,
-                device="cpu") -> KC.CountTable:
+                device="cuda") -> KC.CountTable:
     """Count canonical k-mers over fasta/fastq files (jellyfish count -C)
     into a host table.  n_parts > 1 counts in key-range passes, each with
     a resident run of ~1/n_parts of the distinct set."""
@@ -61,7 +63,7 @@ def count_files(paths: Sequence[str], k: int,
 
 
 def count_files_device(paths: Sequence[str], k: int,
-                       batch_size: int = FQ.DEFAULT_BATCH, device="cpu"
+                       batch_size: int = FQ.DEFAULT_BATCH, device="cuda"
                        ) -> KC.DeviceCountTable:
     """Count canonical k-mers keeping the table on the device: the files'
     runs union-sum with DeviceCounter.merge_device."""
@@ -79,7 +81,7 @@ def count_files_device(paths: Sequence[str], k: int,
 def count_files_device_pair(a_paths: Sequence[str],
                             b_paths: Sequence[str], k: int,
                             batch_size: int = FQ.DEFAULT_BATCH,
-                            device="cpu"):
+                            device="cuda"):
     """Count both parents on two threads, so that one parent's reader and
     host packing run while the other's folds hold the device.  Each
     parent's stream and fold are its own, so the tables equal those of
@@ -192,7 +194,7 @@ def build_unshared_markers(
     p_lower: int = DEFAULT_LOWER, p_upper: int = DEFAULT_UPPER,
     m_lower: int = DEFAULT_LOWER, m_upper: int = DEFAULT_UPPER,
     batch_size: int = FQ.DEFAULT_BATCH, log=sys.stderr,
-    n_parts: int | None = None, engine: str | None = None, device="cpu",
+    n_parts: int | None = None, engine: str | None = None, device="cuda",
 ) -> dict[str, str]:
     """Stage 00: parent counting -> bounds -> unique.filter.mer files.
 
@@ -212,8 +214,6 @@ def build_unshared_markers(
         raise ValueError(f"engine must be auto, device or host, got "
                          f"{engine!r}")
 
-    from hast_tpu.utils.checkpoint import step
-    from hast_tpu.utils.profiling import PhaseTimer
     timer = PhaseTimer(log=log)
     j = lambda name: os.path.join(out_dir, name)  # noqa: E731
     print("extract unique mers (host count tables) ...", file=log)
@@ -283,8 +283,6 @@ def _build_unshared_markers_device(paternal, maternal, out_dir, k,
     sweep B counts each range with both parents resident and fetches
     that range's markers.
     """
-    from hast_tpu.utils.checkpoint import step
-    from hast_tpu.utils.profiling import PhaseTimer
     timer = PhaseTimer(log=log)
     j = lambda name: os.path.join(out_dir, name)  # noqa: E731
     print("extract unique mers (device-resident count tables) ...",

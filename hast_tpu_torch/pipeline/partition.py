@@ -1,7 +1,7 @@
 """Barcode splits, fastq quartering (port of hast_tpu/pipeline/partition.py).
 
-Host-only code, carried here because ``hast_tpu.pipeline`` imports jax
-when it is imported.  ``split_barcodes`` mirrors
+Host-only code, copied: the port imports nothing of ``hast_tpu``.
+``split_barcodes`` mirrors
 classify_stlfr_reads.sh:156-165; ``quarter_fastq`` mirrors
 quartering_fastq.awk, routing whole records by the second field of the
 head line under ``-F '#|/'`` (the reference's own asymmetry with the
@@ -15,8 +15,8 @@ import os
 import re
 import sys
 
-from hast_tpu.io import fastq as FQ
-from hast_tpu.io import native as N
+from hast_tpu_torch.io import fastq as FQ
+from hast_tpu_torch.io import native as N
 
 _SPLIT = re.compile(rb"[#/]")
 

@@ -14,9 +14,20 @@ jax and without a per-read Python loop, so a million reads take seconds:
 * :func:`make_trio_genomes` and :func:`make_parent_reads_vectorized`: a
   child's two haplotypes and shotgun fasta reads of a parent, the same
   bytes for the same seed as ``hast_tpu.utils.synthetic``'s.
+* :func:`make_pseudohap2_assembly`: a Supernova pseudohap2 assembly
+  (two fastas and their .idx) of scaffolds alternating homozygous and
+  phased spans, with marker files drawn from the phased branches, the
+  stage-03 input at scale (the shape of scripts/make_golden_stage03.py's
+  fixture).
+* :func:`write_fake_supernova`: a stand-in Supernova install that hands
+  out a given pseudohap2 assembly, for driving ``run`` without the real
+  one.
 """
 
 from __future__ import annotations
+
+import os
+import shutil
 
 import numpy as np
 
@@ -178,3 +189,188 @@ def _records(first: int, seqs: np.ndarray, barcodes) -> bytes:
     out[(start + head.shape[1] + width)[:, None]
         + np.arange(tail.shape[1])] = tail
     return out.tobytes()
+
+
+def _fasta_record(head: bytes, seq: np.ndarray, width: int = 60) -> bytes:
+    """'>head' and seq wrapped at width columns, newline-terminated."""
+    rows = seq.size // width
+    body = np.concatenate([seq[:rows * width].reshape(rows, width),
+                           np.full((rows, 1), ord("\n"), np.uint8)], axis=1)
+    parts = [b">" + head + b"\n", body.tobytes()]
+    if seq.size % width:
+        parts += [seq[rows * width:].tobytes(), b"\n"]
+    return b"".join(parts)
+
+
+def make_pseudohap2_assembly(seed: int, out_dir: str, paternal_mer: str,
+                             maternal_mer: str, n_scaffolds: int = 2000,
+                             phased_bases: int = 100_000_000,
+                             n_markers: int = 10_000_000, k: int = 21,
+                             span: tuple[int, int] = (1000, 100_000),
+                             prefix: str = "output") -> dict:
+    """Write ``<prefix>.{1,2}.fasta`` and ``.idx`` into out_dir and the
+    two marker files; return counts of what was made.
+
+    Phased spans of branch 1 have lengths drawn from ``span`` until they
+    total phased_bases; branch 2's differ by up to 100 bases.  They are
+    dealt over the scaffolds at random (a scaffold with none is a single
+    homozygous span), and every scaffold alternates homozygous and phased
+    spans, homozygous first and last.  Sequence is random ACGT; one
+    homozygous span in ten holds a run of 100 N and one phased span in a
+    hundred a run of 50 N.  Each scaffold flips a coin for which branch is
+    paternal, and each phased span falls in one of five cases so that
+    every branch of MergePhaseResult is taken: 80 % carry markers of their
+    own parent on each branch, 5 % none on either, 5 % only on branch 1,
+    5 % only on branch 2, and 5 % markers of one parent on both branches.
+    n_markers distinct-position k-mers per parent are drawn from the
+    branches assigned to it (windows with an N are skipped), each line in
+    a random orientation.
+    """
+    rng = np.random.default_rng(seed)
+    lo, hi = span
+    lens1 = []
+    total = 0
+    while total < phased_bases:
+        n = min(int(rng.integers(lo, hi + 1)), max(phased_bases - total, k))
+        lens1.append(n)
+        total += n
+    lens1 = np.array(lens1, np.int64)
+    n_spans = lens1.size
+    lens2 = np.maximum(lens1 + rng.integers(-100, 101, n_spans), k)
+    owner = np.sort(rng.integers(0, n_scaffolds, n_spans))
+    per_scaffold = np.bincount(owner, minlength=n_scaffolds)
+    n_homo = per_scaffold + 1
+    homo_lens = rng.integers(lo, hi + 1, int(n_homo.sum()))
+
+    def rand_seq(n):
+        return BASES[rng.integers(0, 4, n, dtype=np.uint8)]
+
+    homo = rand_seq(int(homo_lens.sum()))
+    branch = [rand_seq(int(lens1.sum())), rand_seq(int(lens2.sum()))]
+    homo_off = np.concatenate([[0], np.cumsum(homo_lens)])
+    offs = [np.concatenate([[0], np.cumsum(x)]) for x in (lens1, lens2)]
+    for i in np.flatnonzero(rng.random(homo_lens.size) < 0.1):
+        p = homo_off[i] + int(rng.integers(0, homo_lens[i] - 100))
+        homo[p:p + 100] = ord("N")
+    for b, lens in enumerate((lens1, lens2)):
+        for i in np.flatnonzero((rng.random(n_spans) < 0.01)
+                                & (lens > 100)):
+            p = offs[b][i] + int(rng.integers(0, lens[i] - 50))
+            branch[b][p:p + 50] = ord("N")
+
+    # parent of each (span, branch): 0 paternal, 1 maternal, -1 none
+    pat_branch = rng.integers(0, 2, n_scaffolds)[owner]
+    parent = np.stack([pat_branch, 1 - pat_branch], axis=1)
+    case = rng.random(n_spans)
+    parent[(case >= 0.80) & (case < 0.85)] = -1
+    parent[(case >= 0.85) & (case < 0.90), 1] = -1
+    parent[(case >= 0.90) & (case < 0.95), 0] = -1
+    same = case >= 0.95
+    parent[same] = rng.integers(0, 2, int(same.sum()))[:, None]
+
+    paths = (paternal_mer, maternal_mer)
+    for who in (0, 1):
+        starts, n_win = [], []
+        for b in (0, 1):
+            sel = np.flatnonzero(parent[:, b] == who)
+            starts.append((b, offs[b][sel]))
+            n_win.append((lens1, lens2)[b][sel] - k + 1)
+        seg_start = np.concatenate([s for _, s in starts])
+        seg_branch = np.concatenate([np.full(s.size, b) for b, s in starts])
+        cum = np.concatenate([[0], np.cumsum(np.concatenate(n_win))])
+        draw = np.unique(rng.integers(0, cum[-1], int(n_markers * 1.2)))
+        rng.shuffle(draw)
+        with open(paths[who], "wb") as f:
+            kept = 0
+            for c in range(0, draw.size, 1 << 20):
+                u = draw[c:c + (1 << 20)]
+                seg = np.searchsorted(cum, u, side="right") - 1
+                pos = seg_start[seg] + (u - cum[seg])
+                rows = np.empty((u.size, k), np.uint8)
+                for b in (0, 1):
+                    m = seg_branch[seg] == b
+                    rows[m] = branch[b][pos[m, None] + np.arange(k)]
+                rows = rows[~(rows == ord("N")).any(axis=1)]
+                rows = rows[:n_markers - kept]
+                flip = rng.random(rows.shape[0]) < 0.5
+                rows[flip] = _revcomp_rows(rows[flip])
+                f.write(np.concatenate(
+                    [rows, np.full((rows.shape[0], 1), ord("\n"), np.uint8)],
+                    axis=1).tobytes())
+                kept += rows.shape[0]
+                if kept == n_markers:
+                    break
+        if kept != n_markers:
+            raise ValueError(f"only {kept} marker positions for parent {who}")
+
+    span_of = np.concatenate([[0], np.cumsum(per_scaffold)])
+    for w, lens in ((1, lens1), (2, lens2)):
+        seqs = branch[w - 1]
+        with open(os.path.join(out_dir, f"{prefix}.{w}.fasta"), "wb") as fa, \
+                open(os.path.join(out_dir, f"{prefix}.{w}.idx"), "w") as ix:
+            h = 0
+            for sid in range(n_scaffolds):
+                parts = []
+                for j in range(per_scaffold[sid] + 1):
+                    parts.append(homo[homo_off[h]:homo_off[h + 1]])
+                    h += 1
+                    if j < per_scaffold[sid]:
+                        i = span_of[sid] + j
+                        parts.append(seqs[offs[w - 1][i]:offs[w - 1][i + 1]])
+                coords = np.concatenate([[0], np.cumsum([p.size for p in
+                                                         parts])])
+                fa.write(_fasta_record(b"%d pseudohap2 style=%d"
+                                       % (sid + 1, w), np.concatenate(parts)))
+                ix.write(" ".join(str(x) for x in [sid + 1, *coords]) + "\n")
+    return dict(scaffolds=n_scaffolds, phased_spans=n_spans,
+                phased_bases=(int(lens1.sum()), int(lens2.sum())),
+                homo_bases=int(homo_lens.sum()), markers=n_markers,
+                cases={name: int(((case >= a) & (case < b)).sum())
+                       for name, a, b in (("own", 0, 0.8),
+                                          ("none", 0.8, 0.85),
+                                          ("branch1_only", 0.85, 0.9),
+                                          ("branch2_only", 0.9, 0.95),
+                                          ("same_parent", 0.95, 1.0))})
+
+
+# A stand-in Supernova for driving `run` and `assemble` without the real
+# one: `run` makes the outs tree, `mkoutput` writes a given pseudohap2
+# assembly (output.{1,2}.fasta and .idx) under the requested prefix.
+FAKE_SUPERNOVA = """#!/bin/bash
+set -e
+cmd="$1"; shift
+case "$cmd" in
+  run)
+    mkdir -p haplotype/outs/assembly
+    ;;
+  mkoutput)
+    prefix=output
+    for a in "$@"; do
+      case "$a" in --outprefix=*) prefix="${a#--outprefix=}";; esac
+    done
+    for w in 1 2; do
+      gzip -c "%(asm)s/output.$w.fasta" > "$prefix.$w.fasta.gz"
+      cp "%(asm)s/output.$w.idx" "$prefix.$w.idx"
+    done
+    ;;
+  *) echo "fake supernova: unknown subcommand $cmd" >&2; exit 1;;
+esac
+"""
+
+
+def write_fake_supernova(root: str, assembly: str, whitelist: str) -> str:
+    """An install tree under root that `run` and `assemble` accept: the
+    stand-in executable, which hands out the assembly in directory
+    `assembly`, and the 10X whitelist copied where `assemble` globs for
+    it.  Returns the tree's path (the --supernova argument)."""
+    sn = os.path.join(root, "supernova_install")
+    bcdir = os.path.join(sn, "supernova-cs", "2.1.1", "tenkit", "lib",
+                         "python", "tenkit", "barcodes")
+    os.makedirs(bcdir)
+    shutil.copy(whitelist,
+                os.path.join(bcdir, "4M-with-alts-february-2016.txt"))
+    exe = os.path.join(sn, "supernova")
+    with open(exe, "w") as f:
+        f.write(FAKE_SUPERNOVA % {"asm": os.path.abspath(assembly)})
+    os.chmod(exe, 0o755)
+    return sn

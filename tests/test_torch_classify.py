@@ -1,7 +1,9 @@
 """hast_tpu_torch.pipeline against hast_tpu.pipeline and the stage-01 goldens.
 
 K3's twin (tally_step_ref, what the wrapper runs on CPU tensors) against
-the JAX tally_step on one packed super-batch; the whole slice on the CPU
+the JAX tally_step on one packed super-batch, and the twins of K10 and
+K11 (the tally's growth and its narrow fetch) against _grow_acc,
+_pack_acc and _fetch_acc; the whole slice on the CPU
 against every golden of tests/test_stage01_parity.py, byte for byte, with
 both read engines; the snapshot shared by both packages; the slice on
 seeded synthetic inputs against hast_tpu's run_classify.  Integers only,
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from hast_tpu.io import native as N
+from hast_tpu_torch.io import native as N
 from hast_tpu_torch.ops import _build
 from hast_tpu_torch.ops import encode as E
 from hast_tpu_torch.ops import hashtable as H
@@ -101,7 +103,8 @@ def _tally_vs_jax(fmt: str, k: int, empty_pads: bool):
     ref = JH.build_table(hi, lo, rng.integers(1, 4, 500).astype(np.uint32),
                          k, load=0.7, fmt=fmt)
     table = H.from_reference(ref.data, ref.n_buckets, ref.max_probe, k,
-                             ref.n_keys, ref.set_sizes, ref.fmt)
+                             ref.n_keys, ref.set_sizes, ref.fmt,
+                             device="cpu")
     packed, lengths, ids, has_n, acc = super_batch(
         k, (hi.astype(np.int64) << 32) | lo, k)
     if empty_pads:
@@ -163,10 +166,69 @@ def test_tally_step_rejects_bad_input():
 
 def test_tally_grows_by_doubling():
     acc = torch.arange(12, dtype=torch.int32).reshape(4, 3)
-    grown = C._grown(acc, 9)
+    twin_calls = _build.TWIN_CALLS["grow_tally_ref"]
+    grown = C.grow_tally(acc, 9)
+    assert _build.TWIN_CALLS["grow_tally_ref"] == twin_calls + 1
     assert tuple(grown.shape) == (16, 3)
     assert torch.equal(grown[:4], acc) and int(grown[4:].abs().sum()) == 0
-    assert C._grown(acc, 3) is acc
+    assert C.grow_tally(acc, 3) is acc
+    with pytest.raises(ValueError, match="tally"):
+        C.grow_tally(acc.to(torch.int64), 9)
+    with pytest.raises(ValueError, match="CUDA"):
+        C.grow_tally(acc.to("meta"), 9)
+
+
+@pytest.mark.parametrize("max_id", [100, 4095, 4096, 70_000])
+def test_grow_tally_twin_matches_jax(max_id):
+    """K10's twin against the JAX driver's doubling loop of _grow_acc."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from hast_tpu.pipeline import classify as JC
+    acc = np.random.default_rng(max_id).integers(
+        0, 300, (4096, 3)).astype(np.int32)
+    want, cap = jnp.asarray(acc), acc.shape[0]
+    while max_id >= cap:
+        want = JC._grow_acc(want, jnp.zeros((cap, 3), jnp.int32))
+        cap *= 2
+    got = C.grow_tally(torch.from_numpy(acc), max_id)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def tally_values(regime: str) -> np.ndarray:
+    """A (5000, 3) int32 tally whose largest entry fits 8 bits, 16 bits
+    or neither; "negative" also holds entries below 0."""
+    rng = np.random.default_rng(len(regime))
+    top = {"8bit": 256, "16bit": 1 << 16, "32bit": 1 << 31,
+           "negative": 1 << 20}[regime]
+    acc = rng.integers(0, 256, (5000, 3))
+    acc[rng.random((5000, 3)) < 0.01] = top - 1
+    if regime == "negative":
+        acc[rng.random((5000, 3)) < 0.01] = -7
+    return acc.astype(np.int32)
+
+
+@pytest.mark.parametrize("regime", ["8bit", "16bit", "32bit", "negative"])
+def test_pack_tally_twin_matches_jax(regime):
+    """K11's twin against _pack_acc, and the fetch it serves against
+    _fetch_acc: the same images and counts, the same int64 tally."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from hast_tpu.pipeline import classify as JC
+    acc = tally_values(regime)
+    lo8, n8, lo16, n16 = (np.asarray(x) for x in JC._pack_acc(
+        jnp.asarray(acc)))
+    twin_calls = _build.TWIN_CALLS["pack_tally_ref"]
+    got8, got16, over = C.pack_tally(torch.from_numpy(acc))
+    assert _build.TWIN_CALLS["pack_tally_ref"] == twin_calls + 1
+    np.testing.assert_array_equal(got8.numpy(), lo8)
+    np.testing.assert_array_equal(got16.numpy().view(np.uint16), lo16)
+    assert over.tolist() == [int(n8), int(n16)]
+    assert (int(n8) == 0) == (regime == "8bit")
+    fetched = C.fetch_tally(torch.from_numpy(acc))
+    assert fetched.dtype == np.int64
+    np.testing.assert_array_equal(fetched,
+                                  JC._fetch_acc(jnp.asarray(acc)))
+    np.testing.assert_array_equal(fetched, acc)
 
 
 @pytest.mark.parametrize("engine", ["native", "python"])
@@ -300,3 +362,18 @@ def test_goldens_bit_identical_on_card(card, tmp_path, case):
     C.run_classify(hap0, hap1, reads, out, w0=1.04, batch_size=batch,
                    device=card)
     assert out.getvalue() == golden
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["8bit", "16bit", "32bit", "negative"])
+def test_tally_growth_and_pack_kernels_match_twins(card, regime):
+    acc = torch.from_numpy(tally_values(regime)).to(card)
+    launches = dict(_build.LAUNCHES)
+    grown = C.grow_tally(acc, 3 * acc.shape[0])
+    assert torch.equal(grown, C.grow_tally_ref(acc, 3 * acc.shape[0]))
+    for g, w in zip(C.pack_tally(grown), C.pack_tally_ref(grown)):
+        assert torch.equal(g, w)
+    np.testing.assert_array_equal(C.fetch_tally(acc),
+                                  acc.cpu().numpy().astype(np.int64))
+    assert _build.LAUNCHES["grow_tally"] == launches.get("grow_tally", 0) + 1
+    assert _build.LAUNCHES["pack_tally"] == launches.get("pack_tally", 0) + 2

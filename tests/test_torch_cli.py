@@ -1,12 +1,13 @@
 """The port's CLI: `python -m hast_tpu_torch build-markers | classify |
-classify-reads`.
+classify-reads | prepare-10x | assemble | mkoutput | classify-segments |
+run`.
 
-build-markers and classify-reads run end to end in a subprocess that
-blocks jax before anything is imported, which shows the port never
-imports it; their outputs must equal the stage-00 and stage-01 goldens
-byte for byte (--device cpu: the plain twins).  The 00->01 chain runs
-through the port's CLI on the e2e trio, as tests/test_e2e_trio.py runs
-it through hast_tpu's.
+build-markers, classify-reads, mkoutput and run (HAST.sh, 00->01->02->03
+with a fake Supernova) run end to end in a subprocess that blocks jax
+and hast_tpu before anything is imported, which shows the port imports
+neither; their outputs must equal the goldens byte for byte (--device
+cpu: the plain twins).  The 00->01 chain also runs in process on the
+e2e trio, as tests/test_e2e_trio.py runs it through hast_tpu's.
 """
 
 import os
@@ -19,22 +20,41 @@ import pytest
 import torch
 
 from hast_tpu_torch.cli import main
+from hast_tpu_torch.utils import synthetic as S
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 GOLD = ROOT / "tests" / "golden" / "stage01"
 GOLD00 = ROOT / "tests" / "golden" / "stage00"
 E2E = ROOT / "tests" / "golden" / "e2e"
+GOLD03 = ROOT / "tests" / "golden" / "stage03"
 INPUTS = ("hap0.mer", "hap1.mer", "reads1.fq.gz", "reads2.fq")
 
 NO_JAX = """
 import sys
 sys.modules["jax"] = None
+sys.modules["hast_tpu"] = None
 from hast_tpu_torch.cli import main
 main(sys.argv[1:])
 loaded = sorted(m for m, mod in sys.modules.items()
-                if mod is not None and (m == "jax" or m.startswith("jax.")))
+                if mod is not None and m.split(".")[0] in ("jax", "hast_tpu"))
 assert not loaded, loaded
 """
+
+def fake_supernova(root: pathlib.Path) -> pathlib.Path:
+    """`run`'s stage 02 and 03 need Supernova: a stand-in that hands out
+    the e2e golden pseudohap2 assembly (tests/test_e2e_full.py's fake)."""
+    return pathlib.Path(S.write_fake_supernova(
+        str(root), str(E2E / "assembly"),
+        str(ROOT / "tests" / "golden" / "stage02" / "whitelist.txt")))
+
+
+def run_no_jax(argv: list[str], cwd: pathlib.Path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", NO_JAX, *argv], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc
 
 
 @pytest.fixture
@@ -54,12 +74,7 @@ def classify_reads_argv(d: pathlib.Path, wd: pathlib.Path) -> list[str]:
 def test_classify_reads_without_jax_matches_goldens(inputs):
     wd = inputs / "wd"
     wd.mkdir()
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    proc = subprocess.run([sys.executable, "-c", NO_JAX,
-                           *classify_reads_argv(inputs, wd)],
-                          cwd=inputs, env=env, capture_output=True,
-                          text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    proc = run_no_jax(classify_reads_argv(inputs, wd), inputs)
     assert (wd / "phased.barcodes").read_bytes() == \
         (GOLD / "phased.barcodes.golden").read_bytes()
     for name in ("paternal", "maternal", "homozygous"):
@@ -77,14 +92,11 @@ def test_classify_reads_without_jax_matches_goldens(inputs):
 
 
 def test_build_markers_without_jax_matches_goldens(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    proc = subprocess.run(
-        [sys.executable, "-c", NO_JAX, "build-markers", "--auto_bounds",
+    proc = run_no_jax(
+        ["build-markers", "--auto_bounds",
          "--paternal", str(GOLD00 / "paternal.reads.fa.gz"),
          "--maternal", str(GOLD00 / "maternal.reads.fa.gz"),
-         "--out-dir", str(tmp_path), "--device", "cpu"],
-        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+         "--out-dir", str(tmp_path), "--device", "cpu"], tmp_path)
     for parent in ("maternal", "paternal"):
         assert (tmp_path / f"{parent}.kmercount.histo").read_bytes() == \
             (GOLD00 / f"{parent}.histo").read_bytes()
@@ -173,9 +185,130 @@ def test_device_cuda_without_a_card_is_an_error(inputs):
 
 
 @pytest.mark.parametrize("cmd", ["build-markers", "classify",
-                                 "classify-reads"])
+                                 "classify-reads", "mkoutput",
+                                 "classify-segments", "run"])
 def test_help(cmd, capsys):
     with pytest.raises(SystemExit) as e:
         main([cmd, "--help"])
     assert e.value.code == 0
     assert "--device" in capsys.readouterr().out
+
+
+def test_mkoutput_without_jax_matches_goldens(tmp_path):
+    run_no_jax(["mkoutput", "--assembly_path", str(GOLD03 / "assembly"),
+                "--maternal_mer", str(GOLD03 / "maternal.mer"),
+                "--paternal_mer", str(GOLD03 / "paternal.mer"),
+                "--prefer", "paternal", "--workdir", str(tmp_path),
+                "--device", "cpu"], tmp_path)
+    for name in ("phasing.out", "output.merge.homo.ids", "output.father.fa",
+                 "output.father.idx", "output.supplement.fa"):
+        assert (tmp_path / name).read_bytes() == \
+            (GOLD03 / name).read_bytes(), name
+    assert os.readlink(tmp_path / "output.primary.fa") == "output.father.fa"
+
+
+def test_mkoutput_prefer_follows_mer_order(tmp_path):
+    """Without --prefer the first --*_mer flag picks the primary branch
+    (mkoutput_by_fabulous2.0.sh's order rule)."""
+    main(["mkoutput", "--assembly_path", str(GOLD03 / "assembly"),
+          "--maternal_mer", str(GOLD03 / "maternal.mer"),
+          "--paternal_mer", str(GOLD03 / "paternal.mer"),
+          "--workdir", str(tmp_path), "--device", "cpu"])
+    assert os.readlink(tmp_path / "output.primary.fa") == "output.mother.fa"
+    assert not (tmp_path / "output.father.fa").exists()
+
+
+def test_classify_segments_writes_verdicts(capfd):
+    main(["classify-segments", "--hap", str(GOLD03 / "paternal.mer"),
+          "--hap", str(GOLD03 / "maternal.mer"),
+          "--read", str(GOLD03 / "fastq_mode.fq"), "--format", "fastq",
+          "--device", "cpu"])
+    assert capfd.readouterr().out == (GOLD03 / "fastq_mode.out").read_text()
+
+
+@pytest.mark.parametrize("paths", ["absolute", "relative"])
+def test_run_without_jax_matches_e2e_goldens(tmp_path, paths):
+    """HAST.sh through the port: markers, bins, fake-10X conversion, both
+    assemblies (fake Supernova) and both re-phasing runs.  "relative"
+    gives --workdir and --supernova relative to the working directory,
+    which stage 02 and stage 03 leave for their own."""
+    sn = fake_supernova(tmp_path)
+    wd = tmp_path / "run"
+    wd.mkdir()
+    if paths == "relative":
+        sn, wd_arg = sn.relative_to(tmp_path), "run"
+    else:
+        wd_arg = str(wd)
+    run_no_jax(["run", "--paternal", str(E2E / "paternal.fa.gz"),
+                "--maternal", str(E2E / "maternal.fa.gz"),
+                "--read1", str(E2E / "son.r1.fq.gz"),
+                "--read2", str(E2E / "son.r2.fq"), "--supernova", str(sn),
+                "--workdir", wd_arg, "--device", "cpu"], tmp_path)
+    assert (wd / "01.classify_reads" / "phased.barcodes").read_bytes() == \
+        (E2E / "stage01" / "phased.barcodes").read_bytes()
+    for parent, fa in (("paternal", "father"), ("maternal", "mother")):
+        for name in (f"output.{fa}.fa", f"output.{fa}.idx",
+                     "output.supplement.fa"):
+            assert (wd / f"03.{parent}_output" / name).read_bytes() == \
+                (E2E / f"stage03_{parent}" / name).read_bytes(), (parent,
+                                                                 name)
+        for name in ("barcode_freq.txt", "merge.txt", "output.1.idx",
+                     "SampleName_S1_L001_R1_001.fastq.gz"):
+            assert (wd / f"02.{parent}_assembly" / name).exists(), name
+
+
+def test_mkoutput_with_relative_paths(tmp_path, monkeypatch):
+    """mkoutput changes into --workdir: relative assembly, mer and work
+    directories still name what they named before the change."""
+    shutil.copytree(GOLD03, tmp_path / "in")
+    (tmp_path / "wd").mkdir()
+    monkeypatch.chdir(tmp_path)
+    main(["mkoutput", "--assembly_path", "in/assembly",
+          "--paternal_mer", "in/paternal.mer",
+          "--maternal_mer", "in/maternal.mer", "--prefer", "paternal",
+          "--workdir", "wd", "--device", "cpu"])
+    for name in ("phasing.out", "output.father.fa", "output.supplement.fa"):
+        assert (tmp_path / "wd" / name).read_bytes() == \
+            (GOLD03 / name).read_bytes(), name
+    assert os.readlink(tmp_path / "wd" / "output.primary.fa") == \
+        "output.father.fa"
+
+
+def test_every_module_imports_without_jax_or_hast_tpu():
+    import pkgutil
+    import hast_tpu_torch
+    names = sorted(m.name for m in pkgutil.walk_packages(
+        hast_tpu_torch.__path__, "hast_tpu_torch.")
+        if m.name != "hast_tpu_torch.__main__")
+    assert "hast_tpu_torch.pipeline.rephase" in names
+    code = ("import sys\nsys.modules['jax'] = None\n"
+            "sys.modules['hast_tpu'] = None\n"
+            f"for name in {names!r}:\n    __import__(name)\n"
+            "bad = sorted(m for m, mod in sys.modules.items() if mod is not "
+            "None and m.split('.')[0] in ('jax', 'hast_tpu'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_stage03_device_cuda_without_a_card_is_an_error(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for argv in (["mkoutput", "--assembly_path", str(GOLD03 / "assembly"),
+                  "--paternal_mer", str(GOLD03 / "paternal.mer"),
+                  "--maternal_mer", str(GOLD03 / "maternal.mer"),
+                  "--workdir", str(tmp_path)],
+                 ["classify-segments", "--hap", str(GOLD03 / "paternal.mer"),
+                  "--hap", str(GOLD03 / "maternal.mer"), "--read",
+                  str(GOLD03 / "fastq_mode.fq")],
+                 ["run", "--paternal", str(E2E / "paternal.fa.gz"),
+                  "--maternal", str(E2E / "maternal.fa.gz"),
+                  "--read1", str(E2E / "son.r1.fq.gz"),
+                  "--read2", str(E2E / "son.r2.fq"),
+                  "--workdir", str(tmp_path / "run")]):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert "no CUDA device" in str(e.value.code), argv
+    assert not any(tmp_path.iterdir())

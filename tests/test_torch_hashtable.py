@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from hast_tpu.io import native as N
+from hast_tpu.io import native as JN
+from hast_tpu_torch.io import native as N
 from hast_tpu_torch.ops import _build
 from hast_tpu_torch.ops import encode as E
 from hast_tpu_torch.ops import hashtable as H
@@ -48,9 +49,10 @@ def words(hi, lo) -> torch.Tensor:
 
 
 def numpy_placement(monkeypatch):
-    monkeypatch.setattr(N, "sort_dedup_or", lambda *a: None)
-    monkeypatch.setattr(N, "build_quot", lambda *a, **kw: None)
-    monkeypatch.setattr(N, "place2", lambda *a, **kw: None)
+    for mod in (N, JN):
+        monkeypatch.setattr(mod, "sort_dedup_or", lambda *a: None)
+        monkeypatch.setattr(mod, "build_quot", lambda *a, **kw: None)
+        monkeypatch.setattr(mod, "place2", lambda *a, **kw: None)
 
 
 @pytest.mark.parametrize("placement", ["native", "numpy"])
@@ -91,7 +93,8 @@ def test_probe_twin_matches_jax(fmt, k, n):
         assert ref.fmt == "quot"
         assert {21: bbits < k, 11: bbits == k, 9: bbits > k}[k]
     table = H.from_reference(ref.data, ref.n_buckets, ref.max_probe, ref.k,
-                             ref.n_keys, ref.set_sizes, ref.fmt)
+                             ref.n_keys, ref.set_sizes, ref.fmt,
+                             device="cpu")
     q_hi, q_lo = queries(k, hi, lo, k)
     got = H.probe(table, words(q_hi, q_lo)).numpy()
     if fmt == "quot":
@@ -153,7 +156,8 @@ def test_remove_keys_matches_jax(fmt):
     ref = JH.build_table(hi, lo, pay, k, load=0.7, set_sizes=(1000, 1000),
                          fmt=fmt)
     table = H.from_reference(ref.data.copy(), ref.n_buckets, ref.max_probe,
-                             k, ref.n_keys, ref.set_sizes, ref.fmt)
+                             k, ref.n_keys, ref.set_sizes, ref.fmt,
+                             device="cpu")
     want = JH.remove_keys(ref, ahi, alo, payload_mask=3)
     got = H.remove_keys(table, ahi, alo, payload_mask=3)
     assert got == want and len(got) >= 15
@@ -161,7 +165,8 @@ def test_remove_keys_matches_jax(fmt):
     np.testing.assert_array_equal(table.data_np(), ref.data)
     assert (H.probe_np(table, ahi, alo) == 0).all()
     with pytest.raises(ValueError, match="shape|rows"):
-        H.from_reference(ref.data[:-1], ref.n_buckets, 2, k, 0)
+        H.from_reference(ref.data[:-1], ref.n_buckets, 2, k, 0,
+                         device="cpu")
 
 
 def test_probe_rejects_bad_input():

@@ -1,11 +1,12 @@
 """hast_tpu_torch.ops.kmer_count against hast_tpu.ops.kmer_count.
 
-The twins of K4-K8 (what the wrappers run on CPU tensors) are held
+The twins of K4-K8 and K12 (what the wrappers run on CPU tensors) are held
 against the JAX kernels they replace on the same numpy-seeded inputs:
 count_windows against count_kernel_multi, its _clean and _range forms
 and chunk_sorted_kmers; sort_pairs against lax.sort; fold_runs against
-_merge_rle_kernel; count_stats against _histo_kernel and _total_kernel;
-marker_filter against device_marker_algebra.  Then the counters built on
+_merge_rle_kernel; shrink_run against _shrink; count_stats against
+_histo_kernel and _total_kernel; marker_filter against
+device_marker_algebra.  Then the counters built on
 them: DeviceCounter (merge_device included), the key-range passes with
 bounds at and beyond 2^63, the native-reader path and the boundary
 estimate.  Every value is an integer and the kernels use integer
@@ -266,8 +267,8 @@ def jax_tables():
 def test_marker_algebra_matches_jax(jax_tables, bounds):
     _, _, JKC = jax_modules()
     pat, mat = jax_tables
-    tpat = KC.DeviceCountTable.from_reference(pat)
-    tmat = KC.DeviceCountTable.from_reference(mat)
+    tpat = KC.DeviceCountTable.from_reference(pat, "cpu")
+    tmat = KC.DeviceCountTable.from_reference(mat, "cpu")
     assert tpat.keys.numel() > tpat.n_valid        # padded, as in JAX
     before = _build.TWIN_CALLS["marker_filter_ref"]
     got = KC.device_marker_algebra(tpat, tmat, *bounds)
@@ -292,8 +293,8 @@ def test_marker_filter_lone_sentinel_at_lower_zero():
         jnp.asarray(np.array([0, 2, 3], np.uint32)),
         jnp.asarray(np.array([5, 7, 8], np.uint32)),
         jnp.asarray(np.array([4, 1, 1], np.int32)), 3, 21)
-    pat = KC.DeviceCountTable.from_reference(ref_p)
-    mat = KC.DeviceCountTable.from_reference(ref_m)
+    pat = KC.DeviceCountTable.from_reference(ref_p, "cpu")
+    mat = KC.DeviceCountTable.from_reference(ref_m, "cpu")
     assert int(pat.keys[2]) == SENT
     p, m = KC.device_marker_algebra(pat, mat, 0, 100, 0, 100)
     assert p.tolist() == [(1 << 32) | 6]
@@ -306,7 +307,7 @@ def test_marker_filter_lone_sentinel_at_lower_zero():
 def test_device_table_round_trips_and_matches_jax(jax_tables):
     _, _, JKC = jax_modules()
     pat, _ = jax_tables
-    t = KC.DeviceCountTable.from_reference(pat)
+    t = KC.DeviceCountTable.from_reference(pat, "cpu")
     hi, lo, counts, n_valid, k = t.to_reference()
     np.testing.assert_array_equal(hi, np.asarray(pat.hi))
     np.testing.assert_array_equal(lo, np.asarray(pat.lo))
@@ -335,8 +336,8 @@ def test_device_counter_matches_jax_counters():
     _, _, JKC = jax_modules()
     k = 21
     batches = batches_of(11, k, n_batches=7)
-    got = KC.count_batches(batches, k, super_batch=2)
-    small = KC.DeviceCounter(k, fold_above=5000)
+    got = KC.count_batches(batches, k, super_batch=2, device="cpu")
+    small = KC.DeviceCounter(k, "cpu", fold_above=5000)
     for b in batches:
         packed, good, lengths = (torch.from_numpy(x) for x in
                                  KC._assemble_ascii([b]))
@@ -362,13 +363,14 @@ def test_merge_device_union_sums():
                             lengths=np.full(32, 60, np.int32)))()
     b2 = type("B", (), dict(seqs=seqs[16:],
                             lengths=np.full(48, 60, np.int32)))()
-    c1 = KC.count_batches([b1], k, finalize=False)
-    c1.merge_device(KC.count_batches([b2], k, finalize=False))
+    c1 = KC.count_batches([b1], k, finalize=False, device="cpu")
+    c1.merge_device(KC.count_batches([b2], k, finalize=False,
+                                     device="cpu"))
     got = c1.finalize_device().fetch()
     want = JKC.count_batches([b1, b2], k)
     np.testing.assert_array_equal(got.words, want.words)
     np.testing.assert_array_equal(got.counts, want.counts)
-    empty = KC.DeviceCounter(k).finalize_device()
+    empty = KC.DeviceCounter(k, "cpu").finalize_device()
     assert empty.n_valid == 0 and empty.keys.numel() == 0
 
 
@@ -378,18 +380,18 @@ def test_partitioned_count_with_bounds_beyond_int64(n_parts):
     last 2^64 - 1; the passes must still cover every key exactly once."""
     _, _, JKC = jax_modules()
     k = 21
-    bounds = KC.estimate_boundaries([], k, n_parts)
+    bounds = KC.estimate_boundaries([], k, n_parts, device="cpu")
     np.testing.assert_array_equal(bounds,
                                   JKC.estimate_boundaries([], k, n_parts))
     assert int(bounds[n_parts // 2]) >= 1 << 63
     batches = batches_of(3, k, n_batches=3)
     got = KC.count_batches_partitioned(lambda: iter(batches), k, n_parts,
-                                       boundaries=bounds)
-    want = KC.count_batches(batches, k)
+                                       boundaries=bounds, device="cpu")
+    want = KC.count_batches(batches, k, device="cpu")
     np.testing.assert_array_equal(got.words, want.words)
     np.testing.assert_array_equal(got.counts, want.counts)
     sampled = KC.count_batches_partitioned(lambda: iter(batches), k,
-                                           n_parts)
+                                           n_parts, device="cpu")
     np.testing.assert_array_equal(sampled.words, want.words)
 
 
@@ -399,11 +401,11 @@ def test_boundaries_match_jax():
     batches = batches_of(5, k, n_batches=4, alphabet=b"ACGTNacgt")
     for n_parts in (2, 3, 5):
         np.testing.assert_array_equal(
-            KC.estimate_boundaries(batches, k, n_parts),
+            KC.estimate_boundaries(batches, k, n_parts, device="cpu"),
             JKC.estimate_boundaries(batches, k, n_parts))
     np.testing.assert_array_equal(
         KC.sample_boundaries(lambda: iter(batches), k, 3, n_sample=2,
-                             scan_cap=4),
+                             scan_cap=4, device="cpu"),
         JKC.sample_boundaries(lambda: iter(batches), k, 3, n_sample=2,
                               scan_cap=4))
 
@@ -413,7 +415,7 @@ def test_count_file_native_matches_jax(tmp_path, with_n):
     """The native reader's packed batches (clean ones go without their
     mask) and key-range passes against the JAX package's."""
     _, _, JKC = jax_modules()
-    from hast_tpu.io import native as N
+    from hast_tpu_torch.io import native as N
     if N.get_lib() is None:
         pytest.skip("libhastio.so unavailable")
     k = 21
@@ -427,7 +429,8 @@ def test_count_file_native_matches_jax(tmp_path, with_n):
             f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * L))
     for key_range in (None, (1 << 35, (1 << 64) - 1)):
         got = KC.count_file_native(str(path), k, batch_size=128,
-                                   super_batch=2, key_range=key_range)
+                                   super_batch=2, key_range=key_range,
+                                   device="cpu")
         want = JKC.count_file_native(str(path), k, batch_size=128,
                                      super_batch=2, key_range=key_range)
         np.testing.assert_array_equal(got.words, want.words)
@@ -476,6 +479,35 @@ def test_batch_is_clean_and_pack_good():
     assert good.tolist() == [[0xFF, 0x0E], [0xFF, 0x07]]
     assert not KC.batch_is_clean(good, np.array([12, 11], np.int32))
     assert KC.batch_is_clean(good[1:], np.array([11], np.int32))
+
+
+@pytest.mark.parametrize("n", [0, 1, 777, 4096])
+def test_shrink_run_twin_matches_jax(n):
+    """K12's twin (what the wrapper runs on CPU tensors) against JAX's
+    _shrink on a folded run's keys and counts."""
+    jax, jnp, JKC = jax_modules()
+    keys, counts = dup_heavy_keys(n + 3, 21, n=4096)
+    hi = jnp.asarray((keys >> 32).astype(np.uint32))
+    lo = jnp.asarray((keys & U32).astype(np.uint32))
+    jhi, jlo, jc = JKC._shrink(hi, lo, jnp.asarray(counts), n)
+    twin_calls = _build.TWIN_CALLS["shrink_run_ref"]
+    got_keys, got_counts = KC.shrink_run(torch.from_numpy(keys),
+                                         torch.from_numpy(counts), n)
+    assert _build.TWIN_CALLS["shrink_run_ref"] == twin_calls + 1
+    np.testing.assert_array_equal(got_keys.numpy(), ref_keys(jhi, jlo))
+    np.testing.assert_array_equal(got_counts.numpy(), np.asarray(jc))
+    assert got_keys.numel() == n and got_keys.is_contiguous()
+
+
+def test_shrink_run_rejects_bad_input():
+    keys = torch.zeros(8, dtype=torch.int64)
+    counts = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="outside"):
+        KC.shrink_run(keys, counts, 9)
+    with pytest.raises(ValueError, match="counts"):
+        KC.shrink_run(keys, counts[:4], 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        KC.shrink_run(keys.to("meta"), counts.to("meta"), 2)
 
 
 # ---------------------------------------------------------------------------
@@ -538,7 +570,7 @@ def test_counting_on_card_matches_cpu(card, n_parts):
     count."""
     k = 21
     batches = batches_of(3, k, n_batches=7)
-    want = KC.count_batches(batches, k, super_batch=2)
+    want = KC.count_batches(batches, k, super_batch=2, device="cpu")
     launches = _build.LAUNCHES["count_windows"]
     if n_parts == 1:
         counter = KC.count_batches(batches, k, super_batch=2,
@@ -585,3 +617,16 @@ def test_marker_filter_kernel_matches_twin(card):
         want = KC.marker_filter_ref(*args, bounds)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 300_001])
+def test_shrink_run_kernel_matches_twin(card, n):
+    keys, counts = dup_heavy_keys(5, 21, n=400_000)
+    keys, counts = torch.from_numpy(keys).to(card), \
+        torch.from_numpy(counts).to(card)
+    launches = _build.LAUNCHES["shrink_run"]
+    got = KC.shrink_run(keys, counts, n)
+    assert _build.LAUNCHES["shrink_run"] == launches + (1 if n else 0)
+    for g, w in zip(got, KC.shrink_run_ref(keys, counts, n)):
+        assert torch.equal(g, w)

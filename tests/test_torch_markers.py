@@ -101,7 +101,8 @@ def test_host_engine_resumes_after_a_crash(tmp_path, monkeypatch):
     with pytest.raises(KeyboardInterrupt):
         M.build_unshared_markers(paternal=PAT, maternal=MAT,
                                  out_dir=str(tmp_path), auto_bounds=True,
-                                 batch_size=16384, engine="host")
+                                 batch_size=16384, engine="host",
+                                 device="cpu")
     assert (tmp_path / "step_00.1_count_maternal_done").exists()
     assert (tmp_path / "maternal.counts.npz").exists()
     assert not (tmp_path / "step_00.2_count_paternal_done").exists()
@@ -115,7 +116,7 @@ def test_host_engine_resumes_after_a_crash(tmp_path, monkeypatch):
     paths = M.build_unshared_markers(paternal=PAT, maternal=MAT,
                                      out_dir=str(tmp_path),
                                      auto_bounds=True, batch_size=16384,
-                                     engine="host")
+                                     engine="host", device="cpu")
     assert calls == [tuple(MAT), tuple(PAT), tuple(PAT)]
     for parent in PARENTS:
         assert sorted(pathlib.Path(paths[parent]).read_bytes().split()) == \
@@ -129,22 +130,25 @@ def test_host_engine_resumes_after_a_crash(tmp_path, monkeypatch):
 def test_native_count_multiline_fasta_fallback(tmp_path):
     """Multi-line fasta falls back to the python reader for the whole
     file (the native counting parser takes 2-line records only)."""
-    from hast_tpu.io import native as N
+    from hast_tpu_torch.io import native as N
     seq = b"ACGTACGTGGCCATTAGCAT" * 10
     single = tmp_path / "single.fa"
     multi = tmp_path / "multi.fa"
     single.write_bytes(b">r1\n" + seq + b"\n>r2\n" + seq[5:] + b"\n")
     multi.write_bytes(b">r1\n" + seq[:100] + b"\n" + seq[100:] +
                       b"\n>r2\n" + seq[5:] + b"\n")
-    want = M.count_files([str(single)], 21, batch_size=64)
+    want = M.count_files([str(single)], 21, batch_size=64, device="cpu")
     if N.get_lib() is not None:
-        native = KC.count_file_native(str(single), 21, batch_size=64)
+        native = KC.count_file_native(str(single), 21, batch_size=64,
+                                      device="cpu")
         np.testing.assert_array_equal(native.words, want.words)
         np.testing.assert_array_equal(native.counts, want.counts)
-    assert KC.count_file_native(str(multi), 21, batch_size=64) is None
-    for table in (M.count_files([str(multi)], 21, batch_size=64),
-                  M.count_files_device([str(multi)], 21,
-                                       batch_size=64).fetch()):
+    assert KC.count_file_native(str(multi), 21, batch_size=64,
+                                device="cpu") is None
+    for table in (M.count_files([str(multi)], 21, batch_size=64,
+                                device="cpu"),
+                  M.count_files_device([str(multi)], 21, batch_size=64,
+                                       device="cpu").fetch()):
         np.testing.assert_array_equal(table.words, want.words)
         np.testing.assert_array_equal(table.counts, want.counts)
     assert want.n_distinct > 0 and want.total > want.n_distinct
@@ -153,7 +157,7 @@ def test_native_count_multiline_fasta_fallback(tmp_path):
 def test_open_count_reader(tmp_path):
     """The native reader as the port opens it: every batch's masks and
     lengths, and None for a file it cannot take."""
-    from hast_tpu.io import native as N
+    from hast_tpu_torch.io import native as N
     if N.get_lib() is None:
         pytest.skip("libhastio.so unavailable")
     reads = tmp_path / "r.fa"
