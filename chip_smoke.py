@@ -3,7 +3,10 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It exits non-zero, printing no result, when torch sees no CUDA device or
-when the package is not beside it.  Phases, each fatal on failure:
+when the package is not beside it.  ``python3 chip_smoke.py
+--across-cards`` on a machine with two or more cards runs only the paths
+that cross cards (phase_across_cards) instead.  Phases, each fatal on
+failure:
 
 1. toolchain: card, power limit, torch, CUDA, nvcc; the kernels' build.
 2. kernels vs their plain PyTorch twins on the card, bit-exact, with
@@ -67,6 +70,32 @@ when the package is not beside it.  Phases, each fatal on failure:
    by step, the first 2x10^6 bases of phb.12.fa classified on the card and on the CPU twins (equal bytes), and a
    torch.profiler run of the classify step (K9's device time, device
    idle share).
+11. K13-K15 against their twins on the card, bit-exact, with both times:
+   K13 vote_reads on 65,536 packed 100-bp reads and on the same reads as
+   ASCII with 1 % random non-ACGT bytes, on phase 2's three tables, plus
+   __graft_entry__'s 256 x 128 batch; the table split in 2 and in 4, the
+   shards' votes summed equal to the whole table's; K14 route_kmers on a
+   shard of a 16,384-read batch at dp = 4 and 8, slack 2, and on 64
+   identical reads of one key (drop counts equal the twin's); K15
+   tally_votes of 65,536 reads into 10^5 barcodes, ids -1 and past the
+   end included (index_add_ timed beside it).
+12. sharded_classify_step on meshes of cuda:0 at dp x tp = 4x1 and 2x2,
+   both slot formats, equal to K3's tally of the same reads.
+13. the mesh classify main path: phase 5's workload through
+   run_classify(mesh=make_mesh(4, devices=[cuda:0] * 4)) and a 2x2
+   mesh, phased.barcodes byte-identical to phase 5's; K13 launched, no
+   twin called; the classify time and its host fold's share.  With two
+   or more cards, the 4x1 mesh again over distinct cards.
+14. the mesh stage-00 main path: phase 6's trio through
+   build_unshared_markers_mesh on a 4-shard mesh of cuda:0, histos,
+   bounds and markers byte-identical to phase 6's; K14, K5, K6, K7, K8
+   and K12 launched, no twin called; then a skewed batch through
+   count_files_mesh_device, retried with more slack.
+15. the stage-01 goldens through the CLI's mesh and multi-process paths
+   on the card: ``classify --mesh 1x1``, ``classify-reads --mesh auto``,
+   two processes of ``python -m hast_tpu_torch classify`` under
+   HAST_NUM_PROCESSES=2 on the same card, and ``merge-results`` of two
+   shard outputs.
 
 Before the last line it prints one JSON line of kernel results (with each
 kernel's bound: the larger of the bytes it must move at the H100's
@@ -75,6 +104,7 @@ the log names both counts) and the ``nvidia-smi`` name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -130,6 +160,12 @@ STATS_OPS = 4         # K7 per count: clamp, bin, total
 MERGE_OPS = 12        # K8 per row, as a merge of two sorted runs
 GROW_OPS = 1          # K10 per element of the new tally: copy or zero
 PACK_OPS = 8          # K11 per entry: two masks, two shifts, two tests, sums
+# K14 per window on top of the window itself: the ACGT test of the new
+# byte 2, the hash 9, the divide and clamp 3, the slot 2
+ROUTE_OPS = 16
+N_VOTE_READS = 65536          # K13 check: 100-bp reads
+N_TALLY_BARCODES = 100_000    # K15 check
+MESH_BATCH = 1 << 14          # the mesh stage-00 batch (FQ.DEFAULT_BATCH)
 STAGE03_FILES = (
     "output.phb.1.fa", "output.phb.2.fa", "output.homo.fa", "phasing.out",
     "output.phb.12.father.idx", "output.phb.12.mother.idx",
@@ -160,6 +196,22 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time of the kernels whose name holds `kernel` over reps
+    calls of fn, from torch.profiler: the kernel alone, apart from the
+    wrapper's host time that cuda_ms also sees when it is the longer."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3
 
 
 def bound(name: str, n_bytes: float, n_ops: float) -> dict:
@@ -367,9 +419,11 @@ def _tally_kernels(rng) -> dict:
     plain = cuda_ms(lambda: C.grow_tally_ref(acc, max_id), 5)
     lib = cuda_ms(lambda: torch.nn.functional.pad(acc, (0, 0, 0, max_id)),
                   20)
+    dev_ms = device_ms(lambda: C.grow_tally(acc, max_id), 20,
+                       "grow_tally_kernel")
     log(f"K10 grow_tally {acc.shape[0]} -> {2 * acc.shape[0]} rows: kernel "
-        f"{ms:.4f} ms, twin {plain:.4f} ms, torch.nn.functional.pad "
-        f"{lib:.4f} ms, bit-exact")
+        f"{ms:.4f} ms ({dev_ms:.4f} ms of it on the device), twin "
+        f"{plain:.4f} ms, torch.nn.functional.pad {lib:.4f} ms, bit-exact")
     res["grow_tally"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
         **bound("K10", 4 * acc.numel() + 8 * acc.numel(),
@@ -381,7 +435,9 @@ def _tally_kernels(rng) -> dict:
         fail("K11 pack_tally: wrong counts of entries past 8 and 16 bits")
     ms = cuda_ms(lambda: C.pack_tally(rows), 20)
     plain = cuda_ms(lambda: C.pack_tally_ref(rows), 5)
-    log(f"K11 pack_tally {rows.shape[0]} rows: kernel {ms:.4f} ms, twin "
+    dev_ms = device_ms(lambda: C.pack_tally(rows), 20, "pack_tally_kernel")
+    log(f"K11 pack_tally {rows.shape[0]} rows: kernel {ms:.4f} ms "
+        f"({dev_ms:.4f} ms of it on the device), twin "
         f"{plain:.4f} ms, bit-exact")
     res["pack_tally"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
@@ -507,7 +563,10 @@ def phase_kernels00() -> dict:
                       KC.shrink_run_ref(got[0], got[1], m))
     ms = cuda_ms(lambda: KC.shrink_run(got[0], got[1], m), 20)
     plain = cuda_ms(lambda: KC.shrink_run_ref(got[0], got[1], m), 5)
-    log(f"K12 shrink_run: {m} of {n} rows: kernel {ms:.4f} ms, twin "
+    dev_ms = device_ms(lambda: KC.shrink_run(got[0], got[1], m), 20,
+                       "shrink_run_kernel")
+    log(f"K12 shrink_run: {m} of {n} rows: kernel {ms:.4f} ms "
+        f"({dev_ms:.4f} ms of it on the device), twin "
         f"{plain:.4f} ms, bit-exact")
     res["shrink_run"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                              library_ms=None, **bound("K12", 24 * m, 0))
@@ -1244,6 +1303,549 @@ def phase_scale() -> None:
         "twins")
 
 
+def _vote_reads_input(rng, key_sets, n: int, L: int = 112):
+    """n ACGT reads of stride L, lengths 100 but for some shorter than k
+    and some empty, one key of each set planted in each read."""
+    import numpy as np
+    from hast_tpu_torch.ops import encode as E
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, L))]
+    for s, ks in enumerate(key_sets):
+        pos = rng.integers(s * 50, s * 50 + 50 - K, n)
+        kmers = E.words_to_bytes(ks[rng.integers(0, ks.size, n)], K)
+        seqs[np.arange(n)[:, None], pos[:, None] + np.arange(K)] = kmers
+    lens = np.full(n, 100, np.int32)
+    lens[rng.integers(0, n, 512)] = rng.integers(0, K, 512)
+    return seqs, lens
+
+
+def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
+    """K13-K15 against their twins on the same card tensors."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import encode as E
+    from hast_tpu_torch.ops import hashtable as H
+    from hast_tpu_torch.ops import kmer_count as KC
+    from hast_tpu_torch.parallel import mesh as PM
+    from hast_tpu_torch.pipeline import classify as C
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2027)
+    res = {}
+    seqs, lens = _vote_reads_input(rng, (words, bwords), N_VOTE_READS)
+    # the same reads as ASCII with 1 % random non-ACGT bytes (K13 codes
+    # any byte; validity comes from the length alone)
+    odd = np.frombuffer(b"acgtNRUnKMSWBDHV", np.uint8)
+    ascii_np = np.where(rng.random(seqs.shape) < 0.01,
+                        odd[rng.integers(0, odd.size, seqs.shape)], seqs)
+    forms = {"packed": (True, torch.from_numpy(E.pack_codes_np(seqs)).to(dev)),
+             "ascii": (False, torch.from_numpy(ascii_np).to(dev))}
+    lengths = torch.from_numpy(lens).to(dev)
+    probed = int((lengths.long() - K + 1).clamp(0, 100 - K + 1).sum())
+    err, times = 0.0, {}
+    for name in ("quot", "full", "big"):
+        table = tables[name]
+        for form, (packed, reads) in forms.items():
+            got = C.vote_reads(table, reads, lengths, packed)
+            want = C.vote_reads_ref(table, reads, lengths, packed)
+            err = max(err, _check_same(f"K13 vote_reads {form} ({name})",
+                                       [got], [want]))
+            if int((got.long() & 0xFFFF).sum()) == 0:
+                fail(f"K13 vote_reads {form} ({name}): no votes")
+            ms = cuda_ms(lambda: C.vote_reads(table, reads, lengths,
+                                              packed), 20)
+            plain = cuda_ms(lambda: C.vote_reads_ref(table, reads, lengths,
+                                                     packed), 3)
+            times[(name, form)] = (ms, plain)
+            log(f"K13 vote_reads {form} {name} table {table.n_buckets} rows, "
+                f"{N_VOTE_READS} reads, {probed} windows: kernel {ms:.4f} ms,"
+                f" twin {plain:.4f} ms, bit-exact")
+    # __graft_entry__'s example batch: 256 reads of 128 ASCII bytes, 100 bp
+    graft = torch.from_numpy(ascii_np[:256, :112].repeat(2, axis=1)[:, :128]
+                             .copy()).to(dev)
+    glens = torch.full((256,), 100, dtype=torch.int32, device=dev)
+    err = max(err, _check_same(
+        "K13 vote_reads on the 256 x 128 batch",
+        [C.vote_reads(tables["quot"], graft, glens, False)],
+        [C.vote_reads_ref(tables["quot"], graft, glens, False)]))
+    # the table split in 2 and in 4: the shards' votes sum to the whole's
+    for name in ("quot", "full"):
+        table = tables[name]
+        for tp in (2, 4):
+            rows = table.n_buckets // tp
+            for form, (packed, reads) in forms.items():
+                whole = C.vote_reads(table, reads, lengths, packed)
+                parts = []
+                for j in range(tp):
+                    part = H.KmerTable(table.data[j * rows:(j + 1) * rows],
+                                       table.n_buckets, table.max_probe, K,
+                                       0, (), table.fmt)
+                    got = C.vote_reads(part, reads, lengths, packed,
+                                       row_lo=j * rows)
+                    err = max(err, _check_same(
+                        f"K13 vote_reads {form} shard {j}/{tp} ({name})",
+                        [got], [C.vote_reads_ref(part, reads, lengths,
+                                                 packed, row_lo=j * rows)]))
+                    parts.append(got.long() & 0xFFFF)
+                if not torch.equal(sum(parts), whole.long() & 0xFFFF):
+                    fail(f"K13 vote_reads {form}: the {tp} shards' votes do "
+                         f"not sum to the whole table's ({name})")
+    log("K13 vote_reads: the 256 x 128 batch and the 2- and 4-way table "
+        "splits bit-exact; the shards' votes sum to the whole table's")
+    ms, plain = times[("quot", "packed")]
+    # packed reads and lengths in, two uint16 votes out, two rows a window
+    res["vote_reads"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+        **bound("K13", forms["packed"][1].numel() + 4 * N_VOTE_READS
+                + 4 * N_VOTE_READS + 32 * probed,
+                (WINDOW_OPS + PROBE_OPS[tables["quot"].fmt] + VOTE_OPS)
+                * probed))
+
+    # K14: one shard's rows of a 16,384-read batch of 100-bp reads (stride
+    # 128, as the python reader pads them), 1 % N and 2 % soft-masked
+    err = 0.0
+    for dp in (4, 8):
+        rows = MESH_BATCH // dp
+        seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4,
+                                                             (rows, 128))]
+        u = rng.random(seqs.shape)
+        seqs = np.where(u < 0.01, ord("N"), np.where(u < 0.03, seqs | 0x20,
+                                                     seqs)).astype(np.uint8)
+        lens = np.full(rows, 100, np.int32)
+        seqs[:, 100:] = 0
+        seqs_t = torch.from_numpy(seqs).to(dev)
+        lens_t = torch.from_numpy(lens).to(dev)
+        cap = rows * (128 - K + 1) // dp * 2
+        got, dropped = PM.route_kmers(seqs_t, lens_t, K, dp, cap)
+        want, want_dropped = PM.route_kmers_ref(seqs_t, lens_t, K, dp, cap)
+        torch.cuda.synchronize()
+        if int(dropped) != int(want_dropped) or int(dropped):
+            fail(f"K14 route_kmers dp={dp}: dropped {int(dropped)}, twin "
+                 f"{int(want_dropped)}")
+        err = max(err, _check_same(f"K14 route_kmers dp={dp}",
+                                   [got.sort(dim=1).values], [want]))
+        keys = int((want != KC.SENT).sum())
+        ms = cuda_ms(lambda: PM.route_kmers(seqs_t, lens_t, K, dp, cap), 20)
+        plain = cuda_ms(lambda: PM.route_kmers_ref(seqs_t, lens_t, K, dp,
+                                                   cap), 3)
+        dev_ms = device_ms(lambda: PM.route_kmers(seqs_t, lens_t, K, dp,
+                                                  cap), 20,
+                           "route_kmers_kernel")
+        log(f"K14 route_kmers dp={dp}: {rows} reads, {keys} keys into "
+            f"{dp} x {cap}: kernel {ms:.4f} ms ({dev_ms:.4f} ms of it on "
+            f"the device), twin {plain:.4f} ms, rows equal once sorted, no "
+            "drop")
+        if dp == 4:
+            # reads and lengths in, the (dp, cap) buffer out
+            res["route_kmers"] = dict(
+                ms=ms, plain_ms=plain, library_ms=None,
+                **bound("K14", seqs.size + 4 * rows + 8 * dp * cap,
+                        (WINDOW_OPS + ROUTE_OPS) * rows * (128 - K + 1)))
+    skew = torch.full((8, 128), ord("A"), dtype=torch.uint8, device=dev)
+    skew_lens = torch.full((8,), 128, dtype=torch.int32, device=dev)
+    cap = 8 * (128 - K + 1) // 8 * 2
+    got, dropped = PM.route_kmers(skew, skew_lens, K, 8, cap)
+    want, want_dropped = PM.route_kmers_ref(skew, skew_lens, K, 8, cap)
+    if int(dropped) != int(want_dropped) or not int(dropped):
+        fail(f"K14 route_kmers skewed batch: dropped {int(dropped)}, twin "
+             f"{int(want_dropped)}")
+    log(f"K14 route_kmers: one shard of 64 identical reads of one key, dp 8,"
+        f" slack 2: {int(dropped)} keys dropped, as the twin")
+    res["route_kmers"]["max_abs_err"] = err
+
+    # K15: 65,536 reads' votes into 10^5 barcodes, ids -1 and past the end
+    n, nb = N_VOTE_READS, N_TALLY_BARCODES
+    votes = torch.from_numpy(rng.integers(0, 50, (n, 2)).astype(
+        np.int32)).to(dev)
+    has_n = torch.from_numpy(rng.random(n) < 0.02).to(dev)
+    ids_np = rng.integers(0, nb, n).astype(np.int32)
+    ids_np[rng.integers(0, n, 256)] = -1
+    ids_np[rng.integers(0, n, 256)] = nb + 7
+    ids = torch.from_numpy(ids_np).to(dev)
+    err = _check_same("K15 tally_votes",
+                      [C.tally_votes(votes, has_n, ids, nb)],
+                      [C.tally_votes_ref(votes, has_n, ids, nb)])
+    ms = cuda_ms(lambda: C.tally_votes(votes, has_n, ids, nb), 20)
+    plain = cuda_ms(lambda: C.tally_votes_ref(votes, has_n, ids, nb), 5)
+    keep = (ids >= 0) & (ids < nb)
+    v0 = torch.where(has_n, 0, votes[:, 0])
+    v1 = torch.where(has_n, 0, votes[:, 1])
+    upd = torch.stack([v0, v1, ((v0 == 0) & (v1 == 0) | has_n).int()],
+                      -1)[keep].int()
+    ids64 = ids[keep].long()
+    acc = torch.zeros((nb, 3), dtype=torch.int32, device=dev)
+    lib = cuda_ms(lambda: acc.index_add_(0, ids64, upd), 20)
+    dev_ms = device_ms(lambda: C.tally_votes(votes, has_n, ids, nb), 20,
+                       "tally_votes_kernel")
+    log(f"K15 tally_votes {n} reads into {nb} barcodes: kernel {ms:.4f} ms "
+        f"({dev_ms:.4f} ms of it on the device), "
+        f"twin {plain:.4f} ms, index_add_ of the prepared rows {lib:.4f} ms, "
+        "bit-exact")
+    res["tally_votes"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              library_ms=lib,
+                              **bound("K15", 13 * n + 12 * nb, READ_OPS * n))
+    return res
+
+
+def phase_classify_step(tables: dict, words) -> int:
+    """sharded_classify_step on meshes of cuda:0 against K3's tally of the
+    same reads; returns K15's launches in the steps."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.ops import encode as E
+    from hast_tpu_torch.parallel import mesh as PM
+    from hast_tpu_torch.pipeline import classify as C
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2028)
+    b, nb = 32768, 4096
+    seqs, lens = _vote_reads_input(rng, (words,), b)
+    ids = rng.integers(0, nb, b).astype(np.int32)
+    ids[rng.integers(0, b, 256)] = -1
+    has_n = rng.random(b) < 0.02
+    k3_args = [torch.from_numpy(x).to(dev) for x in
+               (E.pack_codes_np(seqs), lens, ids, has_n)]
+    launches = 0
+    for name in ("quot", "full"):
+        table = tables[name]
+        for dp, tp in ((4, 1), (2, 2)):
+            mesh = PM.make_mesh(dp * tp, tp=tp, devices=[dev] * (dp * tp))
+            shards = PM.shard_table(mesh, table)
+            _build.LAUNCHES.clear()
+            _build.TWIN_CALLS.clear()
+            got = PM.sharded_classify_step(mesh, shards, seqs, lens, ids,
+                                           has_n, K, table.max_probe,
+                                           table.n_buckets, nb, table.fmt)
+            torch.cuda.synchronize()
+            counts, twins = dict(_build.LAUNCHES), dict(_build.TWIN_CALLS)
+            launches += counts.get("tally_votes", 0)
+            if counts.get("vote_reads", 0) != dp * tp or \
+                    counts.get("tally_votes", 0) != dp or any(twins.values()):
+                fail(f"sharded_classify_step {dp}x{tp}: launches {counts}, "
+                     f"twins {twins}")
+            want = C.tally_step(table, torch.zeros((nb, 3), dtype=torch.int32,
+                                                   device=dev), *k3_args)
+            if not torch.equal(got, want) or int(want[:, :2].sum()) == 0:
+                fail(f"sharded_classify_step {dp}x{tp} ({name}) differs from "
+                     "K3's tally")
+            log(f"sharded_classify_step {dp}x{tp} on cuda:0 ({name} table, "
+                f"{b} reads): equal to K3's tally; launches {counts}")
+    return launches
+
+
+def phase_mesh_classify(tmp: str) -> int:
+    """Phase 5's workload through run_classify on meshes of cuda:0 (and of
+    distinct cards when there are two or more); returns K13's launches
+    of the 4x1 run."""
+    import io
+    import torch
+    from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.parallel import mesh as PM
+    from hast_tpu_torch.pipeline import classify as C
+
+    d = os.path.join(tmp, "bench")
+    hap0, hap1 = os.path.join(d, "paternal.mer"), os.path.join(d, "maternal.mer")
+    reads = [os.path.join(d, "son.fq")]
+    with open(os.path.join(d, "01.classify", "phased.barcodes"), "rb") as f:
+        single = f.read()
+    cuda0 = torch.device("cuda", 0)
+    meshes = [("4x1 on cuda:0", PM.make_mesh(4, devices=[cuda0] * 4)),
+              ("2x2 on cuda:0", PM.make_mesh(4, tp=2, devices=[cuda0] * 4))]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i % n_cards) for i in range(4)]
+        meshes.append((f"4x1 on {n_cards} cards", PM.make_mesh(
+            4, devices=cards)))
+    else:
+        log("one card: every mesh shard ran on cuda:0 (the launch guard "
+            "of ops/_build.py on_card is not exercised across cards)")
+    k13 = None
+    with open(os.devnull, "w") as devnull:
+        for name, mesh in meshes:
+            _build.LAUNCHES.clear()
+            _build.TWIN_CALLS.clear()
+            timings = {}
+            out = io.BytesIO()
+            with contextlib.redirect_stderr(devnull):
+                C.run_classify(hap0, hap1, reads, out, w0=1.04,
+                               batch_size=1 << 15, mesh=mesh,
+                               timings=timings)
+            counts, twins = dict(_build.LAUNCHES), dict(_build.TWIN_CALLS)
+            if k13 is None:
+                k13 = counts.get("vote_reads", 0)
+            if out.getvalue() != single:
+                fail(f"mesh classify {name}: phased.barcodes differs from "
+                     "the single-device output")
+            if counts.get("vote_reads", 0) <= 0 or any(twins.values()):
+                fail(f"mesh classify {name}: launches {counts}, twins "
+                     f"{twins}")
+            share = timings["host_fold"] / timings["classify"]
+            log(f"mesh classify {name}: {N_READS} reads, phased.barcodes "
+                f"byte-identical to the single-device run; "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+                + f"; host fold {share:.4f} of classify; launches {counts}")
+    return k13
+
+
+def phase_mesh_markers(tmp: str, reads: dict) -> int:
+    """Phase 6's trio through build_unshared_markers_mesh on 4 shards of
+    cuda:0, then a skewed batch through count_files_mesh_device; returns
+    K14's launches of the trio run."""
+    import io
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.parallel import distributed as D
+    from hast_tpu_torch.parallel import mesh as PM
+    from hast_tpu_torch.pipeline import markers as M
+
+    d = os.path.join(tmp, "stage00")
+    single, out = os.path.join(d, "00"), os.path.join(d, "00mesh")
+    os.makedirs(out)
+    mesh = PM.make_mesh(4, devices=[torch.device("cuda", 0)] * 4)
+    _build.LAUNCHES.clear()
+    _build.TWIN_CALLS.clear()
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as devnull:
+        D.build_unshared_markers_mesh(mesh, [reads["paternal"]],
+                                      [reads["maternal"]], out,
+                                      auto_bounds=True, batch_size=MESH_BATCH,
+                                      log=devnull)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, twins = dict(_build.LAUNCHES), dict(_build.TWIN_CALLS)
+    for name in ("route_kmers", *STAGE00_KERNELS):
+        if name != "count_windows" and counts.get(name, 0) <= 0:
+            fail(f"mesh build-markers launched no {name} kernel: {counts}")
+    if any(twins.values()):
+        fail(f"mesh build-markers called twins: {twins}")
+    for parent in ("paternal", "maternal"):
+        for f in (f"{parent}.kmercount.histo", f"{parent}.bounds.txt",
+                  f"{parent}.unique.filter.mer"):
+            if not _same_bytes(os.path.join(out, f), os.path.join(single, f)):
+                fail(f"mesh build-markers: {f} differs from the device "
+                     "engine's")
+    log(f"mesh build-markers (4 shards on cuda:0, {MESH_BATCH}-read "
+        f"batches): {wall:.3f} s; histos, bounds and markers byte-identical "
+        f"to phase 6's; launches {counts}")
+
+    skew = os.path.join(d, "skew.fa")
+    with open(skew, "wb") as f:
+        f.write(b"".join(b">r%d\n%s\n" % (i, b"A" * 128) for i in range(64)))
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        t = D.count_files_mesh_device(PM.make_mesh(
+            8, devices=[torch.device("cuda", 0)] * 8), [skew], K,
+            batch_size=64)
+    want = M.count_files([skew], K, batch_size=64, device="cuda")
+    host = t.fetch()
+    if "retrying batch with slack=8" not in err.getvalue() or not (
+            np.array_equal(host.words, want.words)
+            and np.array_equal(host.counts, want.counts)):
+        fail(f"mesh count of a skewed batch: {err.getvalue()!r}, "
+             f"{host.counts} vs {want.counts}")
+    log("mesh count of 64 identical reads of one key: all_to_all overflow, "
+        "retried at slack 4 and 8, table equal to the single-device count")
+    return counts.get("route_kmers", 0)
+
+
+def phase_mesh_goldens(tmp: str) -> None:
+    """The stage-01 golden through the CLI's mesh, multi-process and merge
+    paths on the card."""
+    import socket
+    from hast_tpu_torch import cli
+    d = os.path.join(tmp, "golden_mesh")
+    os.makedirs(d)
+    for f in ("hap0.mer", "hap1.mer", "reads1.fq.gz", "reads2.fq"):
+        shutil.copy(os.path.join(GOLD, f), d)
+    hap = ["--hap0", os.path.join(d, "hap0.mer"),
+           "--hap1", os.path.join(d, "hap1.mer")]
+    reads = [os.path.join(d, "reads1.fq.gz"), os.path.join(d, "reads2.fq")]
+    with open(os.path.join(GOLD, "phased.barcodes.golden"), "rb") as f:
+        golden = f.read()
+
+    def same(path: str, what: str) -> None:
+        with open(path, "rb") as f:
+            if f.read() != golden:
+                fail(f"{what} differs from phased.barcodes.golden")
+
+    out = os.path.join(d, "mesh11.out")
+    cli.main(["classify", *hap, "--read", reads[0], "--read", reads[1],
+              "--weight0", "1.04", "--output", out, "--mesh", "1x1",
+              "--device", "cuda"])
+    same(out, "classify --mesh 1x1 --device cuda")
+    wd = os.path.join(d, "wd")
+    os.makedirs(wd)
+    cli.main(["classify-reads", "--paternal_mer", hap[1], "--maternal_mer",
+              hap[3], "--filial", f"{reads[0]} {reads[1]}", "--workdir", wd,
+              "--mesh", "auto", "--device", "cuda"])
+    same(os.path.join(wd, "phased.barcodes"),
+         "classify-reads --mesh auto --device cuda")
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    out = os.path.join(d, "two.out")
+    argv = [sys.executable, "-m", "hast_tpu_torch", "classify", *hap,
+            "--read", reads[0], "--read", reads[1], "--weight0", "1.04",
+            "--output", out, "--device", "cuda"]
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=ROOT, HAST_NUM_PROCESSES="2",
+                   HAST_PROCESS_ID=str(rank),
+                   HAST_COORDINATOR=f"127.0.0.1:{port}")
+        procs.append(subprocess.Popen(argv, cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT))
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            fail(f"two-process classify: a process exited {p.returncode}:\n"
+                 f"{text.decode(errors='replace')[-3000:]}")
+    same(out, "two-process classify on one card (HAST_NUM_PROCESSES=2)")
+    wall = time.perf_counter() - t0
+
+    shards = []
+    for i, r in enumerate(reads):
+        shards.append(os.path.join(d, f"shard{i}.out"))
+        cli.main(["classify", *hap, "--read", r, "--weight0", "1.04",
+                  "--output", shards[-1], "--device", "cuda"])
+    merged = subprocess.run(
+        [sys.executable, "-m", "hast_tpu_torch", "merge-results", "--input",
+         shards[0], "--input", shards[1], *hap, "--weight0", "1.04"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, timeout=300)
+    if merged.returncode != 0 or merged.stdout != golden:
+        fail(f"merge-results of two shard outputs differs from the golden: "
+             f"{merged.stderr.decode(errors='replace')[-2000:]}")
+    log(f"golden mesh: classify --mesh 1x1, classify-reads --mesh auto, "
+        f"two processes of classify on one card ({wall:.3f} s) and "
+        "merge-results of two shards: byte-identical on cuda")
+
+
+def phase_across_cards(tmp: str) -> None:
+    """The paths that cross cards, on every visible card (two or more):
+    the stage-01 golden with --device cuda:N for each N and on a mesh of
+    all of them; the stage-00 goldens on a mesh of all of them; phase 5's
+    workload on cuda:0 alone and on the meshes (dp = cards, and 2 x
+    cards/2 when even), equal bytes; phase 6's trio through the device
+    engine on cuda:0 and a mesh of every card, equal files."""
+    import io
+    import torch
+    from hast_tpu_torch import cli
+    from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.parallel import mesh as PM
+    from hast_tpu_torch.pipeline import classify as C
+    from hast_tpu_torch.pipeline import markers as M
+    from hast_tpu_torch.utils import synthetic as S
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        fail(f"--across-cards needs two or more cards, {n} visible")
+    d = os.path.join(tmp, "golden")
+    os.makedirs(d)
+    for f in ("hap0.mer", "hap1.mer", "reads1.fq.gz", "reads2.fq"):
+        shutil.copy(os.path.join(GOLD, f), d)
+    hap = ["--hap0", os.path.join(d, "hap0.mer"),
+           "--hap1", os.path.join(d, "hap1.mer")]
+    reads = ["--read", os.path.join(d, "reads1.fq.gz"),
+             "--read", os.path.join(d, "reads2.fq"), "--weight0", "1.04"]
+    for device, mesh in [(f"cuda:{i}", []) for i in range(n)] + [
+            ("cuda", ["--mesh", f"{n}x1"])]:
+        out = os.path.join(d, f"phased.{device}.{len(mesh)}")
+        cli.main(["classify", *hap, *reads, "--output", out, "--device",
+                  device, *mesh])
+        if not _same_bytes(out, os.path.join(GOLD,
+                                             "phased.barcodes.golden")):
+            fail(f"classify --device {device} {mesh} differs from the "
+                 "golden")
+    out00 = os.path.join(tmp, "00")
+    os.makedirs(out00)
+    cli.main(["build-markers", "--auto_bounds", "--mesh", str(n),
+              "--paternal", os.path.join(GOLD00, "paternal.reads.fa.gz"),
+              "--maternal", os.path.join(GOLD00, "maternal.reads.fa.gz"),
+              "--out-dir", out00, "--device", "cuda"])
+    for parent in ("maternal", "paternal"):
+        if not (_same_bytes(os.path.join(out00, f"{parent}.kmercount.histo"),
+                            os.path.join(GOLD00, f"{parent}.histo"))
+                and _sorted_lines(os.path.join(
+                    out00, f"{parent}.unique.filter.mer")) == _sorted_lines(
+                    os.path.join(GOLD00, f"{parent}.unique.filter.mer"))):
+            fail(f"build-markers --mesh {n} --device cuda: {parent} differs")
+    log(f"across {n} cards: classify --device cuda:0 ... cuda:{n - 1} and "
+        f"--mesh {n}x1, build-markers --mesh {n}: goldens byte-identical")
+
+    b = os.path.join(tmp, "bench")
+    os.makedirs(b)
+    h0, h1 = os.path.join(b, "paternal.mer"), os.path.join(b, "maternal.mer")
+    son = os.path.join(b, "son.fq")
+    m0, m1 = S.make_marker_files(7, N_MARKERS, K, h0, h1)
+    S.make_stlfr_fastq(8, son, m0, m1, N_READS)
+    cards = [torch.device("cuda", i) for i in range(n)]
+    runs = [("cuda:0 alone", None), (f"{n}x1 mesh", PM.make_mesh(
+        devices=cards))]
+    if n % 2 == 0 and n >= 4:
+        runs.append((f"{n // 2}x2 mesh", PM.make_mesh(tp=2, devices=cards)))
+    want = None
+    with open(os.devnull, "w") as devnull:
+        for name, mesh in runs * 2:       # the second round is warm
+            _build.LAUNCHES.clear()
+            timings, out = {}, io.BytesIO()
+            with contextlib.redirect_stderr(devnull):
+                C.run_classify(h0, h1, [son], out, w0=1.04,
+                               batch_size=1 << 15, device="cuda:0",
+                               mesh=mesh, timings=timings)
+            want = want or out.getvalue()
+            if out.getvalue() != want:
+                fail(f"classify on the {name} differs from cuda:0 alone")
+            log(f"across {n} cards: classify of {N_READS} reads on the "
+                f"{name}: " + ", ".join(f"{k} {v:.3f} s"
+                                        for k, v in timings.items())
+                + f"; launches {dict(_build.LAUNCHES)}")
+
+    t = os.path.join(tmp, "trio")
+    os.makedirs(t)
+    parents = {p: os.path.join(t, f"{p}.fa") for p in ("paternal",
+                                                       "maternal")}
+    genomes = S.make_trio_genomes(77, GENOME_LEN, het_rate=0.001)
+    for seed, g, p in zip((1, 2), genomes, parents):
+        S.make_parent_reads_vectorized(seed, g, parents[p], COVERAGE, 100,
+                                       0.002)
+    outs = {}
+    for name, mesh in (("device engine on cuda:0", None),
+                       (f"mesh of {n} cards", PM.make_mesh(devices=cards))):
+        outs[name] = os.path.join(t, f"out{len(outs)}")
+        os.makedirs(outs[name])
+        t0 = time.perf_counter()
+        with open(os.devnull, "w") as devnull:
+            if mesh is None:
+                M.build_unshared_markers([parents["paternal"]],
+                                         [parents["maternal"]], outs[name],
+                                         auto_bounds=True, device="cuda:0",
+                                         log=devnull)
+            else:
+                from hast_tpu_torch.parallel import distributed as D
+                D.build_unshared_markers_mesh(
+                    mesh, [parents["paternal"]], [parents["maternal"]],
+                    outs[name], auto_bounds=True, batch_size=MESH_BATCH,
+                    log=devnull)
+        log(f"across {n} cards: build-markers of the {GENOME_LEN} bp trio "
+            f"by the {name}: {time.perf_counter() - t0:.3f} s")
+    first, second = outs.values()
+    for f in sorted(os.listdir(second)):
+        if not _same_bytes(os.path.join(first, f), os.path.join(second, f)):
+            fail(f"build-markers across {n} cards: {f} differs from cuda:0's")
+    log(f"across {n} cards: the trio's histos, bounds and markers equal")
+
+
 def main() -> None:
     try:
         import torch
@@ -1255,14 +1857,30 @@ def main() -> None:
         fail(f"the hast_tpu_torch package is not beside {__file__}")
     sys.path.insert(0, ROOT)
 
+    across = sys.argv[1:] == ["--across-cards"]
+    if sys.argv[1:] and not across:
+        fail(f"unknown arguments {sys.argv[1:]} (only --across-cards)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
     phase_toolchain()
+    if across:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            phase_across_cards(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     kernels, tables, words, bwords = phase_kernels()
     kernels.update(phase_kernels00())
     kernels.update(phase_kernels03(tables, words, bwords))
+    kernels.update(phase_kernels_mesh(tables, words, bwords))
+    mesh_launches = {"tally_votes": phase_classify_step(tables, words)}
     del tables, words, bwords
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1270,10 +1888,15 @@ def main() -> None:
         phase_goldens00(tmp)
         phase_goldens03(tmp)
         launches = phase_main_path(tmp)["launches"]
+        mesh_launches["vote_reads"] = phase_mesh_classify(tmp)
         markers = phase_markers_main(tmp)
         launches.update(markers["launches"])
         phase_stage00_breakdown(tmp, markers["reads"])
+        mesh_launches["route_kmers"] = phase_mesh_markers(tmp,
+                                                          markers["reads"])
+        phase_mesh_goldens(tmp)
         launches.update(phase_stage03_main(tmp))
+        launches.update(mesh_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_scale()
@@ -1297,7 +1920,10 @@ def main() -> None:
                "marker_filter": ("markers.cu",
                                  "hast_tpu/ops/kmer_count.py:560"),
                "segment_votes": ("segment.cu",
-                                 "hast_tpu/pipeline/rephase.py:276")}
+                                 "hast_tpu/pipeline/rephase.py:276"),
+               "vote_reads": ("vote.cu", "hast_tpu/pipeline/classify.py:313"),
+               "route_kmers": ("route.cu", "hast_tpu/parallel/mesh.py:455"),
+               "tally_votes": ("tally.cu", "hast_tpu/parallel/mesh.py:117")}
     rows = [dict(name=name, route="cuda", source=csrc + src, replaces=rep,
                  launches=launches.get(name, 0), **kernels[name])
             for name, (src, rep) in sources.items()]

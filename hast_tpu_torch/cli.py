@@ -6,16 +6,26 @@
   classify          the reference `classify` binary (phased.barcodes)
   classify-reads    classify_stlfr_reads.sh: classify, barcode splits and
                     fastq quartering behind step_9/10/11 checkpoints
+  merge-results     01 mergeResult (fixed semantics: equals a single run)
   prepare-10x       02 barcode_freq + merge_barcodes + fake_10x (host only)
   assemble          02 supernova wrapper (external binary required; host)
   mkoutput          03 mkoutput_by_fabulous2.0 (Split->classify->merge->GenSq)
   classify-segments 03 `classify` fasta binary
   run               HAST.sh end-to-end orchestrator
 
-Each takes the JAX package's flags (build-markers without --mesh).  The
-subcommands that run kernels take --device (default cuda); a CUDA device
-that is not there is an error, and the run never moves to the CPU on its
-own.  prepare-10x and assemble run no device work and take no --device.
+Each takes the JAX package's flags.  The subcommands that run kernels
+take --device (default cuda); a CUDA device that is not there is an
+error, and the run never moves to the CPU on its own.  merge-results,
+prepare-10x and assemble run no device work and take no --device.
+
+--mesh DPxTP (build-markers: DP or DPx1; or auto) runs build-markers,
+classify and classify-reads on a dp×tp mesh of --device's devices:
+``--device cuda`` gives shard i the card cuda:i, and a grid that needs
+more cards than there are is an error; a named device (cpu, cuda:N)
+holds every shard.  classify under HAST_NUM_PROCESSES > 1 (with
+HAST_PROCESS_ID and HAST_COORDINATOR=host:port) classifies this
+process's share of the files, reduces over the processes with
+torch.distributed (gloo), and process 0 writes.
 
 Usage: python -m hast_tpu_torch <subcommand> --help
 """
@@ -42,7 +52,57 @@ def _device(name: str) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         sys.exit(f"ERROR: --device {name}: no CUDA device is available "
                  "(pass --device cpu to run the plain PyTorch twins)")
+    if dev.type == "cuda" and dev.index is not None and \
+            dev.index >= torch.cuda.device_count():
+        sys.exit(f"ERROR: --device {name}: only "
+                 f"{torch.cuda.device_count()} CUDA devices are visible")
     return dev
+
+
+def _mesh_devices(device: torch.device, n: int | None = None) -> list:
+    """n devices for a mesh's shards (all there are when n is None):
+    ``cuda`` means cuda:0 ... cuda:n-1, a named device holds every shard."""
+    from hast_tpu_torch.parallel import mesh as PM
+    if device.type == "cuda" and device.index is None:
+        cards = PM.visible_devices()
+        if n is not None and n > len(cards):
+            sys.exit(f"ERROR: the mesh needs {n} cards, {len(cards)} are "
+                     "visible (a named --device, e.g. cuda:0, holds every "
+                     "shard)")
+        return cards[:n] if n is not None else cards
+    return [device] * (n or 1)
+
+
+def _grid(spec: str, n_devices: int, auto_tp=lambda n: 1) -> tuple[int, int]:
+    """(dp, tp) of --mesh DPxTP, DP or auto (n_devices, tp = auto_tp(n))."""
+    if spec == "auto":
+        tp = auto_tp(n_devices)
+        return n_devices // tp, tp
+    parts = spec.lower().split("x")
+    try:
+        if len(parts) > 2:
+            raise ValueError(spec)
+        dp = int(parts[0])
+        tp = int(parts[1]) if len(parts) > 1 and parts[1] else 1
+    except ValueError:
+        sys.exit(f"ERROR: --mesh takes DPxTP, DP or auto (got {spec})")
+    if dp < 1 or tp < 1:
+        sys.exit(f"ERROR: --mesh {spec}: dp and tp must be positive")
+    return dp, tp
+
+
+def _mesh(spec: str, device: torch.device, auto_tp=lambda n: 1):
+    from hast_tpu_torch.parallel import mesh as PM
+    dp, tp = _grid(spec, len(_mesh_devices(device)), auto_tp)
+    return PM.make_mesh(dp * tp, tp=tp,
+                        devices=_mesh_devices(device, dp * tp))
+
+
+def _add_mesh(p, what: str) -> None:
+    p.add_argument("--mesh", default=None, metavar="DPxTP|auto",
+                   help=f"{what} on a dp×tp mesh of --device's devices "
+                        "(cuda: cuda:0 ... cuda:n-1, one shard each; a named "
+                        "device holds every shard; auto: every card)")
 
 
 def _add_device(p, what: str) -> None:
@@ -95,6 +155,11 @@ def _add_build_markers(sub):
                    help="accepted for reference compatibility (unused)")
     p.add_argument("--memory", type=int, default=None,
                    help="accepted for reference compatibility (unused)")
+    p.add_argument("--mesh", default=None, metavar="DP|DPx1|auto",
+                   help="count tables hash-range-sharded over a mesh of DP "
+                        "of --device's devices (cuda: cuda:0 ... "
+                        "cuda:DP-1; a named device holds every shard; "
+                        "auto: every card)")
     _add_device(p, "the count tables")
 
     def run(a):
@@ -107,8 +172,21 @@ def _add_build_markers(sub):
                 and 1 <= a.p_lower and a.p_upper <= 100000000):
             sys.exit("ERROR : arguments invalid ... exit!!! ")
         device = _device(a.device)
+        mesh = _mesh(a.mesh, device) if a.mesh else None
+        if mesh is not None and mesh.tp != 1:   # stage 00 has no tp axis
+            sys.exit("ERROR: build-markers --mesh shards count tables over "
+                     f"DP only; use '{mesh.dp}' or '{mesh.dp}x1' (got "
+                     f"{a.mesh})")
         with step("00_markers", a.out_dir) as todo:
-            if todo:
+            if todo and mesh is not None:
+                from hast_tpu_torch.parallel import distributed as D
+                D.build_unshared_markers_mesh(
+                    mesh, _split_paths(a.paternal), _split_paths(a.maternal),
+                    a.out_dir, k=a.mer, auto_bounds=a.auto_bounds,
+                    p_lower=a.p_lower, p_upper=a.p_upper,
+                    m_lower=a.m_lower, m_upper=a.m_upper,
+                    batch_size=a.batch_size)
+            elif todo:
                 M.build_unshared_markers(
                     _split_paths(a.paternal), _split_paths(a.maternal),
                     a.out_dir, k=a.mer, auto_bounds=a.auto_bounds,
@@ -127,21 +205,64 @@ def _add_classify(sub):
     p.add_argument("--weight0", type=float, default=1.0)
     p.add_argument("--weight1", type=float, default=1.0)
     p.add_argument("--output", default="-")
+    _add_mesh(p, "classify (table over tp, reads over dp)")
     _common(p)
 
     def run(a):
         from hast_tpu_torch.pipeline import classify as C
         device = _device(a.device)
+        reads = _split_paths(a.read)
+        if int(os.environ.get("HAST_NUM_PROCESSES", "1")) > 1:
+            _classify_multiprocess(a, device, reads)
+            return
         out = sys.stdout.buffer if a.output == "-" else open(a.output, "wb")
         try:
-            C.run_classify(a.hap0, a.hap1, _split_paths(a.read), out,
-                           w0=a.weight0, w1=a.weight1,
-                           batch_size=a.batch_size, device=device,
-                           **_adaptor_kw(a))
+            if a.mesh:
+                from hast_tpu_torch.parallel import mesh as PM
+                table = C.load_marker_table(a.hap0, a.hap1)
+                C.erase_adaptors(table, **_adaptor_kw(a))
+                mesh = _mesh(a.mesh, device, lambda n: PM.choose_tp(
+                    table.data.numel() * 4, n))
+                tally = C.classify_fastqs_mesh(mesh, table, reads,
+                                               batch_size=a.batch_size)
+                C.write_phased_barcodes(tally, table, out, a.weight0,
+                                        a.weight1)
+            else:
+                C.run_classify(a.hap0, a.hap1, reads, out, w0=a.weight0,
+                               w1=a.weight1, batch_size=a.batch_size,
+                               device=device, **_adaptor_kw(a))
         finally:
             if out is not sys.stdout.buffer:
                 out.close()
     p.set_defaults(func=run)
+
+
+def _classify_multiprocess(a, device, reads) -> None:
+    """classify under HAST_NUM_PROCESSES > 1: this process's share of the
+    files on its device (tp = 1) or a tp-sharded mesh (--mesh DPxTP), a
+    reduce over the processes, and process 0 writes."""
+    from hast_tpu_torch.parallel import distributed as D
+    from hast_tpu_torch.pipeline import classify as C
+    D.initialize()
+    table = C.load_marker_table(a.hap0, a.hap1)
+    C.erase_adaptors(table, **_adaptor_kw(a))
+    tp = 1
+    if a.mesh and a.mesh != "auto":
+        tp = _grid(a.mesh, 1)[1]
+    devices = None
+    if tp > 1:   # every card of `cuda`, else tp shards on the named device
+        every_card = device.type == "cuda" and device.index is None
+        devices = _mesh_devices(device, None if every_card else tp)
+    tally = D.classify_fastqs_multihost(table, reads,
+                                        batch_size=a.batch_size, tp=tp,
+                                        device=device, devices=devices)
+    if D.process_index() == 0:
+        out = sys.stdout.buffer if a.output == "-" else open(a.output, "wb")
+        try:
+            C.write_phased_barcodes(tally, table, out, a.weight0, a.weight1)
+        finally:
+            if out is not sys.stdout.buffer:
+                out.close()
 
 
 def _add_classify_reads(sub):
@@ -153,6 +274,7 @@ def _add_classify_reads(sub):
     p.add_argument("--workdir", default=".")
     p.add_argument("--format", choices=("fasta", "fastq"), default="fastq",
                    help="accepted for reference compatibility")
+    _add_mesh(p, "classify (reads over dp, table over tp; auto: tp = 1)")
     _common(p)
 
     def run(a):
@@ -160,6 +282,7 @@ def _add_classify_reads(sub):
         from hast_tpu_torch.pipeline import classify as C
         from hast_tpu_torch.pipeline import partition as P
         device = _device(a.device)
+        mesh = _mesh(a.mesh, device) if a.mesh else None
         wd = a.workdir
         filial = _split_paths(a.filial)
         phased = os.path.join(wd, "phased.barcodes")
@@ -169,7 +292,8 @@ def _add_classify_reads(sub):
                 with open(phased, "wb") as out:
                     C.run_classify(a.paternal_mer, a.maternal_mer, filial,
                                    out, w0=1.04, batch_size=a.batch_size,
-                                   device=device, **_adaptor_kw(a))
+                                   device=device, mesh=mesh,
+                                   **_adaptor_kw(a))
         with step("10", wd) as todo:
             if todo:
                 paths = P.split_barcodes(phased, out_prefix=wd + os.sep)
@@ -190,6 +314,32 @@ def _add_classify_reads(sub):
                                         "homozygous.unique.barcodes")
                 finally:
                     os.chdir(cwd)
+    p.set_defaults(func=run)
+
+
+def _add_merge_results(sub):
+    p = sub.add_parser("merge-results",
+                       help="merge sharded phased.barcodes (fixed semantics)")
+    p.add_argument("--input", action="append", required=True)
+    p.add_argument("--size0", type=int, help="hap0 marker set size")
+    p.add_argument("--size1", type=int, help="hap1 marker set size")
+    p.add_argument("--hap0", help="recompute sizes from mer files")
+    p.add_argument("--hap1")
+    p.add_argument("--weight0", type=float, default=1.0)
+    p.add_argument("--weight1", type=float, default=1.0)
+
+    def run(a):
+        from hast_tpu_torch.parallel import merge as PMerge
+        size0, size1 = a.size0, a.size1
+        if size0 is None or size1 is None:
+            if not (a.hap0 and a.hap1):
+                sys.exit("need --size0/--size1 or --hap0/--hap1")
+            from hast_tpu_torch.pipeline import classify as C
+            table = C.load_marker_table(a.hap0, a.hap1)
+            C.erase_adaptors(table)
+            size0, size1 = table.set_sizes
+        PMerge.merge_phased_files(_split_paths(a.input), sys.stdout.buffer,
+                                  size0, size1, a.weight0, a.weight1)
     p.set_defaults(func=run)
 
 
@@ -323,7 +473,8 @@ def main(argv=None) -> None:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="cmd", required=True)
     for add in (_add_build_markers, _add_classify, _add_classify_reads,
-                _add_prepare_10x, _add_assemble, _add_mkoutput,
+                _add_merge_results, _add_prepare_10x, _add_assemble,
+                _add_mkoutput,
                 _add_classify_segments, _add_run):
         add(sub)
     argv = sys.argv[1:] if argv is None else list(argv)

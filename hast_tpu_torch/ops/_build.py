@@ -8,7 +8,10 @@ under a name derived from a hash of the sources and flags, so an edited
 kernel is rebuilt and an unchanged one is loaded as it is.
 
 Each C entry launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises when that is not 0.  The
+``cudaGetLastError()``; :func:`check` raises when that is not 0.  A
+wrapper calls its entry inside :func:`on_card`, which makes the tensors'
+card the current device (the ctypes entries have no device guard of
+their own) and hands it that card's current stream.  The
 launch counters ``LAUNCHES`` count the wrappers' calls of their C
 entries, one each (an entry may launch several kernels: K5 launches
 up to five a radix pass), the twin counters calls of the plain PyTorch twins;
@@ -18,6 +21,7 @@ up to five a radix pass), the twin counters calls of the plain PyTorch twins;
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -57,6 +61,10 @@ _SIGNATURES = {
     "hast_grow_tally": [_P, _I64, _P, _I64, _P],
     "hast_pack_tally": [_P, _I64, _P, _P, _P, _P],
     "hast_shrink_run": [_P, _P, _I64, _P, _P, _P],
+    "hast_vote_reads": [_P, _I64, _I, _I, _I, _I, _I64, _I64, _P, _P, _I64,
+                        _I, _I, _P, _P],
+    "hast_tally_votes": [_P, _P, _P, _I64, _P, _I64, _P],
+    "hast_route_kmers": [_P, _P, _I64, _I, _I, _I, _I64, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -156,6 +164,10 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    """The current stream of t's device, for a C entry's stream argument."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+@contextlib.contextmanager
+def on_card(t: torch.Tensor):
+    """Around a C entry's call: make t's card the current device, so that
+    the launch goes to the card whose memory the tensors are in, and give
+    that card's current stream as the entry's stream argument."""
+    with torch.cuda.device(t.device):
+        yield ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -39,24 +39,45 @@ __device__ __forceinline__ uint64_t canonical_window(const uint8_t* row,
   return fwd < rc ? fwd : rc;
 }
 
-// The same key over k ASCII bytes (hast_tpu/pipeline/rephase.py
-// `_strict_vote`): code (c >> 1) & 3 of any byte, and the window counts
-// only if all k bytes are uppercase A, C, G or T (soft-masked acgt, N and
-// IUPAC bytes make it invalid).  Returns whether the window is valid.
-__device__ __forceinline__ bool canonical_window_ascii(const uint8_t* s,
+// Which ASCII bytes a window of k bytes may hold.  The repository has
+// three rules, and bytes such as a, N, R and U tell them apart:
+//   kAnyByte   every byte is a base; validity comes from the read's length
+//              (hast_tpu/pipeline/classify.py `vote_kernel`, K13)
+//   kAcgtUpper uppercase A, C, G or T only (rephase.py `_strict_vote`, K9)
+//   kAcgtAny   A, C, G or T in either case (kmer_count.py `_ACGT`, the
+//              stage-00 counting of mesh.py `sharded_count_chunk`, K14)
+enum ByteRule : int { kAnyByte, kAcgtUpper, kAcgtAny };
+
+__device__ __forceinline__ bool is_acgt(uint32_t b) {
+  return b == 'A' || b == 'C' || b == 'G' || b == 'T';
+}
+
+// The key over k ASCII bytes, each coded (c >> 1) & 3 whatever it is
+// (hast_tpu/ops/encode.py `encode_bases`).  Returns whether the bytes
+// pass the rule.
+template <ByteRule kRule>
+__device__ __forceinline__ bool canonical_window_bytes(const uint8_t* s,
                                                        int k,
                                                        uint64_t& key) {
   uint64_t fwd = 0, rc = 0;
   bool ok = true;
   for (int j = 0; j < k; ++j) {
     const uint32_t b = s[j];
-    ok &= b == 'A' || b == 'C' || b == 'G' || b == 'T';
+    if constexpr (kRule == kAcgtUpper) ok &= is_acgt(b);
+    if constexpr (kRule == kAcgtAny) ok &= is_acgt(b & ~0x20u);
     const uint64_t c = (b >> 1) & 3u;
     fwd = (fwd << 2) | c;
     rc |= (c ^ 2ull) << (2 * j);
   }
   key = fwd < rc ? fwd : rc;
   return ok;
+}
+
+// K9's rule (soft-masked acgt, N and IUPAC bytes make the window invalid).
+__device__ __forceinline__ bool canonical_window_ascii(const uint8_t* s,
+                                                       int k,
+                                                       uint64_t& key) {
+  return canonical_window_bytes<kAcgtUpper>(s, k, key);
 }
 
 }  // namespace hast

@@ -112,32 +112,56 @@ struct Table {
   int max_probe;  // hash choices of the full format (2)
 };
 
-// Payload (0..3) of one canonical key: OR over the two bucket choices of
-// the max over the row's matching slots, as the JAX probes compute it.
-__device__ __forceinline__ int probe_key(const Table& t, uint64_t key) {
+// Payload (0..3) of one canonical key on a slice of the table: t.rows
+// holds rows [row_lo, row_lo + n_rows) of the t.n_buckets-row table
+// (the hashes use the whole table's n_buckets and bbits), and a bucket
+// outside the slice adds nothing, as hast_tpu/parallel/mesh.py
+// `_probe_local` masks the buckets another tp shard owns.  The result is
+// the OR over the two bucket choices of the max over the row's matching
+// slots, as the JAX probes compute it.  Both row loads issue before
+// either row is looked at.
+__device__ __forceinline__ int probe_key_owned(const Table& t, uint64_t key,
+                                               uint32_t row_lo,
+                                               uint32_t n_rows) {
   const uint32_t hi = static_cast<uint32_t>(key >> 32);
   const uint32_t lo = static_cast<uint32_t>(key);
+  const uint4 none = make_uint4(0u, 0u, 0u, 0u);
+  uint32_t b[2];
+  uint32_t q = 0;
   if (t.fmt == kQuot) {
-    uint32_t b1, q;
-    quot_bucket_q(hi, lo, t.k, t.bbits, b1, q);
-    const uint32_t b2 = quot_alt(b1, q, t.bbits);
-    const uint4 r1 = __ldg(t.rows + b1);
-    const uint4 r2 = __ldg(t.rows + b2);
-    const uint32_t p1 = max4(quot_slot(r1.x, q, 0), quot_slot(r1.y, q, 0),
-                             quot_slot(r1.z, q, 0), quot_slot(r1.w, q, 0));
-    const uint32_t p2 = max4(quot_slot(r2.x, q, 1), quot_slot(r2.y, q, 1),
-                             quot_slot(r2.z, q, 1), quot_slot(r2.w, q, 1));
+    quot_bucket_q(hi, lo, t.k, t.bbits, b[0], q);
+    b[1] = quot_alt(b[0], q, t.bbits);
+  } else {
+    const uint32_t mask = t.n_buckets - 1u;
+    b[0] = kmer_hash(hi, lo) & mask;
+    b[1] = kmer_hash2(hi, lo) & mask;
+  }
+  // a bucket below row_lo wraps past n_rows, so one compare tests both ends
+  const bool own0 = b[0] - row_lo < n_rows;
+  const bool own1 = b[1] - row_lo < n_rows;
+  const uint4 r1 = own0 ? __ldg(t.rows + (b[0] - row_lo)) : none;
+  const uint4 r2 = own1 ? __ldg(t.rows + (b[1] - row_lo)) : none;
+  if (t.fmt == kQuot) {
+    const uint32_t p1 = own0 ? max4(quot_slot(r1.x, q, 0),
+                                    quot_slot(r1.y, q, 0),
+                                    quot_slot(r1.z, q, 0),
+                                    quot_slot(r1.w, q, 0)) : 0u;
+    const uint32_t p2 = own1 ? max4(quot_slot(r2.x, q, 1),
+                                    quot_slot(r2.y, q, 1),
+                                    quot_slot(r2.z, q, 1),
+                                    quot_slot(r2.w, q, 1)) : 0u;
     return static_cast<int>(p1 | p2);
   }
-  const uint32_t mask = t.n_buckets - 1u;
-  uint32_t res = 0;
-  for (int rnd = 0; rnd < t.max_probe; ++rnd) {
-    const uint32_t b = (rnd == 0 ? kmer_hash(hi, lo) : kmer_hash2(hi, lo)) &
-                       mask;
-    const uint4 r = __ldg(t.rows + b);
-    res |= max(full_slot(r.x, r.y, hi, lo), full_slot(r.z, r.w, hi, lo));
-  }
+  uint32_t res = own0 ? max(full_slot(r1.x, r1.y, hi, lo),
+                            full_slot(r1.z, r1.w, hi, lo)) : 0u;
+  if (t.max_probe > 1 && own1)
+    res |= max(full_slot(r2.x, r2.y, hi, lo), full_slot(r2.z, r2.w, hi, lo));
   return static_cast<int>(res);
+}
+
+// Payload (0..3) of one canonical key in the whole table.
+__device__ __forceinline__ int probe_key(const Table& t, uint64_t key) {
+  return probe_key_owned(t, key, 0u, t.n_buckets);
 }
 
 }  // namespace hast

@@ -1,5 +1,6 @@
 // K10 `grow_tally` and K11 `pack_tally`: the stage-01 device tally's
-// growth and its narrow image for the copy to the host.
+// growth and its narrow image for the copy to the host; K15
+// `tally_votes`: per-read votes scatter-added into a barcode tally.
 //
 // K10 replaces hast_tpu/pipeline/classify.py `_grow_acc` (the (cap, 3)
 // int32 tally concatenated with zero rows): dst holds src's elements and
@@ -20,6 +21,15 @@
 // a thread a step with neighbouring threads on neighbouring addresses; K11
 // counts the entries that do not fit with a warp shuffle sum and one
 // 64-bit atomic per warp and count, so the counts are exact.
+//
+// K15 replaces the tally of hast_tpu/parallel/mesh.py
+// `sharded_classify_step` (mesh.py:140-146): votes of N-containing reads
+// become (0, 0), unknown = has_n | (v0 == 0 & v1 == 0), and
+// `jax.ops.segment_sum` of (v0, v1, unknown) by barcode id, which drops
+// ids outside [0, num_barcodes), negative ones included.  What bounds
+// it: the 13 bytes a read (votes, flag, id) and the tally's rows; one
+// thread a read, int32 atomics into its row (the JAX tally is int32), so
+// the sums are exact in any order.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -71,6 +81,27 @@ __global__ void pack_tally_kernel(const int32_t* __restrict__ acc, int64_t n,
   }
 }
 
+__global__ void tally_votes_kernel(const int32_t* __restrict__ votes,
+                                   const uint8_t* __restrict__ has_n,
+                                   const int32_t* __restrict__ ids, int64_t n,
+                                   int32_t* __restrict__ tally,
+                                   int64_t n_ids) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    const int64_t id = ids[i];
+    if (id < 0 || id >= n_ids) continue;
+    const bool is_n = has_n[i] != 0;
+    const int32_t v0 = is_n ? 0 : votes[2 * i];
+    const int32_t v1 = is_n ? 0 : votes[2 * i + 1];
+    int32_t* a = tally + id * 3;
+    if (v0) atomicAdd(a, v0);
+    if (v1) atomicAdd(a + 1, v1);
+    if (is_n || (v0 == 0 && v1 == 0)) atomicAdd(a + 2, 1);
+  }
+}
+
 }  // namespace
 
 // src (n_src,) int32 -> dst (n_dst,) int32, n_dst >= n_src: src, then 0.
@@ -93,5 +124,18 @@ extern "C" int hast_pack_tally(const void* acc, int64_t n, void* lo8,
       static_cast<const int32_t*>(acc), n, static_cast<uint8_t*>(lo8),
       static_cast<uint16_t*>(lo16),
       static_cast<unsigned long long*>(over));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// votes (n, 2) int32, has_n (n,) uint8, ids (n,) int32 -> added into
+// tally (n_ids, 3) int32.
+extern "C" int hast_tally_votes(const void* votes, const void* has_n,
+                                const void* ids, int64_t n, void* tally,
+                                int64_t n_ids, void* stream) {
+  tally_votes_kernel<<<blocks_for(n), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(votes), static_cast<const uint8_t*>(has_n),
+      static_cast<const int32_t*>(ids), n, static_cast<int32_t*>(tally),
+      n_ids);
   return static_cast<int>(cudaGetLastError());
 }

@@ -148,8 +148,14 @@ def canonical_windows_ref(packed: torch.Tensor, lengths: torch.Tensor,
                           k: int):
     """Plain PyTorch twin of :func:`canonical_windows`."""
     _build.TWIN_CALLS["canonical_windows_ref"] += 1
+    return code_windows_ref(unpack_ref(packed), lengths, k)
+
+
+def code_windows_ref(codes: torch.Tensor, lengths: torch.Tensor, k: int):
+    """Canonical int64 keys (N, L-k+1) of (N, L) 2-bit codes, and the
+    windows that lie inside their read (p + k <= length); (N, 0) when
+    L < k."""
     _check_k(k)
-    codes = unpack_ref(packed)
     n_win = max(codes.shape[-1] - k + 1, 0)
     fwd = torch.zeros((codes.shape[0], n_win), dtype=torch.int64,
                       device=codes.device)
@@ -193,9 +199,10 @@ def canonical_windows(packed: torch.Tensor, lengths: torch.Tensor, k: int):
     if keys.numel() == 0:
         return keys, valid
     lib = _build.load_library()
-    rc = lib.hast_canonical_windows(
-        packed.data_ptr(), lengths.data_ptr(), n, lp, k, keys.data_ptr(),
-        valid.data_ptr(), _build.stream_of(packed))
+    with _build.on_card(packed) as stream:
+        rc = lib.hast_canonical_windows(
+            packed.data_ptr(), lengths.data_ptr(), n, lp, k, keys.data_ptr(),
+            valid.data_ptr(), stream)
     _build.check(rc, "canonical_windows")
     _build.LAUNCHES["canonical_windows"] += 1
     return keys, valid

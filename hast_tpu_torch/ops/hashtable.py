@@ -454,12 +454,21 @@ def _quot_bucket_q_t(hi: torch.Tensor, lo: torch.Tensor, k: int, bbits: int):
     return b1, q
 
 
-def _rows_t(table: KmerTable, b: torch.Tensor) -> torch.Tensor:
-    return table.data[b].to(torch.int64) & _M32
+def _rows_t(table: KmerTable, b: torch.Tensor, row_lo: int):
+    """The rows of buckets b (int64 words) and whether table.data, rows
+    [row_lo, row_lo + len) of the table, holds them."""
+    n_rows = table.data.shape[0]
+    local = b - row_lo
+    owned = (local >= 0) & (local < n_rows)
+    rows = table.data[local.clamp(0, n_rows - 1)].to(torch.int64) & _M32
+    return rows, owned[:, None]
 
 
-def probe_ref(table: KmerTable, keys: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of :func:`probe`."""
+def probe_ref(table: KmerTable, keys: torch.Tensor,
+              row_lo: int = 0) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`probe`.  table.data may be the slice
+    of rows [row_lo, row_lo + len) that one tp shard holds: a bucket
+    outside it adds nothing (hast_tpu/parallel/mesh.py `_probe_local`)."""
     _build.TWIN_CALLS["probe_ref"] += 1
     flat = keys.reshape(-1).to(torch.int64)
     hi, lo = flat >> 32, flat & _M32
@@ -468,26 +477,34 @@ def probe_ref(table: KmerTable, keys: torch.Tensor) -> torch.Tensor:
         b1, q = _quot_bucket_q_t(hi, lo, table.k, table.bbits)
         g = (_mix_t((q * int(_GOLD)) & _M32) | 1) & (table.n_buckets - 1)
         for rnd, b in enumerate((b1, b1 ^ g)):
-            rows = _rows_t(table, b)
+            rows, owned = _rows_t(table, b, row_lo)
             hit = ((rows & int(_QMASK)) == q[:, None]) \
-                & (((rows >> 29) & 1) == rnd)
+                & (((rows >> 29) & 1) == rnd) & owned
             res |= torch.where(hit, rows >> 30, 0).amax(dim=1)
     else:
         for rnd in range(table.max_probe):
-            rows = _rows_t(table, _kmer_hash_t(rnd, hi, lo)
-                           & (table.n_buckets - 1))
+            rows, owned = _rows_t(table, _kmer_hash_t(rnd, hi, lo)
+                                  & (table.n_buckets - 1), row_lo)
             s_hi, s_lo = rows[:, 0::2], rows[:, 1::2]
             hit = ((s_hi & int(HI_MASK)) == hi[:, None]) \
-                & (s_lo == lo[:, None])
+                & (s_lo == lo[:, None]) & owned
             res |= torch.where(hit, s_hi >> 30, 0).amax(dim=1)
     return res.to(torch.int32).reshape(keys.shape)
 
 
-def check_table(table: KmerTable) -> None:
+def check_table(table: KmerTable, row_lo: int | None = None) -> None:
+    """table.data must be the whole (n_buckets, 4) int32 table, or, when
+    row_lo is given, a slice of it: rows [row_lo, row_lo + len)."""
     d = table.data
-    if d.dtype != torch.int32 or tuple(d.shape) != (table.n_buckets, 4):
-        raise ValueError(f"table data must be ({table.n_buckets}, 4) int32, "
-                         f"got {tuple(d.shape)} {d.dtype}")
+    rows = d.shape[0] if d.dim() == 2 else -1
+    whole = row_lo is None and rows == table.n_buckets
+    part = row_lo is not None and 0 <= row_lo and 0 < rows \
+        and row_lo + rows <= table.n_buckets
+    if d.dtype != torch.int32 or d.dim() != 2 or d.shape[1] != 4 or not (
+            whole or part):
+        raise ValueError(f"table data must be ({table.n_buckets}, 4) int32 "
+                         f"or rows of it from row_lo={row_lo}, got "
+                         f"{tuple(d.shape)} {d.dtype}")
     if table.fmt not in _FORMATS or not 0 <= table.bbits < 32:
         raise ValueError(f"unsupported table: fmt={table.fmt} "
                          f"n_buckets={table.n_buckets}")
@@ -515,8 +532,9 @@ def probe(table: KmerTable, keys: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _build.load_library()
-    rc = lib.hast_probe(*kernel_table_args(table), keys.data_ptr(),
-                        keys.numel(), out.data_ptr(), _build.stream_of(keys))
+    with _build.on_card(keys) as stream:
+        rc = lib.hast_probe(*kernel_table_args(table), keys.data_ptr(),
+                            keys.numel(), out.data_ptr(), stream)
     _build.check(rc, "probe")
     _build.LAUNCHES["probe"] += 1
     return out

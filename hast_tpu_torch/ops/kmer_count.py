@@ -184,11 +184,30 @@ def dump_words(words: np.ndarray, k: int, path: str) -> int:
 
 
 class Counter:
-    """Host union-sum of finalized tables (several input files)."""
+    """Host union-sum of sorted chunks and finalized tables.
 
-    def __init__(self, k: int):
+    Each chunk becomes a run of distinct words and counts; the runs merge
+    in finalize(), and once they hold more than compact_above words (host
+    memory), as the JAX Counter does."""
+
+    def __init__(self, k: int, compact_above: int = 200_000_000):
         self.k = k
         self._runs: list[tuple[np.ndarray, np.ndarray]] = []
+        self._pending = 0
+        self._compact_above = compact_above
+
+    def add_sorted_chunk(self, keys: np.ndarray) -> None:
+        """A sorted chunk of int64 keys, INT64_MAX pads at its end (what
+        parallel.mesh.sharded_count_chunk gives a shard), count 1 each."""
+        keys = np.asarray(keys, np.int64)
+        n_valid = int(np.searchsorted(keys, SENT))
+        u, c = _rle_sorted(keys[:n_valid].astype(np.uint64))
+        if u.size:
+            self._runs.append((u, c))
+            self._pending += u.size
+            if self._pending > self._compact_above:
+                self.finalize()
+                self._pending = self._runs[0][0].size if self._runs else 0
 
     def add_table(self, table: CountTable) -> None:
         if table.words.size:
@@ -269,12 +288,12 @@ def count_windows(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     keys = torch.empty(n * n_win, dtype=torch.int64, device=packed.device)
     if keys.numel() == 0:
         return keys
-    rc = _build.load_library().hast_count_windows(
-        packed.data_ptr(), lengths.data_ptr(),
-        None if good is None else good.data_ptr(),
-        0 if good is None else good.shape[1], n, lp, k,
-        int(key_range is not None), lo, hi, keys.data_ptr(),
-        _build.stream_of(packed))
+    with _build.on_card(packed) as stream:
+        rc = _build.load_library().hast_count_windows(
+            packed.data_ptr(), lengths.data_ptr(),
+            None if good is None else good.data_ptr(),
+            0 if good is None else good.shape[1], n, lp, k,
+            int(key_range is not None), lo, hi, keys.data_ptr(), stream)
     _build.check(rc, "count_windows")
     _build.LAUNCHES["count_windows"] += 1
     return keys
@@ -357,10 +376,11 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor | None, k: int,
                        device=dev)
     tile_sums = _scan_scratch(hist.numel(), dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = _build.load_library().hast_sort_pairs(
-        keys.data_ptr(), ptr(payload), ka.data_ptr(), ptr(pa),
-        kb.data_ptr(), ptr(pb), n, 2 * k + 1, hist.data_ptr(),
-        tile_sums.data_ptr(), _build.stream_of(keys))
+    with _build.on_card(keys) as stream:
+        rc = _build.load_library().hast_sort_pairs(
+            keys.data_ptr(), ptr(payload), ka.data_ptr(), ptr(pa),
+            kb.data_ptr(), ptr(pb), n, 2 * k + 1, hist.data_ptr(),
+            tile_sums.data_ptr(), stream)
     _build.check(rc, "sort_pairs")
     _build.LAUNCHES["sort_pairs"] += 1
     if -(-(2 * k + 1) // 8) % 2:
@@ -422,10 +442,11 @@ def fold_runs(keys: torch.Tensor, counts: torch.Tensor, out=None):
     if keys.numel() == 0:
         return out_keys, out_counts, n_unique
     tile_sums = _scan_scratch(keys.numel(), keys.device)
-    rc = _build.load_library().hast_fold_runs(
-        keys.data_ptr(), counts.data_ptr(), keys.numel(),
-        out_keys.data_ptr(), out_counts.data_ptr(), n_unique.data_ptr(),
-        tile_sums.data_ptr(), _build.stream_of(keys))
+    with _build.on_card(keys) as stream:
+        rc = _build.load_library().hast_fold_runs(
+            keys.data_ptr(), counts.data_ptr(), keys.numel(),
+            out_keys.data_ptr(), out_counts.data_ptr(), n_unique.data_ptr(),
+            tile_sums.data_ptr(), stream)
     _build.check(rc, "fold_runs")
     _build.LAUNCHES["fold_runs"] += 1
     return out_keys, out_counts, n_unique
@@ -455,9 +476,10 @@ def shrink_run(keys: torch.Tensor, counts: torch.Tensor, n: int):
     out_keys = torch.empty(n, dtype=torch.int64, device=keys.device)
     out_counts = torch.empty(n, dtype=torch.int32, device=keys.device)
     if n:
-        rc = _build.load_library().hast_shrink_run(
-            keys.data_ptr(), counts.data_ptr(), n, out_keys.data_ptr(),
-            out_counts.data_ptr(), _build.stream_of(keys))
+        with _build.on_card(keys) as stream:
+            rc = _build.load_library().hast_shrink_run(
+                keys.data_ptr(), counts.data_ptr(), n, out_keys.data_ptr(),
+                out_counts.data_ptr(), stream)
         _build.check(rc, "shrink_run")
         _build.LAUNCHES["shrink_run"] += 1
     return out_keys, out_counts
@@ -495,9 +517,10 @@ def count_stats(counts: torch.Tensor, high: int):
     _build.require_cuda("count_stats", counts)
     bins = torch.zeros(high + 2, dtype=torch.int64, device=counts.device)
     total = torch.zeros((), dtype=torch.int64, device=counts.device)
-    rc = _build.load_library().hast_count_stats(
-        counts.data_ptr(), counts.numel(), high, bins.data_ptr(),
-        total.data_ptr(), _build.stream_of(counts))
+    with _build.on_card(counts) as stream:
+        rc = _build.load_library().hast_count_stats(
+            counts.data_ptr(), counts.numel(), high, bins.data_ptr(),
+            total.data_ptr(), stream)
     _build.check(rc, "count_stats")
     _build.LAUNCHES["count_stats"] += 1
     return bins, total
@@ -543,10 +566,11 @@ def _filter_side(lib, x_keys, x_counts, y_keys, y_n: int, lower: int,
     out = torch.empty_like(x_keys)
     keep = torch.empty(n, dtype=torch.uint8, device=x_keys.device)
     tile_sums = _scan_scratch(n, x_keys.device)
-    rc = lib.hast_marker_filter(
-        x_keys.data_ptr(), x_counts.data_ptr(), n, y_keys.data_ptr(), y_n,
-        lower, upper, keep.data_ptr(), tile_sums.data_ptr(), out.data_ptr(),
-        _build.stream_of(x_keys))
+    with _build.on_card(x_keys) as stream:
+        rc = lib.hast_marker_filter(
+            x_keys.data_ptr(), x_counts.data_ptr(), n, y_keys.data_ptr(),
+            y_n, lower, upper, keep.data_ptr(), tile_sums.data_ptr(),
+            out.data_ptr(), stream)
     _build.check(rc, "marker_filter")
     _build.LAUNCHES["marker_filter"] += 1
     return out, tile_sums[-1]

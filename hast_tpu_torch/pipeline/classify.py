@@ -94,15 +94,22 @@ def load_marker_table(hap0_path: str, hap1_path: str) -> H.KmerTable:
         k, load=LOAD, set_sizes=(n0, n1))
     _log(f"Recorded {h0_hi.size} haplotype 0 specific {k}-mers")
     _log(f"Recorded {h1_hi.size} haplotype 1 specific {k}-mers")
+    # written aside and renamed: processes that classify shards of one
+    # run (HAST_NUM_PROCESSES) load the same files at once
+    tmp = f"{cache_path}.{os.getpid()}.tmp"
     try:
-        np.savez(cache_path, data=table.data_np(),
-                 n_buckets=table.n_buckets, max_probe=table.max_probe,
-                 k=table.k, n_keys=table.n_keys,
-                 set_sizes=np.asarray(table.set_sizes),
-                 line_counts=np.asarray([h0_hi.size, h1_hi.size]),
-                 key=np.asarray(key), fmt=table.fmt)
+        with open(tmp, "wb") as f:
+            np.savez(f, data=table.data_np(),
+                     n_buckets=table.n_buckets, max_probe=table.max_probe,
+                     k=table.k, n_keys=table.n_keys,
+                     set_sizes=np.asarray(table.set_sizes),
+                     line_counts=np.asarray([h0_hi.size, h1_hi.size]),
+                     key=np.asarray(key), fmt=table.fmt)
+        os.replace(tmp, cache_path)
     except OSError as e:
         _log(f"[hast_tpu_torch] NOTE: snapshot {cache_path} not written: {e}")
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return table
 
 
@@ -175,10 +182,11 @@ def tally_step(table: H.KmerTable, acc: torch.Tensor, packed: torch.Tensor,
     if n == 0:
         return acc
     lib = _build.load_library()
-    rc = lib.hast_classify_tally(
-        *H.kernel_table_args(table), packed.data_ptr(), lengths.data_ptr(),
-        ids.data_ptr(), has_n.data_ptr(), n, packed.shape[1],
-        acc.data_ptr(), acc.shape[0], _build.stream_of(acc))
+    with _build.on_card(acc) as stream:
+        rc = lib.hast_classify_tally(
+            *H.kernel_table_args(table), packed.data_ptr(),
+            lengths.data_ptr(), ids.data_ptr(), has_n.data_ptr(), n,
+            packed.shape[1], acc.data_ptr(), acc.shape[0], stream)
     _build.check(rc, "classify_tally")
     _build.LAUNCHES["classify_tally"] += 1
     return acc
@@ -277,6 +285,27 @@ def decide_haps(bcs_s: np.ndarray, c0: np.ndarray, c1: np.ndarray,
     return hap
 
 
+def get_hap(barcode: bytes, c0: int, c1: int, size0: int, size1: int,
+            w0: float = 1.0, w1: float = 1.0) -> int:
+    """The getHap decision (classify.cpp:66-86) for one barcode, in the
+    same double math as :func:`decide_haps`."""
+    if barcode in NULL_BARCODES:
+        return -1
+    if c0 > 0 and c1 > 0:
+        df0 = (float(c0) / float(size0)) * w0
+        df1 = (float(c1) / float(size1)) * w1
+        if df0 > df1:
+            return 0
+        if df1 > df0:
+            return 1
+        return -1
+    if c0 > 0:
+        return 0
+    if c1 > 0:
+        return 1
+    return -1
+
+
 def write_phased_barcodes(tally: BarcodeTally, table: H.KmerTable, out,
                           w0: float = 1.0, w1: float = 1.0) -> None:
     """Write "barcode\\thap\\tcount0\\tcount1" rows sorted bytewise."""
@@ -354,9 +383,9 @@ def grow_tally(acc: torch.Tensor, max_id: int) -> torch.Tensor:
         return grow_tally_ref(acc, max_id)
     _build.require_cuda("grow_tally", acc)
     out = torch.empty((rows, 3), dtype=torch.int32, device=acc.device)
-    rc = _build.load_library().hast_grow_tally(
-        acc.data_ptr(), acc.numel(), out.data_ptr(), out.numel(),
-        _build.stream_of(acc))
+    with _build.on_card(acc) as stream:
+        rc = _build.load_library().hast_grow_tally(
+            acc.data_ptr(), acc.numel(), out.data_ptr(), out.numel(), stream)
     _build.check(rc, "grow_tally")
     _build.LAUNCHES["grow_tally"] += 1
     return out
@@ -388,9 +417,10 @@ def pack_tally(acc: torch.Tensor):
     lo16 = torch.empty(acc.shape, dtype=torch.int16, device=acc.device)
     over = torch.zeros(2, dtype=torch.int64, device=acc.device)
     if acc.numel():
-        rc = _build.load_library().hast_pack_tally(
-            acc.data_ptr(), acc.numel(), lo8.data_ptr(), lo16.data_ptr(),
-            over.data_ptr(), _build.stream_of(acc))
+        with _build.on_card(acc) as stream:
+            rc = _build.load_library().hast_pack_tally(
+                acc.data_ptr(), acc.numel(), lo8.data_ptr(),
+                lo16.data_ptr(), over.data_ptr(), stream)
         _build.check(rc, "pack_tally")
         _build.LAUNCHES["pack_tally"] += 1
     return lo8, lo16, over
@@ -407,6 +437,158 @@ def fetch_tally(acc: torch.Tensor) -> np.ndarray:
     if not n16:
         return lo16.cpu().numpy().view(np.uint16).astype(np.int64)
     return acc.cpu().numpy().astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# K13: per-read votes without a tally
+# ---------------------------------------------------------------------------
+
+
+def vote_reads_ref(table: H.KmerTable, reads: torch.Tensor,
+                   lengths: torch.Tensor, packed: bool,
+                   row_lo: int | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`vote_reads`."""
+    _build.TWIN_CALLS["vote_reads_ref"] += 1
+    codes = E.unpack_ref(reads) if packed else (reads.to(torch.int64) >> 1) & 3
+    keys, valid = E.code_windows_ref(codes, lengths, table.k)
+    pay = torch.where(valid, H.probe_ref(table, keys, row_lo or 0), 0)
+    votes = torch.stack([(pay & 1).sum(dim=-1), ((pay >> 1) & 1).sum(dim=-1)],
+                        dim=-1)
+    return _int16_bits(votes & 0xFFFF) if packed else votes.to(torch.int32)
+
+
+def vote_reads(table: H.KmerTable, reads: torch.Tensor,
+               lengths: torch.Tensor, packed: bool,
+               row_lo: int | None = None) -> torch.Tensor:
+    """Each read's (v0, v1) marker votes, with no tally (K13).
+
+    reads: (N, stride) uint8, 2-bit packed (packed=True, 4 bases a byte)
+    or ASCII (each byte a base, coded (b >> 1) & 3 whatever it is);
+    lengths: (N,) int32.  A window counts iff it lies inside the read;
+    v0 counts the windows whose payload has bit 0, v1 those with bit 1.
+    Returns (N, 2): int16 holding the uint16 bits for packed reads (the
+    JAX `vote_kernel_packed`), int32 for ASCII (`vote_kernel`).
+    With row_lo, table.data may be the slice of rows [row_lo, row_lo +
+    len) that one tp shard holds; a window then counts only the hits in
+    its buckets.  Without it, table.data must be the whole table.
+    CPU tensors take the twin; CUDA tensors launch the kernel.
+    """
+    H.check_table(table, row_lo)
+    if reads.dtype != torch.uint8 or reads.dim() != 2:
+        raise ValueError(f"reads must be (N, stride) uint8, got "
+                         f"{tuple(reads.shape)} {reads.dtype}")
+    if lengths.dtype != torch.int32 or lengths.shape != reads.shape[:1]:
+        raise ValueError(f"lengths must be ({reads.shape[0]},) int32")
+    E._check_k(table.k)
+    if reads.device.type == "cpu":
+        return vote_reads_ref(table, reads, lengths, packed, row_lo)
+    _build.require_cuda("vote_reads", table.data, reads, lengths)
+    n = reads.shape[0]
+    out = torch.empty((n, 2), dtype=torch.int16 if packed else torch.int32,
+                      device=reads.device)
+    if n == 0:
+        return out
+    with _build.on_card(reads) as stream:
+        rc = _build.load_library().hast_vote_reads(
+            *H.kernel_table_args(table), row_lo or 0, table.data.shape[0],
+            reads.data_ptr(), lengths.data_ptr(), n, reads.shape[1],
+            int(not packed), out.data_ptr(), stream)
+    _build.check(rc, "vote_reads")
+    _build.LAUNCHES["vote_reads"] += 1
+    return out
+
+
+def _data_table(data: torch.Tensor, k: int, max_probe: int,
+                fmt: str) -> H.KmerTable:
+    return H.KmerTable(data, data.shape[0], max_probe, k, 0, (), fmt)
+
+
+def vote_kernel(data: torch.Tensor, seqs_u8: torch.Tensor,
+                lengths: torch.Tensor, k: int, max_probe: int,
+                fmt: str = "full"):
+    """(v0, v1), each (B,) int32, of a padded ASCII batch (B, L): the JAX
+    `vote_kernel`'s signature on tensors, through K13."""
+    v = vote_reads(_data_table(data, k, max_probe, fmt), seqs_u8, lengths,
+                   packed=False)
+    return v[:, 0], v[:, 1]
+
+
+def vote_kernel_multi(data: torch.Tensor, seqs_u8: torch.Tensor,
+                      lengths: torch.Tensor, k: int, max_probe: int,
+                      fmt: str = "full") -> torch.Tensor:
+    """(S, B, L) ASCII reads -> (S, B, 2) int32 votes (the JAX
+    `vote_kernel_multi`), one K13 launch over the S*B rows."""
+    s, b, L = seqs_u8.shape
+    return vote_reads(_data_table(data, k, max_probe, fmt),
+                      seqs_u8.reshape(s * b, L), lengths.reshape(s * b),
+                      packed=False).reshape(s, b, 2)
+
+
+def vote_kernel_packed(data: torch.Tensor, packed: torch.Tensor,
+                       lengths: torch.Tensor, k: int, max_probe: int,
+                       fmt: str = "full") -> torch.Tensor:
+    """(S, B, L/4) packed reads -> (S, B, 2) votes as int16 holding the
+    uint16 bits (the JAX `vote_kernel_packed`), one K13 launch."""
+    s, b, lp = packed.shape
+    return vote_reads(_data_table(data, k, max_probe, fmt),
+                      packed.reshape(s * b, lp), lengths.reshape(s * b),
+                      packed=True).reshape(s, b, 2)
+
+
+# ---------------------------------------------------------------------------
+# K15: votes into a barcode tally
+# ---------------------------------------------------------------------------
+
+
+def tally_votes_ref(votes: torch.Tensor, has_n: torch.Tensor,
+                    ids: torch.Tensor, num_barcodes: int) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`tally_votes`."""
+    _build.TWIN_CALLS["tally_votes_ref"] += 1
+    hn = has_n.to(torch.bool)
+    v0 = torch.where(hn, 0, votes[:, 0])
+    v1 = torch.where(hn, 0, votes[:, 1])
+    unk = (hn | ((v0 == 0) & (v1 == 0))).to(torch.int32)
+    upd = torch.stack([v0, v1, unk], dim=-1).to(torch.int32)
+    keep = (ids >= 0) & (ids < num_barcodes)
+    tally = torch.zeros((num_barcodes, 3), dtype=torch.int32,
+                        device=votes.device)
+    return tally.index_add_(0, ids[keep].to(torch.int64), upd[keep])
+
+
+def tally_votes(votes: torch.Tensor, has_n: torch.Tensor, ids: torch.Tensor,
+                num_barcodes: int) -> torch.Tensor:
+    """The (num_barcodes, 3) int32 tally of per-read votes (K15): N reads
+    vote (0, 0), unknown = has_n or no vote, and (v0, v1, unknown) add
+    into row ids[r] as `jax.ops.segment_sum` adds them, dropping every id
+    outside [0, num_barcodes), negative ones included.
+
+    votes: (N, 2) int32; has_n: (N,) bool or uint8; ids: (N,) int32.
+    CPU tensors take the twin; CUDA tensors launch the kernel.
+    """
+    n = votes.shape[0]
+    if votes.dtype != torch.int32 or votes.dim() != 2 or votes.shape[1] != 2:
+        raise ValueError(f"votes must be (N, 2) int32, got "
+                         f"{tuple(votes.shape)} {votes.dtype}")
+    if ids.dtype != torch.int32 or tuple(ids.shape) != (n,):
+        raise ValueError(f"ids must be ({n},) int32")
+    if has_n.dtype not in (torch.bool, torch.uint8) or \
+            tuple(has_n.shape) != (n,):
+        raise ValueError(f"has_n must be ({n},) bool or uint8")
+    if num_barcodes < 0:
+        raise ValueError(f"num_barcodes must be >= 0, got {num_barcodes}")
+    if votes.device.type == "cpu":
+        return tally_votes_ref(votes, has_n, ids, num_barcodes)
+    _build.require_cuda("tally_votes", votes, has_n, ids)
+    tally = torch.zeros((num_barcodes, 3), dtype=torch.int32,
+                        device=votes.device)
+    if n and num_barcodes:
+        with _build.on_card(votes) as stream:
+            rc = _build.load_library().hast_tally_votes(
+                votes.data_ptr(), has_n.data_ptr(), ids.data_ptr(), n,
+                tally.data_ptr(), num_barcodes, stream)
+        _build.check(rc, "tally_votes")
+        _build.LAUNCHES["tally_votes"] += 1
+    return tally
 
 
 def classify_fastqs(table: H.KmerTable, paths: Iterable[str],
@@ -467,17 +649,152 @@ def _classify_native(table, path, batch_size, tally, device) -> None:
     _log("__process read done__")
 
 
+def _classify_fastqs_native(table: H.KmerTable, paths: Iterable[str],
+                            batch_size: int, tally: BarcodeTally | None,
+                            super_batch: int, vote_fn=None,
+                            timings: dict | None = None) -> BarcodeTally:
+    """Native reader, per-read votes to the host, host tally (the JAX
+    function of the same name, which its mesh classify runs).
+
+    Each super-batch of S packed batches is one vote_fn call, (S, B, Lp)
+    uint8 and (S, B) int32 numpy in, (S, B, 2) votes (int16 holding the
+    uint16 bits) out; by default K13 on the table's device.  Votes come
+    to the host six super-batches late; the per-read rows fold into the
+    file's (barcodes, 3) int64 table by bincount every 2^22 reads, and
+    each file merges by barcode name.  timings, when given, gets the
+    fold's seconds added under "host_fold".
+    """
+    tally = tally or BarcodeTally()
+    timings = {} if timings is None else timings
+    timings.setdefault("host_fold", 0.0)
+    if vote_fn is None:
+        data, k, mp, fmt = table.data, table.k, table.max_probe, table.fmt
+        vote_fn = lambda packed, lengths: vote_kernel_packed(  # noqa: E731
+            data, _tensor(packed, data.device), _tensor(lengths, data.device),
+            k, mp, fmt)
+    S = super_batch
+    for path in paths:
+        _log(f"__process read: {path}")
+        reader = N.NativeFastqReader(path, batch_size, len_cap=1024,
+                                     packed=True)
+        local = np.zeros((1 << 12, 3), np.int64)
+        inflight: list = []   # [(votes tensor, [(n, ids, has_n)])]
+        buf: list = []
+        acc: list = []        # [(ids, v0, v1, unk)] drained, not folded
+        acc_reads = 0
+
+        def fold():
+            nonlocal acc, acc_reads, local
+            if not acc:
+                return
+            t0 = time.perf_counter()
+            ids = np.concatenate([a[0] for a in acc])
+            cols = [np.concatenate([a[c] for a in acc]) for c in (1, 2, 3)]
+            acc, acc_reads = [], 0
+            if ids.size:
+                top = int(ids.max())
+                if top >= local.shape[0]:
+                    grown = max(top + 1, 2 * local.shape[0])
+                    local = np.vstack([local, np.zeros(
+                        (grown - local.shape[0], 3), np.int64)])
+                nb = local.shape[0]
+                # float64 sums of these small ints are exact (<< 2^53)
+                for c, w in enumerate(cols):
+                    local[:, c] += np.bincount(ids, weights=w, minlength=nb
+                                               ).astype(np.int64)
+            timings["host_fold"] += time.perf_counter() - t0
+
+        def drain(p):
+            nonlocal acc_reads
+            votes = p[0].cpu().numpy().view(np.uint16)
+            for s, (n, ids, hn) in enumerate(p[1]):
+                v0 = np.where(hn, 0, votes[s, :n, 0].astype(np.int64))
+                v1 = np.where(hn, 0, votes[s, :n, 1].astype(np.int64))
+                unk = (hn | ((v0 == 0) & (v1 == 0))).astype(np.int64)
+                acc.append((ids, v0, v1, unk))
+                acc_reads += n
+            if acc_reads >= 1 << 22:
+                fold()
+
+        def flush():
+            nonlocal buf
+            if not buf:
+                return
+            # zero pad bytes decode to A, as the ASCII zero pad does
+            lp = max(b.seqs.shape[1] for b in buf)
+            seqs = np.zeros((S, batch_size, lp), np.uint8)
+            lengths = np.zeros((S, batch_size), np.int32)
+            for s, b in enumerate(buf):
+                seqs[s, :, :b.seqs.shape[1]] = b.seqs
+                lengths[s] = b.lengths
+            meta = [(b.n, b.barcode_ids[:b.n], b.has_n[:b.n]) for b in buf]
+            inflight.append((vote_fn(seqs, lengths), meta))
+            buf = []
+            if len(inflight) > 6:
+                drain(inflight.pop(0))
+
+        try:
+            for batch in reader:
+                buf.append(batch)
+                if len(buf) >= S:
+                    flush()
+            flush()
+            for p in inflight:
+                drain(p)
+            fold()
+            names = reader.barcodes_array()
+        finally:
+            reader.close()
+        tally.merge_names(names, local[:names.size])
+        _log("__process read done__")
+    return tally
+
+
+def classify_fastqs_mesh(mesh, table: H.KmerTable, paths: Iterable[str],
+                         batch_size: int = FQ.DEFAULT_BATCH,
+                         tally: BarcodeTally | None = None,
+                         super_batch: int = 8,
+                         timings: dict | None = None) -> BarcodeTally:
+    """Classify on a dp×tp mesh (the JAX `classify_fastqs_mesh`): the table
+    (host or any device) is sharded over tp by rows, each super-batch's
+    reads split over dp, and parallel.mesh.sharded_vote_step gives the
+    votes (K13 per shard, a sum over tp); the tally stays on the host.
+    batch_size must be a multiple of dp.  The same tally as
+    :func:`classify_fastqs`."""
+    from hast_tpu_torch.parallel import mesh as PM
+
+    if N.get_lib() is None:
+        raise RuntimeError("mesh classify requires libhastio.so")
+    if batch_size % mesh.dp:
+        raise ValueError(f"batch_size {batch_size} is not a multiple of the "
+                         f"mesh's dp {mesh.dp}")
+    shards = PM.shard_table(mesh, table)
+    k, mp, nb, fmt = table.k, table.max_probe, table.n_buckets, table.fmt
+
+    def vote_fn(packed, lengths):
+        return PM.sharded_vote_step(mesh, shards, packed, lengths, k, mp, nb,
+                                    fmt)
+
+    return _classify_fastqs_native(table, paths, batch_size, tally,
+                                   super_batch, vote_fn=vote_fn,
+                                   timings=timings)
+
+
 def run_classify(hap0: str, hap1: str, reads: list[str], out,
                  w0: float = 1.0, w1: float = 1.0,
                  adaptor_f: str = ADAPTOR_F, adaptor_r: str = ADAPTOR_R,
                  batch_size: int = FQ.DEFAULT_BATCH, device="cuda",
-                 engine: str = "auto",
-                 timings: dict | None = None) -> BarcodeTally:
+                 engine: str = "auto", timings: dict | None = None,
+                 mesh=None) -> BarcodeTally:
     """Full stage-01 classify (the reference binary's main()).
 
+    mesh: a parallel.mesh.Mesh; the probes then run over it
+    (:func:`classify_fastqs_mesh`, which shards the host table itself)
+    and device and engine are not used.
     timings, when given, receives each phase's wall seconds
-    (load_markers, classify, decide_write); the classify phase ends with
-    the tally on the host, so it includes all device work.
+    (load_markers, classify, decide_write, and host_fold on a mesh); the
+    classify phase ends with the tally on the host, so it includes all
+    device work.
     """
     timings = {} if timings is None else timings
     _log("__START__")
@@ -486,9 +803,14 @@ def run_classify(hap0: str, hap1: str, reads: list[str], out,
     t0 = time.perf_counter()
     table = load_marker_table(hap0, hap1)
     erase_adaptors(table, adaptor_f, adaptor_r)
-    table = table.to(device)
+    if mesh is None:
+        table = table.to(device)
     t1 = time.perf_counter()
-    tally = classify_fastqs(table, reads, batch_size, engine=engine)
+    if mesh is None:
+        tally = classify_fastqs(table, reads, batch_size, engine=engine)
+    else:
+        tally = classify_fastqs_mesh(mesh, table, reads, batch_size,
+                                     timings=timings)
     t2 = time.perf_counter()
     _log("__print result__")
     write_phased_barcodes(tally, table, out, w0, w1)

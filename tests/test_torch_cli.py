@@ -48,8 +48,8 @@ def fake_supernova(root: pathlib.Path) -> pathlib.Path:
         str(ROOT / "tests" / "golden" / "stage02" / "whitelist.txt")))
 
 
-def run_no_jax(argv: list[str], cwd: pathlib.Path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+def run_no_jax(argv: list[str], cwd: pathlib.Path, **env_vars):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), **env_vars)
     proc = subprocess.run([sys.executable, "-c", NO_JAX, *argv], cwd=cwd,
                           env=env, capture_output=True, text=True,
                           timeout=600)
@@ -312,3 +312,84 @@ def test_stage03_device_cuda_without_a_card_is_an_error(tmp_path):
             main(argv)
         assert "no CUDA device" in str(e.value.code), argv
     assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("mesh", ["4x2", "1x1", "auto"])
+def test_classify_mesh_without_jax_matches_golden(inputs, mesh):
+    """classify --mesh on the CPU (a named device holds every shard)."""
+    out = inputs / "phased.out"
+    run_no_jax(["classify", "--hap0", str(inputs / "hap0.mer"),
+                "--hap1", str(inputs / "hap1.mer"),
+                "--read", str(inputs / "reads1.fq.gz"),
+                "--read", str(inputs / "reads2.fq"), "--weight0", "1.04",
+                "--batch-size", "4096", "--output", str(out), "--mesh", mesh,
+                "--device", "cpu"], inputs, OMP_NUM_THREADS="1")
+    assert out.read_bytes() == (GOLD / "phased.barcodes.golden").read_bytes()
+
+
+def test_classify_reads_mesh_without_jax_matches_goldens(inputs):
+    wd = inputs / "wd"
+    wd.mkdir()
+    run_no_jax(classify_reads_argv(inputs, wd) + ["--mesh", "2x2"], inputs,
+               OMP_NUM_THREADS="1")
+    assert (wd / "phased.barcodes").read_bytes() == \
+        (GOLD / "phased.barcodes.golden").read_bytes()
+    for name in ("paternal", "maternal", "homozygous"):
+        assert (wd / f"{name}.unique.barcodes").read_bytes() == \
+            (GOLD / f"{name}.unique.barcodes.golden").read_bytes()
+
+
+def test_build_markers_mesh_without_jax_matches_goldens(tmp_path):
+    # one intra-op thread: the twins' small ops only contend beside other
+    # test workers
+    proc = run_no_jax(
+        ["build-markers", "--auto_bounds", "--mesh", "4",
+         "--paternal", str(GOLD00 / "paternal.reads.fa.gz"),
+         "--maternal", str(GOLD00 / "maternal.reads.fa.gz"),
+         "--out-dir", str(tmp_path), "--device", "cpu"], tmp_path,
+        OMP_NUM_THREADS="1")
+    for parent in ("maternal", "paternal"):
+        assert (tmp_path / f"{parent}.kmercount.histo").read_bytes() == \
+            (GOLD00 / f"{parent}.histo").read_bytes()
+        assert (tmp_path / f"{parent}.bounds.txt").read_bytes() == \
+            (GOLD00 / f"{parent}.bounds.txt").read_bytes()
+        assert sorted((tmp_path / f"{parent}.unique.filter.mer")
+                      .read_bytes().split()) == sorted(
+            (GOLD00 / f"{parent}.unique.filter.mer").read_bytes().split())
+    assert "mesh-sharded device count tables" in proc.stderr
+    assert (tmp_path / "step_00_markers_done").exists()
+
+
+@pytest.mark.parametrize("mesh", ["4x2", "2x1x2", "x"])
+def test_build_markers_mesh_rejects_tp_and_bad_grids(tmp_path, mesh):
+    with pytest.raises(SystemExit) as e:
+        main(["build-markers", "--mesh", mesh, "--paternal",
+              str(GOLD00 / "paternal.reads.fa.gz"), "--maternal",
+              str(GOLD00 / "maternal.reads.fa.gz"), "--out-dir",
+              str(tmp_path / "00"), "--device", "cpu"])
+    assert "--mesh" in str(e.value.code)
+    assert not (tmp_path / "00").exists()
+
+
+def test_merge_results_without_jax_matches_golden(inputs):
+    shards = []
+    for i, read in enumerate(("reads1.fq.gz", "reads2.fq")):
+        shards.append(inputs / f"shard{i}.out")
+        main(["classify", "--hap0", str(inputs / "hap0.mer"), "--hap1",
+              str(inputs / "hap1.mer"), "--read", str(inputs / read),
+              "--weight0", "1.04", "--output", str(shards[-1]),
+              "--device", "cpu"])
+    proc = run_no_jax(["merge-results", "--input", str(shards[0]),
+                       "--input", str(shards[1]), "--hap0",
+                       str(inputs / "hap0.mer"), "--hap1",
+                       str(inputs / "hap1.mer"), "--weight0", "1.04"], inputs)
+    assert proc.stdout == (GOLD / "phased.barcodes.golden").read_text()
+
+
+@pytest.mark.parametrize("cmd", ["build-markers", "classify",
+                                 "classify-reads"])
+def test_mesh_in_help(cmd, capsys):
+    with pytest.raises(SystemExit) as e:
+        main([cmd, "--help"])
+    assert e.value.code == 0
+    assert "--mesh" in capsys.readouterr().out
