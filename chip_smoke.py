@@ -96,6 +96,23 @@ failure:
    two processes of ``python -m hast_tpu_torch classify`` under
    HAST_NUM_PROCESSES=2 on the same card, and ``merge-results`` of two
    shard outputs.
+16. K16 broadcast_probe, the port's entry point, on the canonical windows
+   of 65,536 100-bp reads (5.2x10^6 queries, a key of each panel planted
+   in each read) against two full tables: the stLFR adaptor panel (the
+   21-mers of both adaptors) and a 10^4-marker targeted panel (32,768
+   slots); launched twice, no twin.  Then bit-exact against its twin (all
+   queries on the adaptor panel, the first 2^18 on the target panel),
+   payloads equal to K2 probe's on the same keys and tables (K2 timed
+   beside it), and the JAX padding's edge cases: lengths that are a
+   multiple of neither chunk 2048 nor 512, duplicate keys with two
+   payloads (the larger wins), the pad key (0x3FFFFFFF, 0xFFFFFFFF).
+17. the remaining entry points: ``warmup --device cuda`` at its default
+   shapes in this process (K3, K10, K11, K4-K8 and K12 launched, no twin;
+   its wall time), then the tools through the CLI on the committed
+   goldens: the nine ``vcf-*`` outputs and ``vcf-calc-hd``'s totals,
+   ``draw-heatalign`` KIR and MHC, ``get-n``, ``check-genes``
+   byte-identical; ``mark-library`` and ``filter-fastq-by-barcodes`` on
+   reads2.fq equal to the awk programs' rules; ``plot-bounds``.
 
 Before the last line it prints one JSON line of kernel results (with each
 kernel's bound: the larger of the bytes it must move at the H100's
@@ -163,7 +180,16 @@ PACK_OPS = 8          # K11 per entry: two masks, two shifts, two tests, sums
 # K14 per window on top of the window itself: the ACGT test of the new
 # byte 2, the hash 9, the divide and clamp 3, the slot 2
 ROUTE_OPS = 16
+# K16 per (query, slot) pair: the JAX kernel's formulation does five (the
+# key mask, two compares, the select of the payload, the running maximum),
+# but the mask and the payload shift belong to the slot, done once a tile,
+# and the select folds into a maximum predicated on the compares: two
+# compares and a maximum a pair are what the work needs
+BROADCAST_OPS = 3
 N_VOTE_READS = 65536          # K13 check: 100-bp reads
+N_PANEL_READS = 65536         # K16: 100-bp reads, 5.2x10^6 windows
+TARGET_PANEL = 10_000         # K16: targeted-region markers at k = 21
+TWIN_QUERIES = 1 << 18        # K16's twin on the target panel
 N_TALLY_BARCODES = 100_000    # K15 check
 MESH_BATCH = 1 << 14          # the mesh stage-00 batch (FQ.DEFAULT_BATCH)
 STAGE03_FILES = (
@@ -565,11 +591,16 @@ def phase_kernels00() -> dict:
     plain = cuda_ms(lambda: KC.shrink_run_ref(got[0], got[1], m), 5)
     dev_ms = device_ms(lambda: KC.shrink_run(got[0], got[1], m), 20,
                        "shrink_run_kernel")
+    # the library's copy: narrow(...).clone() of the keys and the counts
+    # (JAX's _shrink slices hi, lo and counts; the port's key is one word)
+    lib = cuda_ms(lambda: (got[0].narrow(0, 0, m).clone(),
+                           got[1].narrow(0, 0, m).clone()), 20)
     log(f"K12 shrink_run: {m} of {n} rows: kernel {ms:.4f} ms "
         f"({dev_ms:.4f} ms of it on the device), twin "
-        f"{plain:.4f} ms, bit-exact")
+        f"{plain:.4f} ms, narrow().clone() of both arrays {lib:.4f} ms, "
+        "bit-exact")
     res["shrink_run"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                             library_ms=None, **bound("K12", 24 * m, 0))
+                             library_ms=lib, **bound("K12", 24 * m, 0))
     del keys, counts, got
 
     # K7: 2^26 counts, mostly low, some above high, pads of 0
@@ -1533,6 +1564,169 @@ def phase_classify_step(tables: dict, words) -> int:
     return launches
 
 
+def _int32_bits(words):
+    """The low 32 bits of int64 words as int32 tensors of the same bits."""
+    import torch
+    return (((words & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def _panel_queries(rng, panels):
+    """The canonical windows of N_PANEL_READS random 100-bp reads with one
+    key of each panel planted in each read (panel s in bases [50 s,
+    50 s + 50)): int64 words and (hi, lo) int32 card tensors."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import encode as E
+    n = N_PANEL_READS
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, 112))]
+    for s, ks in enumerate(panels):
+        pos = rng.integers(s * 50, s * 50 + 50 - K, n)
+        kmers = E.words_to_bytes(ks[rng.integers(0, ks.size, n)], K)
+        seqs[np.arange(n)[:, None], pos[:, None] + np.arange(K)] = kmers
+    dev = torch.device("cuda")
+    packed = torch.from_numpy(E.pack_codes_np(seqs)).to(dev)
+    lengths = torch.full((n,), 100, dtype=torch.int32, device=dev)
+    keys, valid = E.canonical_windows(packed, lengths, K)
+    words = keys[valid].contiguous()
+    return words, _int32_bits(words >> 32).contiguous(), \
+        _int32_bits(words).contiguous()
+
+
+def phase_broadcast() -> tuple[dict, int]:
+    """K16 broadcast_probe: the port's entry point on two panels (the main
+    path, counted), then against its twin, bit-exact, against K2's
+    payloads on the same keys, and on the edge cases of the JAX padding."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.ops import broadcast_probe as BP
+    from hast_tpu_torch.ops import encode as E
+    from hast_tpu_torch.ops import hashtable as H
+    from hast_tpu_torch.pipeline import classify as C
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2029)
+    # the stLFR adaptor panel: the 21-mers of both adaptors (F payload 1,
+    # R payload 2, a key of both ORs to 3)
+    his, los, pays = [], [], []
+    for bit, adaptor in ((1, C.ADAPTOR_F), (2, C.ADAPTOR_R)):
+        codes = E.encode_np(np.frombuffer(adaptor.encode(), np.uint8))
+        hi, lo = E.canonical_kmers_np(codes[None, :], K)
+        his.append(hi[0])
+        los.append(lo[0])
+        pays.append(np.full(hi.shape[1], bit, np.uint32))
+    a_hi, a_lo = np.concatenate(his), np.concatenate(los)
+    a_words = (a_hi.astype(np.int64) << 32) | a_lo.astype(np.int64)
+    # a targeted-region panel: 10^4 distinct canonical markers, payloads 1-3
+    hi, lo = E.canonical_kmers_np(rng.integers(
+        0, 4, (TARGET_PANEL + TARGET_PANEL // 64, K), dtype=np.int32), K)
+    t_words = np.unique((hi[:, 0].astype(np.int64) << 32) | lo[:, 0])
+    t_words = rng.permutation(t_words)[:TARGET_PANEL]
+    t_hi = (t_words >> 32).astype(np.uint32)
+    t_lo = (t_words & 0xFFFFFFFF).astype(np.uint32)
+    panels = {
+        "adaptor": H.build_table(a_hi, a_lo, np.concatenate(pays), K,
+                                 fmt="full").to(dev),
+        "target": H.build_table(t_hi, t_lo, rng.integers(
+            1, 4, t_words.size).astype(np.uint32), K, fmt="full").to(dev)}
+    words, q_hi, q_lo = _panel_queries(rng, (np.unique(a_words), t_words))
+    arrays = {name: BP.table_key_arrays(t) for name, t in panels.items()}
+
+    _build.LAUNCHES.clear()
+    _build.TWIN_CALLS.clear()
+    outs = {name: BP.broadcast_probe(thi, tlo, q_hi, q_lo)
+            for name, (thi, tlo) in arrays.items()}
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    twins = dict(_build.TWIN_CALLS)
+    if launches.get("broadcast_probe", 0) != len(panels) or any(
+            twins.values()):
+        fail(f"broadcast_probe main path: launches {launches}, twins "
+             f"{twins}")
+    slots = {name: a[0].numel() for name, a in arrays.items()}
+    log(f"broadcast_probe main path: {words.numel()} canonical windows of "
+        f"{N_PANEL_READS} reads against the adaptor ({slots['adaptor']} "
+        f"slots) and target ({slots['target']} slots) panels; launches "
+        f"{launches}, twin calls {twins}")
+
+    err, res = 0.0, {}
+    for name, (thi, tlo) in arrays.items():
+        got = outs[name]
+        m = words.numel() if name == "adaptor" else TWIN_QUERIES
+        err = max(err, _check_same(
+            f"K16 broadcast_probe ({name} panel, {m} queries)", [got[:m]],
+            [BP.broadcast_probe_ref(thi, tlo, q_hi[:m], q_lo[:m])]))
+        k2 = H.probe(panels[name], words)
+        torch.cuda.synchronize()
+        if not torch.equal(got, k2):
+            fail(f"K16 broadcast_probe != K2 probe payloads ({name} panel)")
+        if int((got > 0).sum()) < N_PANEL_READS:
+            fail(f"K16 broadcast_probe found fewer hits than planted keys "
+                 f"({name} panel)")
+        ms = cuda_ms(lambda: BP.broadcast_probe(thi, tlo, q_hi, q_lo), 10)
+        plain = cuda_ms(lambda: BP.broadcast_probe_ref(
+            thi, tlo, q_hi[:m], q_lo[:m]), 1) * words.numel() / m
+        k2_ms = cuda_ms(lambda: H.probe(panels[name], words), 20)
+        log(f"K16 broadcast_probe {name} panel ({thi.numel()} slots), "
+            f"{words.numel()} queries: kernel {ms:.4f} ms, twin {plain:.4f} "
+            f"ms (scaled from {m} queries), K2 probe of the same keys on the "
+            f"same table {k2_ms:.4f} ms; bit-exact, payloads equal to K2's, "
+            f"{int((got > 0).sum())} hits")
+        # tables and queries read once, payloads written once; every
+        # (query, slot) pair compared
+        res[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                         **bound(f"K16 {name}", 8 * thi.numel()
+                                 + 12 * words.numel(),
+                                 BROADCAST_OPS * words.numel() * thi.numel()))
+
+    # the JAX padding: a length that is a multiple of neither chunk, the pad
+    # key (0x3FFFFFFF, 0xFFFFFFFF) at the end of the queries
+    thi, tlo = arrays["target"]
+    eq_hi = torch.cat([q_hi[:1 << 16], torch.tensor(
+        [0x3FFFFFFF], dtype=torch.int32, device=dev)])
+    eq_lo = torch.cat([q_lo[:1 << 16], torch.tensor(
+        [-1], dtype=torch.int32, device=dev)])
+    for chunk in (2048, 512):
+        n = 30001
+        got = BP.broadcast_probe(thi[:n], tlo[:n], eq_hi, eq_lo, chunk)
+        err = max(err, _check_same(
+            f"K16 broadcast_probe n={n} chunk={chunk}", [got],
+            [BP.broadcast_probe_ref(thi[:n], tlo[:n], eq_hi, eq_lo, chunk)]))
+        if int(got[-1]) != 3:
+            fail(f"K16 broadcast_probe: the pad key got {int(got[-1])} at "
+                 f"n={n}, chunk={chunk}")
+    # duplicate keys with two payloads: the larger, not the OR
+    p1, p2 = rng.integers(0, 4, (2, TARGET_PANEL)).astype(np.uint32)
+    order = rng.permutation(2 * TARGET_PANEL)
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(
+            dev)
+    d_hi = card(np.concatenate([t_hi | (p1 << 30), t_hi | (p2 << 30)])[order])
+    d_lo = card(np.concatenate([t_lo, t_lo])[order])
+    k_hi, k_lo = card(t_hi), card(t_lo)
+    got = BP.broadcast_probe(d_hi, d_lo, k_hi, k_lo)
+    err = max(err, _check_same("K16 broadcast_probe duplicate keys", [got], [
+        BP.broadcast_probe_ref(d_hi, d_lo, k_hi, k_lo)]))
+    if not torch.equal(got, card(np.maximum(p1, p2))):
+        fail("K16 broadcast_probe: duplicate keys do not take the larger "
+             "payload")
+    # no pad and no EMPTY slot: the pad key gets 0; the full table's own
+    # EMPTY slots give it 3
+    pad_q = (eq_hi[-1:], eq_lo[-1:])
+    got = [BP.broadcast_probe(d_hi[:1024].contiguous(),
+                              d_lo[:1024].contiguous(), *pad_q, chunk=1024),
+           BP.broadcast_probe(thi, tlo, *pad_q)]
+    if [int(g) for g in got] != [0, 3]:
+        fail(f"K16 broadcast_probe: the pad key got {got} (want 0 with no "
+             "EMPTY slot, 3 on the full table)")
+    log("K16 broadcast_probe: ragged lengths at chunk 2048 and 512, "
+        "duplicate keys (the larger payload) and the pad key bit-exact")
+    row = res["target"]
+    row["max_abs_err"] = err
+    return row, launches["broadcast_probe"]
+
+
 def phase_mesh_classify(tmp: str) -> int:
     """Phase 5's workload through run_classify on meshes of cuda:0 (and of
     distinct cards when there are two or more); returns K13's launches
@@ -1731,6 +1925,170 @@ def phase_mesh_goldens(tmp: str) -> None:
         "merge-results of two shards: byte-identical on cuda")
 
 
+@contextlib.contextmanager
+def _stdio(stdin_path: str | None = None):
+    """Swap in a stdout whose .buffer the tests read back, a text stderr
+    and, when given, a stdin: the CLI's tools run in this process."""
+    import io
+
+    class Out:
+        def __init__(self) -> None:
+            self.buffer = io.BytesIO()
+
+        def write(self, s: str) -> None:
+            self.buffer.write(s.encode())
+
+        def flush(self) -> None:
+            pass
+
+    saved = sys.stdout, sys.stderr, sys.stdin
+    out, err = Out(), io.StringIO()
+    sys.stdout, sys.stderr = out, err
+    try:
+        with open(stdin_path or os.devnull) as stdin:
+            sys.stdin = stdin
+            yield out.buffer, err
+    finally:
+        sys.stdout, sys.stderr, sys.stdin = saved
+
+
+def _tool_bytes(argv, stdin_path: str | None = None) -> tuple[bytes, str]:
+    from hast_tpu_torch import cli
+    with _stdio(stdin_path) as (out, err):
+        cli.main(argv)
+    return out.getvalue(), err.getvalue()
+
+
+def _svg_here(out: bytes, here: str, golden: bytes) -> bytes:
+    """A heat-align SVG names each query by its align file's path minus
+    ".align.txt", as the reference does, so the goldens hold the directory
+    they were made in: map this checkout's directory onto that one."""
+    import re
+    made = re.search(rb">([^<>]*)H1</text>", golden)
+    if made is None:
+        return out
+    return out.replace(here.encode() + b"/", made.group(1))
+
+
+def phase_entry_points(tmp: str) -> None:
+    """warmup --device cuda at its default shapes, in this process, so the
+    launch counters show its kernels; then every tool subcommand on the
+    committed goldens, byte for byte."""
+    from hast_tpu_torch import cli
+    from hast_tpu_torch.ops import _build
+
+    _build.LAUNCHES.clear()
+    _build.TWIN_CALLS.clear()
+    t0 = time.perf_counter()
+    cli.main(["warmup", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches, twins = dict(_build.LAUNCHES), dict(_build.TWIN_CALLS)
+    log(f"warmup --device cuda (2x2,000,000 synthetic markers, 131,072 "
+        f"reads): {wall:.3f} s wall; launches {launches}; twin calls {twins}")
+    for name in ("classify_tally", "grow_tally", "pack_tally",
+                 *STAGE00_KERNELS):
+        if launches.get(name, 0) <= 0:
+            fail(f"warmup launched no {name} kernel")
+    if any(twins.values()):
+        fail(f"warmup called twins: {twins}")
+
+    vcf = os.path.join(ROOT, "tests", "golden", "vcfqc")
+    v = {n: os.path.join(vcf, f"{n}.vcf")
+         for n in ("child", "father", "mother", "hap1", "hap2")}
+    trio = [v["father"], v["mother"], v["child"]]
+    cases = [(["vcf-snp-only", v["child"]], "snponly.out"),
+             (["vcf-snp-info", v["child"]], "snpinfo.out"),
+             (["vcf-phased-snp", v["child"]], "phasedsnp.out"),
+             (["vcf-dipcall-hapsnp", v["child"]], "dipcall.out"),
+             (["vcf-merge-hap-snp", v["hap1"], v["hap2"]], "mergehap.out"),
+             (["vcf-hap-inherit", v["father"], v["child"]],
+              "hapinherit.out"),
+             (["vcf-inherit-3aa", *trio], "inherit3aa.out"),
+             (["vcf-inherit-solid", *trio], "solidsnp.out"),
+             (["vcf-phase-inherit-solid", *trio], "phasesolid.out")]
+    for argv, golden in cases:
+        with open(os.path.join(vcf, golden), "rb") as f:
+            if _tool_bytes(argv)[0] != f.read():
+                fail(f"{argv[0]}: stdout differs from {golden}")
+    _, err = _tool_bytes(["vcf-calc-hd", os.path.join(vcf, "phasedsnp.out"),
+                          os.path.join(vcf, "mergehap.out")])
+    with open(os.path.join(vcf, "calchd.out.err")) as f:
+        want = [x for x in f.read().splitlines() if x.startswith(" total")]
+    if [x for x in err.splitlines() if x.startswith(" total")] != want:
+        fail("vcf-calc-hd: its ' total' lines differ from calchd.out.err")
+
+    ha = os.path.join(ROOT, "tests", "golden", "heatalign")
+    aligns = ["-i", os.path.join(ha, "H1.align.txt"),
+              "-i", os.path.join(ha, "H2.align.txt"),
+              "-g", os.path.join(ha, "genes.txt")]
+    for argv, golden, stdin in (
+            (["draw-heatalign", "1100000", *aligns, "--preset", "KIR"],
+             "kir.svg.golden", None),
+            (["draw-heatalign", "1100000", *aligns, "--preset", "MHC"],
+             "mhc.svg.golden", None),
+            (["get-n"], "getn.out.golden", os.path.join(ha, "n.fa")),
+            (["check-genes", os.path.join(ha, "H1.align.txt"),
+              os.path.join(ha, "cg.genes.txt")], "checkgenes.out.golden",
+             None)):
+        with open(os.path.join(ha, golden), "rb") as f:
+            want = f.read()
+        if _svg_here(_tool_bytes(argv, stdin)[0], ha, want) != want:
+            fail(f"{argv[0]}: stdout differs from {golden}")
+
+    # mark-library and filter-fastq-by-barcodes on reads2.fq, against the
+    # awk programs' rules written out plainly here
+    fq = os.path.join(GOLD, "reads2.fq")
+    with open(fq, "rb") as f:
+        lines = f.read().splitlines()
+    want = b""
+    for i, line in enumerate(lines):
+        f = line.replace(b"/", b"#").split(b"#")
+        if i % 4 == 0 and len(f) > 1 and f[1] != b"0_0_0":
+            line = b"%s#lib2_%s/%s" % (f[0], f[1], f[2] if len(f) > 2
+                                       else b"")
+        want += line + b"\n"
+    if _tool_bytes(["mark-library", fq, "2"])[0] != want:
+        fail("mark-library differs from the awk rule on reads2.fq")
+    with open(os.path.join(GOLD, "paternal.unique.barcodes.golden"),
+              "rb") as f:
+        keep = f.read().splitlines()[:40]
+    listed = os.path.join(tmp, "keep.txt")
+    with open(listed, "wb") as f:
+        f.write(b"\n".join(keep) + b"\n")
+    want, used, total, c = b"", 0, 0, 0
+    for i, line in enumerate(lines):
+        f = line.replace(b"/", b"#").split(b"#")
+        if i % 4 == 0 and len(f) > 1:
+            total += 1
+            c = int(f[1] in keep)
+            used += c
+        if c:
+            want += line + b"\n"
+    cwd = os.getcwd()
+    os.chdir(tmp)       # filter_reads.log appends to the working directory
+    try:
+        got = _tool_bytes(["filter-fastq-by-barcodes", fq, listed])[0]
+        with open("filter_reads.log", "rb") as f:
+            got_log = f.read()
+    finally:
+        os.chdir(cwd)
+    if got != want or got_log != b"use %d from %d\n" % (used, total):
+        fail("filter-fastq-by-barcodes differs from the awk rule on "
+             "reads2.fq")
+
+    bounds = os.path.join(tmp, "bounds")
+    os.makedirs(bounds)
+    for parent in ("maternal", "paternal"):
+        shutil.copy(os.path.join(GOLD00, f"{parent}.histo"),
+                    os.path.join(bounds, f"{parent}.kmercount.histo"))
+        shutil.copy(os.path.join(GOLD00, f"{parent}.bounds.txt"), bounds)
+    said = _tool_bytes(["plot-bounds", "--workdir", bounds])[0].decode()
+    log(f"tools through the CLI: vcf-* (nine outputs and calc-hd's totals),"
+        f" draw-heatalign KIR/MHC, get-n, check-genes byte-identical to "
+        f"their goldens; mark-library and filter-fastq-by-barcodes ({used} "
+        f"of {total}) equal to the awk rules; plot-bounds: {said.strip()}")
+
+
 def phase_across_cards(tmp: str) -> None:
     """The paths that cross cards, on every visible card (two or more):
     the stage-01 golden with --device cuda:N for each N and on a mesh of
@@ -1882,6 +2240,8 @@ def main() -> None:
     kernels.update(phase_kernels_mesh(tables, words, bwords))
     mesh_launches = {"tally_votes": phase_classify_step(tables, words)}
     del tables, words, bwords
+    kernels["broadcast_probe"], mesh_launches["broadcast_probe"] = \
+        phase_broadcast()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_goldens(tmp)
@@ -1897,6 +2257,7 @@ def main() -> None:
         phase_mesh_goldens(tmp)
         launches.update(phase_stage03_main(tmp))
         launches.update(mesh_launches)
+        phase_entry_points(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_scale()
@@ -1923,7 +2284,9 @@ def main() -> None:
                                  "hast_tpu/pipeline/rephase.py:276"),
                "vote_reads": ("vote.cu", "hast_tpu/pipeline/classify.py:313"),
                "route_kmers": ("route.cu", "hast_tpu/parallel/mesh.py:455"),
-               "tally_votes": ("tally.cu", "hast_tpu/parallel/mesh.py:117")}
+               "tally_votes": ("tally.cu", "hast_tpu/parallel/mesh.py:117"),
+               "broadcast_probe": ("broadcast.cu",
+                                   "docs/experimental/probe_pallas.py:62")}
     rows = [dict(name=name, route="cuda", source=csrc + src, replaces=rep,
                  launches=launches.get(name, 0), **kernels[name])
             for name, (src, rep) in sources.items()]

@@ -11,10 +11,13 @@ modules it needs are its own copies.
              (csrc/, built by nvcc for sm_90a at first use)
   pipeline/  stage 00 markers; stage 01 classify, barcode splits and
              quartering; stage 02 fake-10X conversion; stage 03 re-phasing
+  parallel/  meshes of torch devices, multi-process runs, merge-results
   models/    the HAST.sh orchestrator (00 -> 01 -> 02 -> 03)
-  utils/     checkpoints, phase timers, seeded synthetic inputs
-  cli.py     `build-markers`, `classify`, `classify-reads`, `prepare-10x`,
-             `assemble`, `mkoutput`, `classify-segments` and `run`
+  tools/     HAST's host-only tools (library marks, Hi-C binning, VCF QC,
+             heat-align diagrams)
+  utils/     checkpoints, phase timers, the bounds plot, seeded synthetic
+             inputs
+  cli.py     every subcommand of hast_tpu's CLI, `warmup` included
 """
 
 __version__ = "0.1.0"

@@ -12,11 +12,20 @@
   mkoutput          03 mkoutput_by_fabulous2.0 (Split->classify->merge->GenSq)
   classify-segments 03 `classify` fasta binary
   run               HAST.sh end-to-end orchestrator
+  mark-library      tools/mark_library.sh
+  classify-hic      tools/classify_hic_reads.sh
+  vcf-*             the ten self_vcftools programs
+  draw-heatalign, get-n, check-genes   tools/draw_heatalign
+  plot-bounds       draw_bounds.py (needs matplotlib; skipped without it)
+  filter-fastq-by-barcodes   filter_fq_by_barcodes.awk
+  warmup            build the kernels and libhastio, then run the stage-01
+                    and stage-00 kernels once on synthetic inputs
 
 Each takes the JAX package's flags.  The subcommands that run kernels
 take --device (default cuda); a CUDA device that is not there is an
 error, and the run never moves to the CPU on its own.  merge-results,
-prepare-10x and assemble run no device work and take no --device.
+prepare-10x, assemble and the tools run no device work and take no
+--device.
 
 --mesh DPxTP (build-markers: DP or DPx1; or auto) runs build-markers,
 classify and classify-reads on a dp×tp mesh of --device's devices:
@@ -466,6 +475,213 @@ class _StdoutText:
         sys.stdout.buffer.flush()
 
 
+def _add_mark_library(sub):
+    p = sub.add_parser("mark-library",
+                       help="prefix barcodes with libN_ (tools/mark_library)")
+    p.add_argument("input")
+    p.add_argument("lib_id", type=int)
+
+    def run(a):
+        from hast_tpu_torch.tools.mark_library import mark_library
+        if a.lib_id < 1:
+            sys.exit(f"invalid lib_id : {a.lib_id}")
+        mark_library(a.input, a.lib_id, sys.stdout.buffer)
+    p.set_defaults(func=run)
+
+
+def _add_classify_hic(sub):
+    p = sub.add_parser("classify-hic",
+                       help="trio-bin Hi-C reads from two SAMs")
+    p.add_argument("pat_sam")
+    p.add_argument("mat_sam")
+    p.add_argument("--out-dir", default=".")
+
+    def run(a):
+        from hast_tpu_torch.tools.hic import classify_hic_reads
+        classify_hic_reads(a.pat_sam, a.mat_sam, a.out_dir)
+    p.set_defaults(func=run)
+
+
+_VCF_PROGRAMS = (
+    ("vcf-snp-only", ["vcf"], "GetSNPOnly: echo SNP lines", "get_snp_only"),
+    ("vcf-snp-info", ["vcf"], "GetSNPInfo: CHROM POS ALT1 ALT2",
+     "get_snp_info"),
+    ("vcf-phased-snp", ["vcf"], "PhasedSNP: phased het SNPs + PS blocks",
+     "phased_snp"),
+    ("vcf-dipcall-hapsnp", ["vcf"], "GetHapSNP_fromDipcall",
+     "get_hapsnp_from_dipcall"),
+    ("vcf-merge-hap-snp", ["hap1_vcf", "hap2_vcf"],
+     "MergeHapSNP: pair SNPs across hap VCFs (chr1-22)", "merge_hap_snp"),
+    ("vcf-hap-inherit", ["parent_vcf", "child_vcf"],
+     "HapInherit: inheritance typing vs one parent", "hap_inherit"),
+    ("vcf-inherit-solid", ["p1_vcf", "p2_vcf", "f1_vcf"],
+     "InheritSolidSNP: trio-consistent solid SNPs", "inherit_solid_snp"),
+    ("vcf-inherit-3aa", ["p1_vcf", "p2_vcf", "f1_vcf"],
+     "Inherit3Aa: both-parents-both-alleles SNPs", "inherit_3aa"),
+    ("vcf-phase-inherit-solid", ["p1_vcf", "p2_vcf", "f1_vcf"],
+     "PhaseInheritSolidSNP (stats only, as shipped)",
+     "phase_inherit_solid_snp"),
+)
+
+
+def _add_vcfqc(sub):
+    """All ten self_vcftools programs as vcf-* subcommands; stdout goes
+    through the shim, stderr is the process's at the call."""
+    for name, args, help_, fn_name in _VCF_PROGRAMS:
+        p = sub.add_parser(name, help=help_)
+        for arg in args:
+            p.add_argument(arg)
+
+        def run(a, args=args, fn_name=fn_name):
+            from hast_tpu_torch.tools import vcfqc as V
+            getattr(V, fn_name)(*[getattr(a, arg) for arg in args],
+                                _StdoutText(), sys.stderr)
+        p.set_defaults(func=run)
+
+    p = sub.add_parser("vcf-calc-hd",
+                       help="CalcHD: Hamming + switch error rate")
+    p.add_argument("true_phased_blocks")
+    p.add_argument("merged_snps")
+
+    def run_hd(a):
+        from hast_tpu_torch.tools import vcfqc as V
+        V.calc_hd(a.true_phased_blocks, a.merged_snps, sys.stderr)
+    p.set_defaults(func=run_hd)
+
+
+def _add_heatalign(sub):
+    p = sub.add_parser("draw-heatalign",
+                       help="KIR/MHC alignment heat SVG to stdout")
+    p.add_argument("ref_len", type=int)
+    p.add_argument("-i", dest="aligns", action="append", required=True,
+                   help="xxx.align.txt (repeatable)")
+    p.add_argument("-g", dest="genes", default=None)
+    p.add_argument("--preset", choices=("KIR", "MHC"), default="KIR")
+
+    def run(a):
+        from hast_tpu_torch.tools.heatalign import draw_heatalign
+        draw_heatalign(a.ref_len, a.aligns, _StdoutText(), gene_file=a.genes,
+                       preset=a.preset, err=sys.stderr)
+    p.set_defaults(func=run)
+
+    p2 = sub.add_parser("get-n", help="report N runs in fasta (stdin)")
+
+    def run_n(a):
+        from hast_tpu_torch.tools.heatalign import get_n
+        get_n(sys.stdin, _StdoutText())
+    p2.set_defaults(func=run_n)
+
+    p3 = sub.add_parser("check-genes",
+                        help="per-gene alignment coverage fraction")
+    p3.add_argument("align_txt")
+    p3.add_argument("genes_txt")
+
+    def run_g(a):
+        from hast_tpu_torch.tools.heatalign import check_genes
+        check_genes(a.align_txt, a.genes_txt, _StdoutText())
+    p3.set_defaults(func=run_g)
+
+
+def _add_plot_bounds(sub):
+    p = sub.add_parser("plot-bounds",
+                       help="k-mer depth histogram plot (draw_bounds.py)")
+    p.add_argument("--workdir", default=".")
+    p.add_argument("--out", default="test.png")
+
+    def run(a):
+        from hast_tpu_torch.utils.plot_bounds import plot_bounds
+        path = plot_bounds(a.workdir, a.out)
+        print(path if path else "matplotlib unavailable; skipped")
+    p.set_defaults(func=run)
+
+
+def _add_filter_barcodes(sub):
+    p = sub.add_parser("filter-fastq-by-barcodes",
+                       help="keep records whose barcode is listed "
+                            "(filter_fq_by_barcodes.awk)")
+    p.add_argument("fastq")
+    p.add_argument("barcode_list")
+
+    def run(a):
+        from hast_tpu_torch.pipeline.partition import filter_fastq_by_barcodes
+        filter_fastq_by_barcodes(a.fastq, a.barcode_list, sys.stdout.buffer)
+    p.set_defaults(func=run)
+
+
+def _add_warmup(sub):
+    p = sub.add_parser(
+        "warmup",
+        help="build the CUDA kernels and libhastio if they are absent, then "
+             "run the stage-01 and stage-00 kernels once (the JAX package's "
+             "compile-cache warmup)")
+    p.add_argument("--hap0", help="real marker file (the deployment "
+                                  "table's exact shape)")
+    p.add_argument("--hap1")
+    p.add_argument("--markers", type=int, default=2_000_000,
+                   help="synthetic marker count per hap when no real "
+                        "files are given (sizes the probe table)")
+    p.add_argument("--read-len", type=int, default=100,
+                   help="typical read length")
+    p.add_argument("--reads", type=int, default=1 << 17,
+                   help="synthetic reads to stream (each its own barcode, "
+                        "so the tally grows past its first 2^16 rows)")
+    p.add_argument("--mer", type=int, default=21)
+    _add_device(p, "the tables")
+
+    def run(a):
+        import tempfile
+        import time
+
+        import numpy as np
+
+        from hast_tpu_torch.io import native as N
+        from hast_tpu_torch.ops import _build
+        from hast_tpu_torch.ops import encode as E
+        from hast_tpu_torch.ops import hashtable as H
+        from hast_tpu_torch.ops import kmer_count as KC
+        from hast_tpu_torch.pipeline import classify as C
+        from hast_tpu_torch.pipeline.markers import count_files_device
+
+        device = _device(a.device)
+        t0 = time.perf_counter()
+        kernels = "none, --device cpu runs the twins"
+        if device.type == "cuda":
+            _build.load_library()
+            kernels = _build.library_path()
+        N.get_lib()
+        k = a.mer
+        rng = np.random.default_rng(0)
+        if a.hap0 and a.hap1:
+            table = C.load_marker_table(a.hap0, a.hap1)
+        else:
+            seqs = rng.integers(0, 4, size=(2 * a.markers, k),
+                                dtype=np.int32)
+            hi, lo = E.canonical_kmers_np(seqs, k)
+            pay = np.repeat(np.array([1, 2], np.uint32), a.markers)
+            table = H.build_table(hi[:, 0], lo[:, 0], pay, k,
+                                  set_sizes=(a.markers, a.markers))
+        C.erase_adaptors(table)
+        table = table.to(device)
+        letters = np.frombuffer(b"ACGT", np.uint8)
+        with tempfile.TemporaryDirectory() as td:
+            fq = os.path.join(td, "warm.fq")
+            n, L = a.reads, a.read_len
+            arr = letters[rng.integers(0, 4, (n, L))]
+            with open(fq, "wb", buffering=1 << 22) as f:
+                qual = b"F" * L
+                for i in range(n):
+                    f.write(b"@w%d#%d_%d_%d/1\n%s\n+\n%s\n" % (
+                        i, 1 + i, 2, 3, arr[i].tobytes(), qual))
+            # stage 01: K3 each batch, K10 as the tally grows, K11 at the
+            # fetch; stage 00: K4-K6 and K12 in the count, K7, K8
+            C.classify_fastqs(table, [fq])
+            t = count_files_device([fq], k, device=device)
+            t.histo()
+            KC.device_marker_algebra(t, t, 1, 2, 1, 2)
+        print(f"warm: {time.perf_counter() - t0:.1f}s (kernels: {kernels})")
+    p.set_defaults(func=run)
+
+
 def main(argv=None) -> None:
     """Run one subcommand."""
     parser = argparse.ArgumentParser(
@@ -474,8 +690,10 @@ def main(argv=None) -> None:
     sub = parser.add_subparsers(dest="cmd", required=True)
     for add in (_add_build_markers, _add_classify, _add_classify_reads,
                 _add_merge_results, _add_prepare_10x, _add_assemble,
-                _add_mkoutput,
-                _add_classify_segments, _add_run):
+                _add_mkoutput, _add_classify_segments, _add_run,
+                _add_mark_library, _add_classify_hic, _add_vcfqc,
+                _add_heatalign, _add_plot_bounds, _add_filter_barcodes,
+                _add_warmup):
         add(sub)
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)

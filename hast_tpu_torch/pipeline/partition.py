@@ -6,7 +6,8 @@ classify_stlfr_reads.sh:156-165; ``quarter_fastq`` mirrors
 quartering_fastq.awk, routing whole records by the second field of the
 head line under ``-F '#|/'`` (the reference's own asymmetry with the
 classifier's last-#/last-/ barcode parse), through the native quartering
-pass when libhastio is present.
+pass when libhastio is present; ``filter_fastq_by_barcodes`` mirrors
+filter_fq_by_barcodes.awk.
 """
 
 from __future__ import annotations
@@ -121,3 +122,37 @@ def quarter_fastq(fastq_path: str, paternal_barcodes: str,
         for o in outs.values():
             o.close()
     return stats
+
+
+def filter_fastq_by_barcodes(fastq_path: str, barcode_list: str, out,
+                             log_path: str = "filter_reads.log") -> int:
+    """Keep records whose $2 barcode is listed (filter_fq_by_barcodes.awk).
+
+    Awk quirks preserved: a header WITHOUT a barcode field falls into
+    the non-header branch and is printed iff the previous record was
+    kept (the `c` flag, filter_fq_by_barcodes.awk:18-22); `total`
+    counts only barcode-bearing headers; "use N from M" stats append to
+    filter_reads.log (:25-26).
+    """
+    keep = _load_set(barcode_list)
+    used = total = 0
+    c = 0
+    lineno = 0
+    with FQ.open_text(fastq_path) as f:
+        for line in f:
+            line = line.rstrip(b"\r\n")
+            lineno += 1
+            fields = _SPLIT.split(line)
+            if lineno % 4 == 1 and len(fields) > 1:
+                total += 1
+                if fields[1] in keep:
+                    out.write(line + b"\n")
+                    used += 1
+                    c = 1
+                else:
+                    c = 0
+            elif c == 1:
+                out.write(line + b"\n")
+    with open(log_path, "ab") as log:
+        log.write(b"use %d from %d\n" % (used, total))
+    return used

@@ -1,6 +1,8 @@
 """The port's CLI: `python -m hast_tpu_torch build-markers | classify |
 classify-reads | prepare-10x | assemble | mkoutput | classify-segments |
-run`.
+run`, the tools (`mark-library`, `classify-hic`, `vcf-*`,
+`draw-heatalign`, `get-n`, `check-genes`, `plot-bounds`,
+`filter-fastq-by-barcodes`) and `warmup`.
 
 build-markers, classify-reads, mkoutput and run (HAST.sh, 00->01->02->03
 with a fake Supernova) run end to end in a subprocess that blocks jax
@@ -393,3 +395,103 @@ def test_mesh_in_help(cmd, capsys):
         main([cmd, "--help"])
     assert e.value.code == 0
     assert "--mesh" in capsys.readouterr().out
+
+
+TOOL_CMDS = ["mark-library", "classify-hic", "vcf-snp-only", "vcf-snp-info",
+             "vcf-phased-snp", "vcf-dipcall-hapsnp", "vcf-merge-hap-snp",
+             "vcf-hap-inherit", "vcf-inherit-solid", "vcf-inherit-3aa",
+             "vcf-phase-inherit-solid", "vcf-calc-hd", "draw-heatalign",
+             "get-n", "check-genes", "plot-bounds",
+             "filter-fastq-by-barcodes", "warmup"]
+
+
+@pytest.mark.parametrize("cmd", TOOL_CMDS)
+def test_help_tools(cmd, capsys):
+    with pytest.raises(SystemExit) as e:
+        main([cmd, "--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert f"hast_tpu_torch {cmd}" in out
+    assert ("--device" in out) == (cmd == "warmup")
+
+
+def jax_cli_stdout(argv, monkeypatch) -> bytes:
+    """`python -m hast_tpu.cli` in this process (no jit cache), stdout."""
+    pytest.importorskip("jax")
+    import contextlib
+    import io
+    from hast_tpu import cli as jax_cli
+    monkeypatch.setenv("HAST_TPU_NO_JIT_CACHE", "1")
+    buf = io.BytesIO()
+
+    class Out:
+        buffer = buf
+
+        def write(self, s):
+            buf.write(s.encode())
+
+        def flush(self):
+            pass
+
+    with contextlib.redirect_stdout(Out()):
+        jax_cli.main(argv)
+    return buf.getvalue()
+
+
+HEAT = ROOT / "tests" / "golden" / "heatalign"
+TOOL_RUNS = {
+    "vcf-snp-info": ["vcf-snp-info",
+                     str(ROOT / "tests" / "golden" / "vcfqc" / "child.vcf")],
+    "mark-library": ["mark-library", str(GOLD / "reads2.fq"), "3"],
+    "filter-fastq-by-barcodes": ["filter-fastq-by-barcodes",
+                                 str(GOLD / "reads2.fq"), "keep.txt"],
+    "draw-heatalign": ["draw-heatalign", "1100000",
+                       "-i", str(HEAT / "H1.align.txt"),
+                       "-i", str(HEAT / "H2.align.txt"),
+                       "-g", str(HEAT / "genes.txt"), "--preset", "MHC"],
+    "check-genes": ["check-genes", str(HEAT / "H1.align.txt"),
+                    str(HEAT / "cg.genes.txt")],
+}
+
+
+@pytest.mark.parametrize("cmd", list(TOOL_RUNS))
+def test_tools_without_jax_match_the_jax_cli(cmd, tmp_path, monkeypatch):
+    """The tool subcommands with jax and hast_tpu blocked print the JAX
+    CLI's bytes; filter-fastq-by-barcodes appends the same log line."""
+    keep = (GOLD / "paternal.unique.barcodes.golden").read_bytes()
+    (tmp_path / "keep.txt").write_bytes(b"\n".join(keep.split()[:40]) + b"\n")
+    ours = subprocess.run(
+        [sys.executable, "-c", NO_JAX, *TOOL_RUNS[cmd]], cwd=tmp_path,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        timeout=300)
+    assert ours.returncode == 0, ours.stderr[-3000:]
+    assert ours.stdout
+    log = tmp_path / "filter_reads.log"
+    ours_log = log.read_bytes() if log.exists() else None
+    if log.exists():
+        log.unlink()
+    monkeypatch.chdir(tmp_path)
+    assert ours.stdout == jax_cli_stdout(TOOL_RUNS[cmd], monkeypatch)
+    if ours_log is not None:
+        assert ours_log == log.read_bytes()
+
+
+def test_mark_library_rejects_lib_id_0(tmp_path):
+    with pytest.raises(SystemExit) as e:
+        main(["mark-library", str(GOLD / "reads2.fq"), "0"])
+    assert e.value.code == "invalid lib_id : 0"
+
+
+def test_warmup_on_cpu(capsys):
+    main(["warmup", "--device", "cpu", "--markers", "3000", "--reads", "256"])
+    out = capsys.readouterr().out
+    assert out.startswith("warm: ") and "(kernels: " in out
+
+
+def test_warmup_cuda_without_a_card_is_an_error(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        main(["warmup", "--markers", "3000", "--reads", "256"])
+    assert "no CUDA device" in str(e.value.code)
+    assert "warm:" not in capsys.readouterr().out
