@@ -124,6 +124,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -189,7 +190,7 @@ BROADCAST_OPS = 3
 N_VOTE_READS = 65536          # K13 check: 100-bp reads
 N_PANEL_READS = 65536         # K16: 100-bp reads, 5.2x10^6 windows
 TARGET_PANEL = 10_000         # K16: targeted-region markers at k = 21
-TWIN_QUERIES = 1 << 18        # K16's twin on the target panel
+CROSSOVER_SLOTS = (16, 32, 64, 128, 256)   # K16 vs K2: raw panels
 N_TALLY_BARCODES = 100_000    # K15 check
 MESH_BATCH = 1 << 14          # the mesh stage-00 batch (FQ.DEFAULT_BATCH)
 STAGE03_FILES = (
@@ -222,6 +223,20 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_once(fn):
+    """fn's result and the device milliseconds of that one call (for a
+    twin too slow to repeat)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_ms(fn, reps: int, kernel: str) -> float:
@@ -1595,7 +1610,8 @@ def _panel_queries(rng, panels):
 def phase_broadcast() -> tuple[dict, int]:
     """K16 broadcast_probe: the port's entry point on two panels (the main
     path, counted), then against its twin, bit-exact, against K2's
-    payloads on the same keys, and on the edge cases of the JAX padding."""
+    payloads on the same keys, and on the edge cases of the JAX padding;
+    last, K16 and K2 on small raw panels, for their crossover."""
     import numpy as np
     import torch
     from hast_tpu_torch.ops import _build
@@ -1652,10 +1668,12 @@ def phase_broadcast() -> tuple[dict, int]:
     err, res = 0.0, {}
     for name, (thi, tlo) in arrays.items():
         got = outs[name]
-        m = words.numel() if name == "adaptor" else TWIN_QUERIES
+        # the twin once over every query: its time and the check
+        want, plain = cuda_ms_once(lambda: BP.broadcast_probe_ref(
+            thi, tlo, q_hi, q_lo))
         err = max(err, _check_same(
-            f"K16 broadcast_probe ({name} panel, {m} queries)", [got[:m]],
-            [BP.broadcast_probe_ref(thi, tlo, q_hi[:m], q_lo[:m])]))
+            f"K16 broadcast_probe ({name} panel, {words.numel()} queries)",
+            [got], [want]))
         k2 = H.probe(panels[name], words)
         torch.cuda.synchronize()
         if not torch.equal(got, k2):
@@ -1664,12 +1682,10 @@ def phase_broadcast() -> tuple[dict, int]:
             fail(f"K16 broadcast_probe found fewer hits than planted keys "
                  f"({name} panel)")
         ms = cuda_ms(lambda: BP.broadcast_probe(thi, tlo, q_hi, q_lo), 10)
-        plain = cuda_ms(lambda: BP.broadcast_probe_ref(
-            thi, tlo, q_hi[:m], q_lo[:m]), 1) * words.numel() / m
         k2_ms = cuda_ms(lambda: H.probe(panels[name], words), 20)
         log(f"K16 broadcast_probe {name} panel ({thi.numel()} slots), "
             f"{words.numel()} queries: kernel {ms:.4f} ms, twin {plain:.4f} "
-            f"ms (scaled from {m} queries), K2 probe of the same keys on the "
+            f"ms (one call, every query), K2 probe of the same keys on the "
             f"same table {k2_ms:.4f} ms; bit-exact, payloads equal to K2's, "
             f"{int((got > 0).sum())} hits")
         # tables and queries read once, payloads written once; every
@@ -1678,6 +1694,25 @@ def phase_broadcast() -> tuple[dict, int]:
                          **bound(f"K16 {name}", 8 * thi.numel()
                                  + 12 * words.numel(),
                                  BROADCAST_OPS * words.numel() * thi.numel()))
+
+    # the crossover with K2: raw panels of the first s target keys (no
+    # EMPTY slot) against K2 on the smallest full table that holds them
+    t_pay = rng.integers(1, 4, t_words.size).astype(np.uint32)
+    for s in CROSSOVER_SLOTS:
+        s_hi = torch.from_numpy((t_hi[:s] | (t_pay[:s] << 30)).view(
+            np.int32)).to(dev)
+        s_lo = torch.from_numpy(t_lo[:s].view(np.int32)).to(dev)
+        table = H.build_table(t_hi[:s], t_lo[:s], t_pay[:s], K,
+                              fmt="full").to(dev)
+        got = BP.broadcast_probe(s_hi, s_lo, q_hi, q_lo)
+        if not torch.equal(got, H.probe(table, words)):
+            fail(f"K16 broadcast_probe != K2 probe payloads ({s} keys)")
+        ms = cuda_ms(lambda: BP.broadcast_probe(s_hi, s_lo, q_hi, q_lo), 20)
+        k2_ms = cuda_ms(lambda: H.probe(table, words), 20)
+        log(f"K16 vs K2, {words.numel()} queries: {s} raw slots "
+            f"{ms:.4f} ms; K2 on the {s} keys' full table "
+            f"({BP.table_key_arrays(table)[0].numel()} slots) {k2_ms:.4f} "
+            f"ms; payloads equal")
 
     # the JAX padding: a length that is a multiple of neither chunk, the pad
     # key (0x3FFFFFFF, 0xFFFFFFFF) at the end of the queries
@@ -1925,55 +1960,28 @@ def phase_mesh_goldens(tmp: str) -> None:
         "merge-results of two shards: byte-identical on cuda")
 
 
-@contextlib.contextmanager
-def _stdio(stdin_path: str | None = None):
-    """Swap in a stdout whose .buffer the tests read back, a text stderr
-    and, when given, a stdin: the CLI's tools run in this process."""
+def _cli_bytes(argv, stdin_path: str | None = None) -> tuple[bytes, str]:
+    """One CLI subcommand in this process: its stdout bytes (the CLI
+    writes through sys.stdout.buffer) and its stderr text."""
     import io
-
-    class Out:
-        def __init__(self) -> None:
-            self.buffer = io.BytesIO()
-
-        def write(self, s: str) -> None:
-            self.buffer.write(s.encode())
-
-        def flush(self) -> None:
-            pass
-
-    saved = sys.stdout, sys.stderr, sys.stdin
-    out, err = Out(), io.StringIO()
-    sys.stdout, sys.stderr = out, err
-    try:
-        with open(stdin_path or os.devnull) as stdin:
-            sys.stdin = stdin
-            yield out.buffer, err
-    finally:
-        sys.stdout, sys.stderr, sys.stdin = saved
-
-
-def _tool_bytes(argv, stdin_path: str | None = None) -> tuple[bytes, str]:
     from hast_tpu_torch import cli
-    with _stdio(stdin_path) as (out, err):
-        cli.main(argv)
-    return out.getvalue(), err.getvalue()
-
-
-def _svg_here(out: bytes, here: str, golden: bytes) -> bytes:
-    """A heat-align SVG names each query by its align file's path minus
-    ".align.txt", as the reference does, so the goldens hold the directory
-    they were made in: map this checkout's directory onto that one."""
-    import re
-    made = re.search(rb">([^<>]*)H1</text>", golden)
-    if made is None:
-        return out
-    return out.replace(here.encode() + b"/", made.group(1))
+    out = io.TextIOWrapper(io.BytesIO(), newline="", write_through=True)
+    err = io.StringIO()
+    with open(stdin_path or os.devnull) as stdin, \
+            contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        saved, sys.stdin = sys.stdin, stdin
+        try:
+            cli.main(argv)
+        finally:
+            sys.stdin = saved
+    return out.buffer.getvalue(), err.getvalue()
 
 
 def phase_entry_points(tmp: str) -> None:
     """warmup --device cuda at its default shapes, in this process, so the
-    launch counters show its kernels; then every tool subcommand on the
-    committed goldens, byte for byte."""
+    launch counters show its kernels; then each tool subcommand against its
+    committed golden, byte for byte (tier-1 holds the same tools to the
+    JAX package and the reference programs)."""
     from hast_tpu_torch import cli
     from hast_tpu_torch.ops import _build
 
@@ -1985,96 +1993,75 @@ def phase_entry_points(tmp: str) -> None:
     launches, twins = dict(_build.LAUNCHES), dict(_build.TWIN_CALLS)
     log(f"warmup --device cuda (2x2,000,000 synthetic markers, 131,072 "
         f"reads): {wall:.3f} s wall; launches {launches}; twin calls {twins}")
-    for name in ("classify_tally", "grow_tally", "pack_tally",
-                 *STAGE00_KERNELS):
+    # 97 barcodes never grow the tally: K10 is not warmup's (phase 5's)
+    for name in ("classify_tally", "pack_tally", *STAGE00_KERNELS):
         if launches.get(name, 0) <= 0:
             fail(f"warmup launched no {name} kernel")
     if any(twins.values()):
         fail(f"warmup called twins: {twins}")
 
-    vcf = os.path.join(ROOT, "tests", "golden", "vcfqc")
+    g = os.path.join(ROOT, "tests", "golden")
+    vcf, ha, fq = (os.path.join(g, "vcfqc"), os.path.join(g, "heatalign"),
+                   os.path.join(g, "fastq_tools"))
     v = {n: os.path.join(vcf, f"{n}.vcf")
          for n in ("child", "father", "mother", "hap1", "hap2")}
     trio = [v["father"], v["mother"], v["child"]]
-    cases = [(["vcf-snp-only", v["child"]], "snponly.out"),
-             (["vcf-snp-info", v["child"]], "snpinfo.out"),
-             (["vcf-phased-snp", v["child"]], "phasedsnp.out"),
-             (["vcf-dipcall-hapsnp", v["child"]], "dipcall.out"),
-             (["vcf-merge-hap-snp", v["hap1"], v["hap2"]], "mergehap.out"),
+    aligns = ["-i", os.path.join(ha, "H1.align.txt"),
+              "-i", os.path.join(ha, "H2.align.txt"),
+              "-g", os.path.join(ha, "genes.txt")]
+    reads = os.path.join(GOLD, "reads2.fq")
+    keep = os.path.join(fq, "keep40.barcodes")
+    cases = [(["vcf-snp-only", v["child"]], "vcfqc/snponly.out"),
+             (["vcf-snp-info", v["child"]], "vcfqc/snpinfo.out"),
+             (["vcf-phased-snp", v["child"]], "vcfqc/phasedsnp.out"),
+             (["vcf-dipcall-hapsnp", v["child"]], "vcfqc/dipcall.out"),
+             (["vcf-merge-hap-snp", v["hap1"], v["hap2"]],
+              "vcfqc/mergehap.out"),
              (["vcf-hap-inherit", v["father"], v["child"]],
-              "hapinherit.out"),
-             (["vcf-inherit-3aa", *trio], "inherit3aa.out"),
-             (["vcf-inherit-solid", *trio], "solidsnp.out"),
-             (["vcf-phase-inherit-solid", *trio], "phasesolid.out")]
-    for argv, golden in cases:
-        with open(os.path.join(vcf, golden), "rb") as f:
-            if _tool_bytes(argv)[0] != f.read():
+              "vcfqc/hapinherit.out"),
+             (["vcf-inherit-3aa", *trio], "vcfqc/inherit3aa.out"),
+             (["vcf-inherit-solid", *trio], "vcfqc/solidsnp.out"),
+             (["vcf-phase-inherit-solid", *trio], "vcfqc/phasesolid.out"),
+             (["draw-heatalign", "1100000", *aligns, "--preset", "KIR"],
+              "heatalign/kir.svg.golden"),
+             (["draw-heatalign", "1100000", *aligns, "--preset", "MHC"],
+              "heatalign/mhc.svg.golden"),
+             (["get-n"], "heatalign/getn.out.golden"),
+             (["check-genes", os.path.join(ha, "H1.align.txt"),
+               os.path.join(ha, "cg.genes.txt")],
+              "heatalign/checkgenes.out.golden"),
+             (["mark-library", reads, "2"],
+              "fastq_tools/reads2.lib2.fq.golden"),
+             (["filter-fastq-by-barcodes", reads, keep],
+              "fastq_tools/reads2.keep40.fq.golden")]
+    cwd = os.getcwd()
+    os.chdir(tmp)       # filter_reads.log appends to the working directory
+    try:
+        for argv, golden in cases:
+            got = _cli_bytes(argv, os.path.join(ha, "n.fa")
+                             if argv[0] == "get-n" else None)[0]
+            with open(os.path.join(g, golden), "rb") as f:
+                want = f.read()
+            if golden.endswith(".svg.golden"):
+                # a query is named by its align file's path, and the golden
+                # holds the directory it was made in
+                made = re.search(rb">([^<>]*)H1</text>", want).group(1)
+                got = got.replace(ha.encode() + b"/", made)
+            if got != want:
                 fail(f"{argv[0]}: stdout differs from {golden}")
-    _, err = _tool_bytes(["vcf-calc-hd", os.path.join(vcf, "phasedsnp.out"),
-                          os.path.join(vcf, "mergehap.out")])
+        with open("filter_reads.log", "rb") as f, open(os.path.join(
+                fq, "filter_reads.log.golden"), "rb") as g_log:
+            if f.read() != g_log.read():
+                fail("filter-fastq-by-barcodes: filter_reads.log differs "
+                     "from its golden")
+    finally:
+        os.chdir(cwd)
+    err = _cli_bytes(["vcf-calc-hd", os.path.join(vcf, "phasedsnp.out"),
+                      os.path.join(vcf, "mergehap.out")])[1]
     with open(os.path.join(vcf, "calchd.out.err")) as f:
         want = [x for x in f.read().splitlines() if x.startswith(" total")]
     if [x for x in err.splitlines() if x.startswith(" total")] != want:
         fail("vcf-calc-hd: its ' total' lines differ from calchd.out.err")
-
-    ha = os.path.join(ROOT, "tests", "golden", "heatalign")
-    aligns = ["-i", os.path.join(ha, "H1.align.txt"),
-              "-i", os.path.join(ha, "H2.align.txt"),
-              "-g", os.path.join(ha, "genes.txt")]
-    for argv, golden, stdin in (
-            (["draw-heatalign", "1100000", *aligns, "--preset", "KIR"],
-             "kir.svg.golden", None),
-            (["draw-heatalign", "1100000", *aligns, "--preset", "MHC"],
-             "mhc.svg.golden", None),
-            (["get-n"], "getn.out.golden", os.path.join(ha, "n.fa")),
-            (["check-genes", os.path.join(ha, "H1.align.txt"),
-              os.path.join(ha, "cg.genes.txt")], "checkgenes.out.golden",
-             None)):
-        with open(os.path.join(ha, golden), "rb") as f:
-            want = f.read()
-        if _svg_here(_tool_bytes(argv, stdin)[0], ha, want) != want:
-            fail(f"{argv[0]}: stdout differs from {golden}")
-
-    # mark-library and filter-fastq-by-barcodes on reads2.fq, against the
-    # awk programs' rules written out plainly here
-    fq = os.path.join(GOLD, "reads2.fq")
-    with open(fq, "rb") as f:
-        lines = f.read().splitlines()
-    want = b""
-    for i, line in enumerate(lines):
-        f = line.replace(b"/", b"#").split(b"#")
-        if i % 4 == 0 and len(f) > 1 and f[1] != b"0_0_0":
-            line = b"%s#lib2_%s/%s" % (f[0], f[1], f[2] if len(f) > 2
-                                       else b"")
-        want += line + b"\n"
-    if _tool_bytes(["mark-library", fq, "2"])[0] != want:
-        fail("mark-library differs from the awk rule on reads2.fq")
-    with open(os.path.join(GOLD, "paternal.unique.barcodes.golden"),
-              "rb") as f:
-        keep = f.read().splitlines()[:40]
-    listed = os.path.join(tmp, "keep.txt")
-    with open(listed, "wb") as f:
-        f.write(b"\n".join(keep) + b"\n")
-    want, used, total, c = b"", 0, 0, 0
-    for i, line in enumerate(lines):
-        f = line.replace(b"/", b"#").split(b"#")
-        if i % 4 == 0 and len(f) > 1:
-            total += 1
-            c = int(f[1] in keep)
-            used += c
-        if c:
-            want += line + b"\n"
-    cwd = os.getcwd()
-    os.chdir(tmp)       # filter_reads.log appends to the working directory
-    try:
-        got = _tool_bytes(["filter-fastq-by-barcodes", fq, listed])[0]
-        with open("filter_reads.log", "rb") as f:
-            got_log = f.read()
-    finally:
-        os.chdir(cwd)
-    if got != want or got_log != b"use %d from %d\n" % (used, total):
-        fail("filter-fastq-by-barcodes differs from the awk rule on "
-             "reads2.fq")
 
     bounds = os.path.join(tmp, "bounds")
     os.makedirs(bounds)
@@ -2082,11 +2069,10 @@ def phase_entry_points(tmp: str) -> None:
         shutil.copy(os.path.join(GOLD00, f"{parent}.histo"),
                     os.path.join(bounds, f"{parent}.kmercount.histo"))
         shutil.copy(os.path.join(GOLD00, f"{parent}.bounds.txt"), bounds)
-    said = _tool_bytes(["plot-bounds", "--workdir", bounds])[0].decode()
-    log(f"tools through the CLI: vcf-* (nine outputs and calc-hd's totals),"
-        f" draw-heatalign KIR/MHC, get-n, check-genes byte-identical to "
-        f"their goldens; mark-library and filter-fastq-by-barcodes ({used} "
-        f"of {total}) equal to the awk rules; plot-bounds: {said.strip()}")
+    said = _cli_bytes(["plot-bounds", "--workdir", bounds])[0].decode()
+    log(f"tools through the CLI: {len(cases)} outputs and vcf-calc-hd's "
+        f"totals byte-identical to their goldens; plot-bounds: "
+        f"{said.strip()}")
 
 
 def phase_across_cards(tmp: str) -> None:

@@ -183,6 +183,38 @@ def test_filter_fastq_by_barcodes_matches_jax(tmp_path):
     assert log.startswith(b"earlier line\nuse %d from " % used)
 
 
+@pytest.mark.parametrize("tool", ["mark_library", "filter_fastq_by_barcodes"])
+def test_fastq_tools_match_goldens(tool, tmp_path):
+    """tests/golden/fastq_tools, the goldens chip_smoke.py holds the CLI
+    to: reads2.fq through awk's mark_library line with lib_id 2, and
+    through hast_tpu's filter_fastq_by_barcodes with keep40.barcodes (its
+    output and its filter_reads.log line)."""
+    gold = GOLD / "fastq_tools"
+    reads = GOLD / "stage01" / "reads2.fq"
+    out = io.BytesIO()
+    if tool == "mark_library":
+        mark_library(str(reads), 2, out)
+        want = (gold / "reads2.lib2.fq.golden").read_bytes()
+        assert want == subprocess.run(
+            ["awk", "-F", "#|/", "-v", "lib_id=2",
+             '{if(NR%4==1&&NF>1&&$2!="0_0_0"){printf("%s#lib%s_%s/%s\\n",'
+             '$1,lib_id,$2,$3);}else print $0; }', str(reads)],
+            capture_output=True, check=True).stdout
+        assert out.getvalue() == want
+        return
+    ref = _ref("pipeline.partition")
+    logs = {}
+    for name, fn in (("ours", P.filter_fastq_by_barcodes),
+                     ("jax", ref.filter_fastq_by_barcodes)):
+        buf = io.BytesIO() if name == "jax" else out
+        fn(str(reads), str(gold / "keep40.barcodes"), buf,
+           log_path=str(tmp_path / name))
+        assert buf.getvalue() == (gold / "reads2.keep40.fq.golden").read_bytes()
+        logs[name] = (tmp_path / name).read_bytes()
+    assert logs["ours"] == logs["jax"] == \
+        (gold / "filter_reads.log.golden").read_bytes()
+
+
 def _bounds_dir(tmp_path: pathlib.Path) -> pathlib.Path:
     for parent in ("maternal", "paternal"):
         shutil.copy(GOLD / "stage00" / f"{parent}.histo",
