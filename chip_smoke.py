@@ -19,7 +19,11 @@ failure:
    (the main path's tally shapes).
 3. the stage-00 kernels the same way: K4 count_windows on 65,536 packed
    100-bp reads at k = 15, 21, 31 (masked, clean, key range up to
-   2^64 - 1); K5 sort_pairs on 2^26 pairs at k = 21 and 31; K6
+   2^64 - 1); K5 sort_pairs on the edge cases of
+   utils/synthetic.py sort_edge_cases (lengths 1, tile - 1, tile, tile +
+   1, all keys equal, all sentinels, sorted, reversed) at k = 15, 17, 21,
+   31 in one portion and in portions of two tiles, then on 2^26 pairs at
+   k = 21 and 31 beside torch.sort(stable=True); K6
    fold_runs on a 2^26-element duplicate-heavy sorted run and K12
    shrink_run on its distinct rows; K7
    count_stats on 2^26 counts, high = 10000; K8 marker_filter on two
@@ -51,7 +55,8 @@ failure:
    quarter, fed to the DeviceCounter in 2^25-key chunks; finalize,
    histogram and marker algebra through the kernels and again through
    the twins on the card must agree; fold counts, peak device memory,
-   times and K8's share of the marker algebra are printed.
+   times, K8's share of the marker algebra and K5's share of the
+   paternal count's device time (torch.profiler) are printed.
 8. K9 segment_votes against its twin on the card, bit-exact, with both
    times: 4,096 random records of 0-20 kb (2 % soft-masked, 1 % N, a few
    IUPAC bytes, planted table keys) plus records of k - 1, k, 4096 + k - 1
@@ -78,7 +83,12 @@ failure:
    shard of a 16,384-read batch at dp = 4 and 8, slack 2, and on 64
    identical reads of one key (drop counts equal the twin's); K15
    tally_votes of 65,536 reads into 10^5 barcodes, ids -1 and past the
-   end included (index_add_ timed beside it).
+   end included, random and in stLFR's barcode runs of 20-60 reads, into
+   a fresh tally and with out= over two calls (call and device times;
+   index_add_'s beside them).  Then the launch path: K10, K11, K12, K14
+   and K15 call times through the wrappers as they are and with the
+   earlier guard (a device switch on every call, the library looked up
+   under its lock), in turns.
 12. sharded_classify_step on meshes of cuda:0 at dp x tp = 4x1 and 2x2,
    both slot formats, equal to K3's tally of the same reads.
 13. the mesh classify main path: phase 5's workload through
@@ -508,6 +518,7 @@ def phase_kernels00() -> dict:
     import torch
     from hast_tpu_torch.ops import encode as E
     from hast_tpu_torch.ops import kmer_count as KC
+    from hast_tpu_torch.utils import synthetic as S
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2025)
@@ -554,9 +565,35 @@ def phase_kernels00() -> dict:
                             (WINDOW_OPS + COUNT_RANGE_OPS) * got.numel()))
     res["count_windows"]["max_abs_err"] = err
 
-    # K5: 2^26 random keys, 10 % sentinels, int32 payload
-    n = 1 << 26
+    # K5: the inputs a one-sweep sort gets wrong (lengths around a tile,
+    # one hot digit, all sentinels, sorted and reversed runs) at k = 15,
+    # 17, 21, 31, with and without payload, in one portion and in
+    # portions of two tiles; then 2^26 random keys, 10 % sentinels
     err = 0.0
+    cases = 0
+    for k in (15, 17, 21, 31):
+        for portion in (KC._SORT_PORTION, 2 * KC.SORT_TILE):
+            saved, KC._SORT_PORTION = KC._SORT_PORTION, portion
+            try:
+                for name, keys_np in S.sort_edge_cases(k, k, KC.SORT_TILE):
+                    keys = torch.from_numpy(keys_np).to(dev)
+                    pay = torch.randint(0, 1 << 30, keys.shape, device=dev,
+                                        generator=g, dtype=torch.int32)
+                    what = f"K5 sort_pairs k={k} {name} portion {portion}"
+                    err = max(err, _check_same(
+                        what, KC.sort_pairs(keys, pay, k),
+                        KC.sort_pairs_ref(keys, pay, k)))
+                    err = max(err, _check_same(
+                        what + " no payload",
+                        KC.sort_pairs(keys, None, k)[:1],
+                        KC.sort_pairs_ref(keys, None, k)[:1]))
+                    cases += 1
+            finally:
+                KC._SORT_PORTION = saved
+    log(f"K5 sort_pairs: {cases} edge cases (n = 1, tile - 1, tile, tile + "
+        "1; all equal, all sentinels, sorted, reversed; k = 15, 17, 21, "
+        "31; one portion and portions of two tiles) bit-exact")
+    n = 1 << 26
     for k in (21, 31):
         keys = torch.randint(0, 1 << (2 * k), (n,), device=dev, generator=g)
         keys[torch.rand(n, device=dev, generator=g) < 0.1] = KC.SENT
@@ -567,12 +604,20 @@ def phase_kernels00() -> dict:
                                    KC.sort_pairs_ref(keys, pay, k)))
         ms = cuda_ms(lambda: KC.sort_pairs(keys, pay, k), 5)
         plain = cuda_ms(lambda: KC.sort_pairs_ref(keys, pay, k), 3)
+        lib = cuda_ms(lambda: torch.sort(keys, stable=True), 5)
         log(f"K5 sort_pairs k={k}: {n} pairs, {-(-(2 * k + 1) // 8)} "
-            f"passes: kernel {ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
+            f"passes: kernel {ms:.4f} ms, twin {plain:.4f} ms, "
+            f"torch.sort(stable=True) of the keys {lib:.4f} ms, bit-exact")
+        passes = -(-(2 * k + 1) // 8)
+        sweep = device_ms(lambda: KC.sort_pairs(keys, pay, k), 3,
+                          "onesweep_pass_kernel")
+        hist = device_ms(lambda: KC.sort_pairs(keys, pay, k), 3,
+                         "onesweep_hist_kernel")
+        log(f"K5 sort_pairs k={k} on the device: {passes} sweeps "
+            f"{sweep:.4f} ms ({sweep / passes:.4f} a pass, bytes bound "
+            f"{24 * n / HBM_BYTES_PER_S * 1e3:.4f} a pass), the histogram "
+            f"of every pass {hist:.4f} ms")
         if k == K:
-            lib = cuda_ms(lambda: torch.sort(keys, stable=True), 5)
-            log(f"K5 sort_pairs k={k}: torch.sort(stable=True) of the keys "
-                f"{lib:.4f} ms")
             # 8-byte keys and 4-byte payloads read once and written once
             res["sort_pairs"] = dict(
                 ms=ms, plain_ms=plain, library_ms=lib,
@@ -979,13 +1024,14 @@ def phase_stage00_breakdown(tmp: str, reads: dict) -> None:
         "batches")
 
     groups = (("K4 count_windows", ("count_windows_kernel",)),
-              ("K5 sort_pairs", ("radix_", "HistVal")),
+              ("K5 sort_pairs", ("onesweep_",)),
               ("K6 fold_runs", ("StartFlag", "fill_kernel",
                                 "n_unique_kernel")),
               ("K7 count_stats", ("count_stats_kernel",)),
               ("K8 marker_filter", ("keep_kernel", "KeepVal")),
-              ("scan tiles (K5, K6, K8)", ("scan_tiles_kernel",)),
-              ("copies", ("Memcpy", "Memset")))
+              ("scan tiles (K6, K8)", ("scan_tiles_kernel",)),
+              ("copies and memsets (K5's status words)",
+               ("Memcpy", "Memset")))
     out = os.path.join(tmp, "stage00_profiled")
     os.makedirs(out)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1317,6 +1363,7 @@ def phase_scale() -> None:
             t0 = time.perf_counter()
             markers = KC.device_marker_algebra(pat, mat, 2, 8, 2, 8)
             times["marker_algebra"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
         if mode == "kernels":
             # the marker algebra is K8 plus the fetch of the kept words
             k8 = cuda_ms(lambda: KC.marker_filter(
@@ -1324,7 +1371,27 @@ def phase_scale() -> None:
                 mat.n_valid, (2, 8, 2, 8)), 3)
             log(f"scale: K8 marker_filter alone on {pat.n_valid} + "
                 f"{mat.n_valid} rows: {k8:.4f} ms")
-        peak = torch.cuda.max_memory_allocated() - base
+            # K5's share of the count's device time: the paternal count
+            # again, under torch.profiler
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                again, _ = count("paternal", 1)
+                torch.cuda.synchronize()
+            busy = k5 = 0.0
+            for e in prof.key_averages():
+                us = _device_us(e)
+                busy += us
+                if "onesweep_" in e.key:
+                    k5 += us
+            if not torch.equal(again.keys, pat.keys):
+                fail("scale: the profiled paternal count differs")
+            del again
+            log(f"scale: the paternal count's device time {busy / 1e6:.4f} "
+                f"s, K5 sort_pairs {k5 / 1e6:.4f} s of it "
+                f"({k5 / busy:.4f})" if busy else
+                "scale: K5's share of the count: not measured (the "
+                "profiler saw no device time)")
         results[mode] = (pat, mat, hists, markers)
         log(f"scale ({mode}): 2 x {SCALE_WINDOWS} windows in "
             f"{SCALE_CHUNK}-key chunks; distinct {pat.n_distinct} + "
@@ -1373,6 +1440,7 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
     from hast_tpu_torch.ops import kmer_count as KC
     from hast_tpu_torch.parallel import mesh as PM
     from hast_tpu_torch.pipeline import classify as C
+    from hast_tpu_torch.utils import synthetic as S
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2027)
@@ -1498,7 +1566,8 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
         f" slack 2: {int(dropped)} keys dropped, as the twin")
     res["route_kmers"]["max_abs_err"] = err
 
-    # K15: 65,536 reads' votes into 10^5 barcodes, ids -1 and past the end
+    # K15: 65,536 reads' votes into 10^5 barcodes, ids -1 and past the
+    # end: random ids, then stLFR's barcode runs of 20-60 reads
     n, nb = N_VOTE_READS, N_TALLY_BARCODES
     votes = torch.from_numpy(rng.integers(0, 50, (n, 2)).astype(
         np.int32)).to(dev)
@@ -1506,30 +1575,126 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
     ids_np = rng.integers(0, nb, n).astype(np.int32)
     ids_np[rng.integers(0, n, 256)] = -1
     ids_np[rng.integers(0, n, 256)] = nb + 7
-    ids = torch.from_numpy(ids_np).to(dev)
-    err = _check_same("K15 tally_votes",
-                      [C.tally_votes(votes, has_n, ids, nb)],
-                      [C.tally_votes_ref(votes, has_n, ids, nb)])
-    ms = cuda_ms(lambda: C.tally_votes(votes, has_n, ids, nb), 20)
-    plain = cuda_ms(lambda: C.tally_votes_ref(votes, has_n, ids, nb), 5)
-    keep = (ids >= 0) & (ids < nb)
-    v0 = torch.where(has_n, 0, votes[:, 0])
-    v1 = torch.where(has_n, 0, votes[:, 1])
-    upd = torch.stack([v0, v1, ((v0 == 0) & (v1 == 0) | has_n).int()],
-                      -1)[keep].int()
-    ids64 = ids[keep].long()
-    acc = torch.zeros((nb, 3), dtype=torch.int32, device=dev)
-    lib = cuda_ms(lambda: acc.index_add_(0, ids64, upd), 20)
-    dev_ms = device_ms(lambda: C.tally_votes(votes, has_n, ids, nb), 20,
-                       "tally_votes_kernel")
-    log(f"K15 tally_votes {n} reads into {nb} barcodes: kernel {ms:.4f} ms "
-        f"({dev_ms:.4f} ms of it on the device), "
-        f"twin {plain:.4f} ms, index_add_ of the prepared rows {lib:.4f} ms, "
-        "bit-exact")
-    res["tally_votes"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                              library_ms=lib,
-                              **bound("K15", 13 * n + 12 * nb, READ_OPS * n))
+    err = 0.0
+    for order, ids_np in (("random", ids_np),
+                          ("barcode-sorted",
+                           S.barcode_sorted_ids(2027, n, nb))):
+        ids = torch.from_numpy(ids_np).to(dev)
+        want = C.tally_votes_ref(votes, has_n, ids, nb)
+        err = max(err, _check_same(f"K15 tally_votes {order}",
+                                   [C.tally_votes(votes, has_n, ids, nb)],
+                                   [want]))
+        # out=: two halves added into one tally over two calls
+        acc = torch.zeros((nb, 3), dtype=torch.int32, device=dev)
+        for s in (slice(0, n // 2), slice(n // 2, n)):
+            C.tally_votes(votes[s], has_n[s], ids[s], nb, out=acc)
+        err = max(err, _check_same(f"K15 tally_votes {order} out=", [acc],
+                                   [want]))
+        ms = cuda_ms(lambda: C.tally_votes(votes, has_n, ids, nb), 20)
+        out_ms = cuda_ms(lambda: C.tally_votes(votes, has_n, ids, nb,
+                                               out=acc), 20)
+        dev_ms = device_ms(lambda: C.tally_votes(votes, has_n, ids, nb,
+                                                 out=acc), 20,
+                           "tally_votes_kernel")
+        plain = cuda_ms(lambda: C.tally_votes_ref(votes, has_n, ids, nb), 5)
+        keep = (ids >= 0) & (ids < nb)
+        v0 = torch.where(has_n, 0, votes[:, 0])
+        v1 = torch.where(has_n, 0, votes[:, 1])
+        upd = torch.stack([v0, v1, ((v0 == 0) & (v1 == 0) | has_n).int()],
+                          -1)[keep].int()
+        ids64 = ids[keep].long()
+        lib = cuda_ms(lambda: acc.index_add_(0, ids64, upd), 20)
+        lib_dev = device_ms(lambda: acc.index_add_(0, ids64, upd), 20,
+                            "index")
+        # the leaders' atomics: one a (warp, barcode) group and column
+        groups = int(torch.unique(
+            ids64 + (torch.nonzero(keep).reshape(-1) // 32)
+            * (nb + 1)).numel())
+        log(f"K15 tally_votes {order} ids, {n} reads into {nb} barcodes "
+            f"({int(keep.sum())} kept reads in {groups} (warp, barcode) "
+            "groups): call "
+            f"{ms:.4f} ms with a fresh tally, {out_ms:.4f} ms into a given "
+            f"one ({dev_ms:.4f} ms of it on the device), twin {plain:.4f} "
+            f"ms, index_add_ of the prepared rows {lib:.4f} ms "
+            f"({lib_dev:.4f} ms on the device), bit-exact")
+        if order == "random":
+            # the main path (sharded_classify_step) adds into a given tally
+            res["tally_votes"] = dict(ms=out_ms, plain_ms=plain,
+                                      library_ms=lib,
+                                      **bound("K15", 13 * n + 12 * nb,
+                                              READ_OPS * n))
+    res["tally_votes"]["max_abs_err"] = err
     return res
+
+
+def phase_launch_path() -> None:
+    """The small kernels' call times through the wrappers' launch path as
+    it is (no device switch when the tensors' card is current, the
+    library bound once) and as it was before (torch.cuda.device entered
+    on every call, the library looked up under its lock), in turns in
+    this process (now, before, before, now) at phase 2, 3 and 11's
+    shapes."""
+    import ctypes
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.ops import kmer_count as KC
+    from hast_tpu_torch.parallel import mesh as PM
+    from hast_tpu_torch.pipeline import classify as C
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2031)
+    acc = torch.from_numpy(rng.integers(0, 200, (1 << 19, 3)).astype(
+        np.int32)).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 200, (1_000_000, 3)).astype(
+        np.int32)).to(dev)
+    m = 1 << 22
+    keys = torch.full((2 * m,), KC.SENT, device=dev)
+    keys[:m] = torch.sort(_hash_keys(torch.arange(m, device=dev))).values
+    counts = torch.ones(2 * m, dtype=torch.int32, device=dev)
+    seqs = torch.from_numpy(np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, (4096, 128))].copy()).to(dev)
+    lens = torch.full((4096,), 100, dtype=torch.int32, device=dev)
+    cap = 4096 * (128 - K + 1) // 4 * 2
+    n, nb = N_VOTE_READS, N_TALLY_BARCODES
+    votes = torch.from_numpy(rng.integers(0, 50, (n, 2)).astype(
+        np.int32)).to(dev)
+    has_n = torch.from_numpy(rng.random(n) < 0.02).to(dev)
+    ids = torch.from_numpy(rng.integers(0, nb, n).astype(np.int32)).to(dev)
+    tally = torch.zeros((nb, 3), dtype=torch.int32, device=dev)
+    calls = {
+        "K10 grow_tally": lambda: C.grow_tally(acc, acc.shape[0]),
+        "K11 pack_tally": lambda: C.pack_tally(rows),
+        "K12 shrink_run": lambda: KC.shrink_run(keys, counts, m),
+        "K14 route_kmers": lambda: PM.route_kmers(seqs, lens, K, 4, cap),
+        "K15 tally_votes": lambda: C.tally_votes(votes, has_n, ids, nb,
+                                                 out=tally)}
+
+    @contextlib.contextmanager
+    def switching_on_card(t):
+        with torch.cuda.device(t.device):
+            yield ctypes.c_void_p(
+                torch.cuda.current_stream(t.device).cuda_stream)
+
+    def locked_load_library():
+        with _build._LOCK:
+            return _build._lib
+
+    now = (_build.on_card, _build.load_library)
+    before = (switching_on_card, locked_load_library)
+    try:
+        for name, fn in calls.items():
+            times = {"now": [], "before": []}
+            for mode in ("now", "before", "before", "now"):
+                _build.on_card, _build.load_library = (
+                    now if mode == "now" else before)
+                times[mode].append(cuda_ms(fn, 200))
+            log(f"launch path: {name} call {np.mean(times['now']):.4f} ms "
+                f"now, {np.mean(times['before']):.4f} ms before (now "
+                f"{times['now'][0]:.4f}, {times['now'][1]:.4f}; before "
+                f"{times['before'][0]:.4f}, {times['before'][1]:.4f})")
+    finally:
+        _build.on_card, _build.load_library = now
 
 
 def phase_classify_step(tables: dict, words) -> int:
@@ -2224,6 +2389,7 @@ def main() -> None:
     kernels.update(phase_kernels00())
     kernels.update(phase_kernels03(tables, words, bwords))
     kernels.update(phase_kernels_mesh(tables, words, bwords))
+    phase_launch_path()
     mesh_launches = {"tally_votes": phase_classify_step(tables, words)}
     del tables, words, bwords
     kernels["broadcast_probe"], mesh_launches["broadcast_probe"] = \

@@ -56,6 +56,26 @@ def _split_paths(values):
     return out
 
 
+def _option_order(parser: argparse.ArgumentParser, argv) -> dict:
+    """Each long option of parser -> the index of the first argv token
+    that argparse reads as it (exact, --opt=value or a unique prefix),
+    or len(argv) when none does."""
+    opts = [s for act in parser._actions for s in act.option_strings
+            if s.startswith("--")]
+    order = dict.fromkeys(opts, len(argv))
+    for i, tok in enumerate(argv):
+        if tok == "--":
+            break
+        if not tok.startswith("--"):
+            continue
+        name = tok.split("=", 1)[0]
+        hits = [name] if name in order else [o for o in opts
+                                             if o.startswith(name)]
+        if len(hits) == 1:
+            order[hits[0]] = min(order[hits[0]], i)
+    return order
+
+
 def _device(name: str) -> torch.device:
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -150,16 +170,18 @@ def _add_build_markers(sub):
     p.add_argument("--p-upper", type=int, default=33)
     p.add_argument("--out-dir", default=".")
     p.add_argument("--batch-size", type=int, default=1 << 14)
-    p.add_argument("--count-parts", type=int, default=1,
+    p.add_argument("--count-parts", type=int, default=None,
                    help="split the k-mer key space into N ranges counted "
                         "in N passes (bounded device memory for inputs "
-                        "whose distinct set exceeds it); default 1")
+                        "whose distinct set exceeds it); default "
+                        "HAST_COUNT_PARTS, else 1")
     p.add_argument("--engine", choices=("auto", "device", "host"),
-                   default="auto",
-                   help="device (and auto, the default): count tables stay "
-                        "on the device, only final markers fetched (one "
+                   default=None,
+                   help="device (and auto): count tables stay on the "
+                        "device, only final markers fetched (one "
                         "all-or-nothing checkpoint); host: per-substep "
-                        ".counts.npz snapshots and finer resume")
+                        ".counts.npz snapshots and finer resume; default "
+                        "HAST_STAGE00_ENGINE, else auto")
     p.add_argument("--thread", type=int, default=None,
                    help="accepted for reference compatibility (unused)")
     p.add_argument("--memory", type=int, default=None,
@@ -347,7 +369,7 @@ def _add_merge_results(sub):
             table = C.load_marker_table(a.hap0, a.hap1)
             C.erase_adaptors(table)
             size0, size1 = table.set_sizes
-        PMerge.merge_phased_files(_split_paths(a.input), sys.stdout.buffer,
+        PMerge.merge_phased_files(a.input, sys.stdout.buffer,
                                   size0, size1, a.weight0, a.weight1)
     p.set_defaults(func=run)
 
@@ -411,9 +433,9 @@ def _add_mkoutput(sub):
         prefer = a.prefer
         if prefer is None:
             # reference rule: the first --*_mer on the command line wins
-            pi = a.argv.index("--paternal_mer")
-            mi = a.argv.index("--maternal_mer")
-            prefer = "paternal" if pi <= mi else "maternal"
+            order = _option_order(p, a.argv)
+            prefer = ("paternal" if order["--paternal_mer"]
+                      <= order["--maternal_mer"] else "maternal")
         timings = {}
         R.mkoutput(a.assembly_path, a.prefix, a.paternal_mer,
                    a.maternal_mer, prefer, a.workdir,

@@ -242,6 +242,11 @@ class NativeBatch:
         self.n = n
 
 
+class ReadTooLong(RuntimeError):
+    """A read longer than the reader's len_cap (the batch holding it is
+    not yielded)."""
+
+
 class NativeFastqReader:
     """Iterate batches; barcode strings available after drain.
 
@@ -284,7 +289,7 @@ class NativeFastqReader:
             if n <= 0:
                 return
             if lib.hastio_truncated(h):
-                raise RuntimeError(
+                raise ReadTooLong(
                     "reads longer than len_cap encountered; rerun with a "
                     "larger len_cap or engine='python'")
             stride = max_len.value // div

@@ -13,8 +13,9 @@ wrapper calls its entry inside :func:`on_card`, which makes the tensors'
 card the current device (the ctypes entries have no device guard of
 their own) and hands it that card's current stream.  The
 launch counters ``LAUNCHES`` count the wrappers' calls of their C
-entries, one each (an entry may launch several kernels: K5 launches
-up to five a radix pass), the twin counters calls of the plain PyTorch twins;
+entries, one each (an entry may launch several kernels: K5 launches a
+histogram, an offset scan and one sweep a radix pass), the twin counters
+calls of the plain PyTorch twins;
 ``chip_smoke.py`` reads both to show which of the two ran the main path.
 """
 
@@ -48,7 +49,8 @@ _SIGNATURES = {
     "hast_canonical_windows": [_P, _P, _I64, _I, _I, _P, _P, _P],
     "hast_count_windows": [_P, _P, _P, _I, _I64, _I, _I, _I, _U64, _U64, _P,
                            _P],
-    "hast_sort_pairs": [_P, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
+    "hast_sort_scratch_bytes": [_I64, _I, _I64],
+    "hast_sort_pairs": [_P, _P, _P, _P, _P, _P, _I64, _I, _I64, _P, _P],
     "hast_fold_runs": [_P, _P, _I64, _P, _P, _P, _P, _P],
     "hast_count_stats": [_P, _I64, _I, _P, _P, _P],
     "hast_marker_filter": [_P, _P, _I64, _P, _I64, _I64, _I64, _P, _P, _P,
@@ -133,16 +135,26 @@ def build() -> str:
     return out
 
 
+_RESTYPES = {"hast_sort_scratch_bytes": _I64}   # the others return an int
+
+
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use (once, across threads)."""
+    """The kernel library, built on first use (once, across threads).
+
+    Each entry is bound once, when the library loads: the CDLL keeps the
+    bound function as an attribute, so a wrapper's call costs a global
+    read and an attribute read, and takes the lock only before the load.
+    """
     global _lib
+    if _lib is not None:
+        return _lib
     with _LOCK:
         if _lib is None:
             lib = ctypes.CDLL(build())
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
     return _lib
 
@@ -169,6 +181,12 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 def on_card(t: torch.Tensor):
     """Around a C entry's call: make t's card the current device, so that
     the launch goes to the card whose memory the tensors are in, and give
-    that card's current stream as the entry's stream argument."""
-    with torch.cuda.device(t.device):
-        yield ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    that card's current stream as the entry's stream argument.  When the
+    card is already current (the usual case) nothing is switched."""
+    dev = t.device
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        yield stream
+    else:
+        with torch.cuda.device(dev):
+            yield stream

@@ -26,10 +26,21 @@
 // `sharded_classify_step` (mesh.py:140-146): votes of N-containing reads
 // become (0, 0), unknown = has_n | (v0 == 0 & v1 == 0), and
 // `jax.ops.segment_sum` of (v0, v1, unknown) by barcode id, which drops
-// ids outside [0, num_barcodes), negative ones included.  What bounds
-// it: the 13 bytes a read (votes, flag, id) and the tally's rows; one
-// thread a read, int32 atomics into its row (the JAX tally is int32), so
-// the sums are exact in any order.
+// ids outside [0, num_barcodes), negative ones included; it adds into a
+// tally the caller gives, so one zeroed tally serves every dp row on a
+// device.  What bounds it: on the device, the 13 bytes a read (votes,
+// flag, id) and the tally's rows, far below a launch; the call is the
+// host's.  One thread a read loads its two votes as one 8-byte word; the
+// warp's reads of one barcode find each other with __match_any_sync (ids
+// outside the tally are dropped first and join no group), sum their
+// (v0, v1, unknown) with __reduce_add_sync, and the lowest lane adds each
+// non-zero sum with one int32 atomic (the JAX tally is int32, so the sums
+// are exact in any order).  stLFR fastqs hold a barcode's reads in a row,
+// so a warp of sorted ids makes about one atomic per barcode and column
+// instead of one per read.  A warp in which no read shares its barcode
+// with its neighbour (random ids) skips the match after one shuffle and
+// one vote: there the match and the sums cost more than they save (0.0081
+// against 0.0029 ms on the device for 65,536 random ids, H100).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -81,24 +92,50 @@ __global__ void pack_tally_kernel(const int32_t* __restrict__ acc, int64_t n,
   }
 }
 
-__global__ void tally_votes_kernel(const int32_t* __restrict__ votes,
+__global__ void tally_votes_kernel(const int2* __restrict__ votes,
                                    const uint8_t* __restrict__ has_n,
                                    const int32_t* __restrict__ ids, int64_t n,
                                    int32_t* __restrict__ tally,
                                    int64_t n_ids) {
+  const int lane = threadIdx.x & 31;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    const int64_t id = ids[i];
-    if (id < 0 || id >= n_ids) continue;
-    const bool is_n = has_n[i] != 0;
-    const int32_t v0 = is_n ? 0 : votes[2 * i];
-    const int32_t v1 = is_n ? 0 : votes[2 * i + 1];
-    int32_t* a = tally + id * 3;
-    if (v0) atomicAdd(a, v0);
-    if (v1) atomicAdd(a + 1, v1);
-    if (is_n || (v0 == 0 && v1 == 0)) atomicAdd(a + 2, 1);
+  // the whole warp steps together: the match and the sums take all lanes
+  for (int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                       (threadIdx.x & ~31);
+       first < n; first += stride) {
+    const int64_t i = first + lane;
+    const int32_t id = i < n ? ids[i] : -1;
+    const bool keep = id >= 0 && id < n_ids;
+    int v0 = 0, v1 = 0, unk = 0;
+    if (keep) {
+      const bool is_n = has_n[i] != 0;
+      const int2 v = votes[i];
+      v0 = is_n ? 0 : v.x;
+      v1 = is_n ? 0 : v.y;
+      unk = is_n || (v0 == 0 && v1 == 0);
+    }
+    int32_t* a = tally + static_cast<int64_t>(keep ? id : 0) * 3;
+    // a warp with no two neighbouring reads of one barcode (random ids)
+    // skips the match: one read, one group
+    const int prev = __shfl_up_sync(0xFFFFFFFFu, keep ? id : -1, 1);
+    if (!__any_sync(0xFFFFFFFFu, keep && lane > 0 && prev == id)) {
+      if (keep) {
+        if (v0) atomicAdd(a, v0);
+        if (v1) atomicAdd(a + 1, v1);
+        if (unk) atomicAdd(a + 2, unk);
+      }
+      continue;
+    }
+    // dropped lanes all carry -1, a group of their own that adds nothing
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, keep ? id : -1);
+    const int s0 = __reduce_add_sync(peers, v0);
+    const int s1 = __reduce_add_sync(peers, v1);
+    const int su = __reduce_add_sync(peers, unk);
+    if (keep && lane == __ffs(peers) - 1) {
+      if (s0) atomicAdd(a, s0);
+      if (s1) atomicAdd(a + 1, s1);
+      if (su) atomicAdd(a + 2, su);
+    }
   }
 }
 
@@ -134,7 +171,7 @@ extern "C" int hast_tally_votes(const void* votes, const void* has_n,
                                 int64_t n_ids, void* stream) {
   tally_votes_kernel<<<blocks_for(n), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(votes), static_cast<const uint8_t*>(has_n),
+      static_cast<const int2*>(votes), static_cast<const uint8_t*>(has_n),
       static_cast<const int32_t*>(ids), n, static_cast<int32_t*>(tally),
       n_ids);
   return static_cast<int>(cudaGetLastError());

@@ -91,10 +91,10 @@ def load_mer_file(path: str, k_expect: int | None = None):
         raise ValueError(f"{path}: k={k}, expected {k_expect}")
     flat = np.frombuffer(data, np.uint8)
     n_full = len(data) // (k + 1)
-    if n_full and len(data) % (k + 1) in (0, k):  # maybe no final \n
+    tail = flat[n_full * (k + 1):]   # a last line without its \n, or none
+    if n_full and tail.size in (0, k) and not (tail == ord("\n")).any():
         arr2 = flat[:n_full * (k + 1)].reshape(n_full, k + 1)
         if (arr2[:, k] == ord("\n")).all():
-            tail = flat[n_full * (k + 1):]
             rows = [arr2[:, :k]]
             if tail.size == k:
                 rows.append(tail[None, :])
@@ -102,6 +102,10 @@ def load_mer_file(path: str, k_expect: int | None = None):
     lines = data.split(b"\n")
     if lines and lines[-1] == b"":
         lines.pop()
+    for i, line in enumerate(lines):
+        if len(line) != k:
+            raise ValueError(f"{path}: line {i + 1} has {len(line)} bytes, "
+                             f"expected k={k}")
     arr = np.frombuffer(b"".join(lines), np.uint8).reshape(len(lines), k)
     hi, lo = canonical_kmers_np(encode_np(arr), k)
     return hi[:, 0], lo[:, 0], k

@@ -303,7 +303,10 @@ def count_windows(packed: torch.Tensor, lengths: torch.Tensor, k: int,
 # K5: stable sort of keys with an int32 payload
 # ---------------------------------------------------------------------------
 
-_SORT_TILE = 8192     # sort.cu kTile
+SORT_TILE = 4096      # sort.cu kTile: the keys a block ranks together
+# sort.cu sweeps the input in portions of this many keys (a multiple of
+# SORT_TILE, at most 2^28), each with its own look-back
+_SORT_PORTION = 1 << 28
 _SCAN_TILE = 4096     # scan.cuh kScanTile
 
 
@@ -372,15 +375,19 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor | None, k: int,
                   (torch.empty_like(payload), torch.empty_like(payload)))
     else:
         (ka, pa), (kb, pb) = scratch, (keys, payload)
-    hist = torch.empty(256 * -(-n // _SORT_TILE), dtype=torch.int32,
-                       device=dev)
-    tile_sums = _scan_scratch(hist.numel(), dev)
+    lib = _build.load_library()
+    # the look-back's status words, the digit bins and the tile counters
+    scratch_bytes = lib.hast_sort_scratch_bytes(n, 2 * k + 1, _SORT_PORTION)
+    if scratch_bytes < 0:
+        raise ValueError(f"sort_pairs: refused n = {n}, portion "
+                         f"{_SORT_PORTION}")
+    work = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with _build.on_card(keys) as stream:
-        rc = _build.load_library().hast_sort_pairs(
+        rc = lib.hast_sort_pairs(
             keys.data_ptr(), ptr(payload), ka.data_ptr(), ptr(pa),
-            kb.data_ptr(), ptr(pb), n, 2 * k + 1, hist.data_ptr(),
-            tile_sums.data_ptr(), stream)
+            kb.data_ptr(), ptr(pb), n, 2 * k + 1, _SORT_PORTION,
+            work.data_ptr(), stream)
     _build.check(rc, "sort_pairs")
     _build.LAUNCHES["sort_pairs"] += 1
     if -(-(2 * k + 1) // 8) % 2:
@@ -720,8 +727,11 @@ class DeviceCounter:
     def _fold_threshold(self) -> int:
         """Amortized fold trigger: let chunks pile up to about the size of
         the resident run (about 2 sorted rows per new row), capping the
-        fold's concat at 250M elements, so that its transient (two
-        buffer pairs of 12 B an element) stays near 6 GB."""
+        fold's concat at 250M elements while the run is below 250M -
+        fold_above, so that its transient (two buffer pairs of 12 B an
+        element) stays near 6 GB.  Past that the trigger is fold_above
+        and the concat is the run plus fold_above: the transient then
+        grows with the run."""
         run = self._run_valid
         cap = 250_000_000
         return max(self._fold_above, min(run, max(0, cap - run)))

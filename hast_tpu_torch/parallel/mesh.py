@@ -173,24 +173,29 @@ def sharded_classify_step(mesh: Mesh, tables, seqs_u8, lengths, barcode_ids,
     """One whole step on a dp×tp mesh: ASCII reads (B, L), lengths, barcode
     ids and N flags (B,) split over dp -> the (num_barcodes, 3) int32
     tally (hap0 votes, hap1 votes, unknown) on device (0, 0).  Per dp row:
-    K13 at each tp shard, a sum over tp, K15; then a sum over dp."""
+    K13 at each tp shard, a sum over tp, K15 into its device's tally (one
+    zeroed tally a distinct device, which every dp row there adds into:
+    int32 sums are exact in any order); then a sum over the devices."""
     seqs_u8, lengths = _as_tensor(seqs_u8), _as_tensor(lengths)
     barcode_ids, has_n = _as_tensor(barcode_ids), _as_tensor(has_n)
     b = seqs_u8.shape[0]
     if b % mesh.dp:
         raise ValueError(f"{b} reads do not split over dp = {mesh.dp}")
     w = b // mesh.dp
-    tallies = []
+    tallies: dict = {}
     for i in range(mesh.dp):
         part = slice(i * w, (i + 1) * w)
         votes = _votes_over_tp(mesh, tables, i, seqs_u8[part].contiguous(),
                                lengths[part].contiguous(), False, k,
                                max_probe, n_buckets, fmt)
         dev = mesh.devices[i][0]
-        tallies.append(C.tally_votes(
-            votes, has_n[part].contiguous().to(dev),
-            barcode_ids[part].contiguous().to(dev), num_barcodes))
-    return psum(tallies, mesh.devices[0][0])
+        if dev not in tallies:
+            tallies[dev] = torch.zeros((num_barcodes, 3), dtype=torch.int32,
+                                       device=dev)
+        C.tally_votes(votes, has_n[part].contiguous().to(dev),
+                      barcode_ids[part].contiguous().to(dev), num_barcodes,
+                      out=tallies[dev])
+    return psum(list(tallies.values()), mesh.devices[0][0])
 
 
 # ---------------------------------------------------------------------------

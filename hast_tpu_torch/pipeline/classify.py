@@ -58,17 +58,22 @@ def load_marker_table(hap0_path: str, hap1_path: str) -> H.KmerTable:
     k-mers per haplotype.  The table is cached beside hap0 as
     ``<hap0>.probetable.npz`` in the JAX package's format and under its
     key (both files' size and whole-second mtime, the load factor, the
-    format version), so either package reuses the other's snapshot.
+    format version), so the JAX package reuses the port's snapshot.  The
+    port also stores both files' st_mtime_ns and requires them on load:
+    a file rewritten within one second at the same size is parsed again,
+    and so is a snapshot the JAX package wrote (it lacks the field).
     """
     cache_path = hap0_path + ".probetable.npz"
-    key = tuple(
-        float(x) for p in (hap0_path, hap1_path)
-        for x in (os.path.getsize(p), int(os.path.getmtime(p)))
-    ) + (LOAD, SNAPSHOT_VERSION)
+    stats = [os.stat(p) for p in (hap0_path, hap1_path)]
+    key = tuple(float(x) for st in stats
+                for x in (st.st_size, int(st.st_mtime))) + (LOAD,
+                                                            SNAPSHOT_VERSION)
+    mtime_ns = [st.st_mtime_ns for st in stats]
     if os.path.exists(cache_path):
         try:
             with np.load(cache_path, allow_pickle=False) as z:
-                if tuple(z["key"].tolist()) == key:
+                if tuple(z["key"].tolist()) == key and "mtime_ns" in z \
+                        and z["mtime_ns"].tolist() == mtime_ns:
                     table = H.from_reference(
                         z["data"], int(z["n_buckets"]), int(z["max_probe"]),
                         int(z["k"]), int(z["n_keys"]), z["set_sizes"],
@@ -104,7 +109,8 @@ def load_marker_table(hap0_path: str, hap1_path: str) -> H.KmerTable:
                      k=table.k, n_keys=table.n_keys,
                      set_sizes=np.asarray(table.set_sizes),
                      line_counts=np.asarray([h0_hi.size, h1_hi.size]),
-                     key=np.asarray(key), fmt=table.fmt)
+                     key=np.asarray(key),
+                     mtime_ns=np.asarray(mtime_ns, np.int64), fmt=table.fmt)
         os.replace(tmp, cache_path)
     except OSError as e:
         _log(f"[hast_tpu_torch] NOTE: snapshot {cache_path} not written: {e}")
@@ -541,8 +547,9 @@ def vote_kernel_packed(data: torch.Tensor, packed: torch.Tensor,
 
 
 def tally_votes_ref(votes: torch.Tensor, has_n: torch.Tensor,
-                    ids: torch.Tensor, num_barcodes: int) -> torch.Tensor:
-    """Plain PyTorch twin of :func:`tally_votes`."""
+                    ids: torch.Tensor, num_barcodes: int,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`tally_votes` (adds into out too)."""
     _build.TWIN_CALLS["tally_votes_ref"] += 1
     hn = has_n.to(torch.bool)
     v0 = torch.where(hn, 0, votes[:, 0])
@@ -550,20 +557,24 @@ def tally_votes_ref(votes: torch.Tensor, has_n: torch.Tensor,
     unk = (hn | ((v0 == 0) & (v1 == 0))).to(torch.int32)
     upd = torch.stack([v0, v1, unk], dim=-1).to(torch.int32)
     keep = (ids >= 0) & (ids < num_barcodes)
-    tally = torch.zeros((num_barcodes, 3), dtype=torch.int32,
-                        device=votes.device)
+    tally = out if out is not None else torch.zeros(
+        (num_barcodes, 3), dtype=torch.int32, device=votes.device)
     return tally.index_add_(0, ids[keep].to(torch.int64), upd[keep])
 
 
 def tally_votes(votes: torch.Tensor, has_n: torch.Tensor, ids: torch.Tensor,
-                num_barcodes: int) -> torch.Tensor:
+                num_barcodes: int,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """The (num_barcodes, 3) int32 tally of per-read votes (K15): N reads
     vote (0, 0), unknown = has_n or no vote, and (v0, v1, unknown) add
     into row ids[r] as `jax.ops.segment_sum` adds them, dropping every id
     outside [0, num_barcodes), negative ones included.
 
     votes: (N, 2) int32; has_n: (N,) bool or uint8; ids: (N,) int32.
-    CPU tensors take the twin; CUDA tensors launch the kernel.
+    out: None, or a (num_barcodes, 3) int32 tally on the votes' device
+    that the votes are added into (and which is returned); int32 sums
+    are exact in any order, so tallying in parts and adding equals one
+    tally.  CPU tensors take the twin; CUDA tensors launch the kernel.
     """
     n = votes.shape[0]
     if votes.dtype != torch.int32 or votes.dim() != 2 or votes.shape[1] != 2:
@@ -576,11 +587,20 @@ def tally_votes(votes: torch.Tensor, has_n: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"has_n must be ({n},) bool or uint8")
     if num_barcodes < 0:
         raise ValueError(f"num_barcodes must be >= 0, got {num_barcodes}")
+    if out is not None and (out.dtype != torch.int32 or tuple(out.shape)
+                            != (num_barcodes, 3)
+                            or out.device != votes.device):
+        raise ValueError(f"out must be ({num_barcodes}, 3) int32 on "
+                         f"{votes.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
     if votes.device.type == "cpu":
-        return tally_votes_ref(votes, has_n, ids, num_barcodes)
-    _build.require_cuda("tally_votes", votes, has_n, ids)
-    tally = torch.zeros((num_barcodes, 3), dtype=torch.int32,
-                        device=votes.device)
+        return tally_votes_ref(votes, has_n, ids, num_barcodes, out)
+    tally = out if out is not None else torch.zeros(
+        (num_barcodes, 3), dtype=torch.int32, device=votes.device)
+    _build.require_cuda("tally_votes", votes, has_n, ids, tally)
+    if votes.data_ptr() % 8:
+        raise ValueError("tally_votes: votes must be 8-byte aligned (the "
+                         "kernel loads a read's two votes as one word)")
     if n and num_barcodes:
         with _build.on_card(votes) as stream:
             rc = _build.load_library().hast_tally_votes(
@@ -628,23 +648,47 @@ def classify_fastqs(table: H.KmerTable, paths: Iterable[str],
     return tally
 
 
+# The native classify reader's read-length caps, tried in turn: a file
+# with a longer read is redone from its start under the next.  K13's
+# packed votes are uint16, exact while len_cap - k + 1 < 2^16.
+LEN_CAPS = (1024, 8192, 1 << 16)
+
+
+def _with_len_caps(path: str, run):
+    """run(len_cap) under each of LEN_CAPS until the native reader takes
+    every read of path; a read past the last cap raises."""
+    for cap, bigger in zip(LEN_CAPS, LEN_CAPS[1:]):
+        try:
+            return run(cap)
+        except N.ReadTooLong:
+            _log(f"[hast_tpu_torch] NOTE: {path} has reads longer than "
+                 f"{cap} bases; redoing it with len_cap {bigger}")
+    return run(LEN_CAPS[-1])
+
+
 def _classify_native(table, path, batch_size, tally, device) -> None:
     """One file through the native reader into a fresh device tally."""
     _log(f"__process read: {path}")
-    reader = N.NativeFastqReader(path, batch_size, len_cap=1024, packed=True)
-    try:
-        acc = torch.zeros((TALLY_ROWS, 3), dtype=torch.int32, device=device)
-        for b in reader:
-            n = b.n
-            ids = b.barcode_ids[:n]
-            acc = grow_tally(acc, int(ids.max(initial=-1)))
-            tally_step(table, acc, _tensor(b.seqs[:n], device),
-                       _tensor(b.lengths[:n], device), _tensor(ids, device),
-                       _tensor(b.has_n[:n], device))
-        names = reader.barcodes_array()
-        local = fetch_tally(acc[:names.size])
-    finally:
-        reader.close()
+
+    def run(len_cap):
+        reader = N.NativeFastqReader(path, batch_size, len_cap=len_cap,
+                                     packed=True)
+        try:
+            acc = torch.zeros((TALLY_ROWS, 3), dtype=torch.int32,
+                              device=device)
+            for b in reader:
+                n = b.n
+                ids = b.barcode_ids[:n]
+                acc = grow_tally(acc, int(ids.max(initial=-1)))
+                tally_step(table, acc, _tensor(b.seqs[:n], device),
+                           _tensor(b.lengths[:n], device),
+                           _tensor(ids, device), _tensor(b.has_n[:n], device))
+            names = reader.barcodes_array()
+            return names, fetch_tally(acc[:names.size])
+        finally:
+            reader.close()
+
+    names, local = _with_len_caps(path, run)
     tally.merge_names(names, local[:names.size])
     _log("__process read done__")
 
@@ -673,9 +717,10 @@ def _classify_fastqs_native(table: H.KmerTable, paths: Iterable[str],
             data, _tensor(packed, data.device), _tensor(lengths, data.device),
             k, mp, fmt)
     S = super_batch
-    for path in paths:
-        _log(f"__process read: {path}")
-        reader = N.NativeFastqReader(path, batch_size, len_cap=1024,
+
+    def one_file(path, len_cap):
+        """(barcode names, (n, 3) int64 tally) of one file."""
+        reader = N.NativeFastqReader(path, batch_size, len_cap=len_cap,
                                      packed=True)
         local = np.zeros((1 << 12, 3), np.int64)
         inflight: list = []   # [(votes tensor, [(n, ids, has_n)])]
@@ -742,9 +787,14 @@ def _classify_fastqs_native(table: H.KmerTable, paths: Iterable[str],
             for p in inflight:
                 drain(p)
             fold()
-            names = reader.barcodes_array()
+            return reader.barcodes_array(), local
         finally:
             reader.close()
+
+    for path in paths:
+        _log(f"__process read: {path}")
+        names, local = _with_len_caps(
+            path, lambda cap, p=path: one_file(p, cap))
         tally.merge_names(names, local[:names.size])
         _log("__process read done__")
     return tally

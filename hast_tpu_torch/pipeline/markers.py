@@ -40,12 +40,22 @@ DEFAULT_UPPER = 33
 HIGH = 10000        # jellyfish histo's default high bin
 
 
+def _count_parts(n_parts: int | None) -> int:
+    """n_parts as given, else HAST_COUNT_PARTS, else 1 (the JAX package's
+    order)."""
+    if n_parts is None:
+        return int(os.environ.get("HAST_COUNT_PARTS", "1"))
+    return n_parts
+
+
 def count_files(paths: Sequence[str], k: int,
-                batch_size: int = FQ.DEFAULT_BATCH, n_parts: int = 1,
+                batch_size: int = FQ.DEFAULT_BATCH, n_parts: int | None = None,
                 device="cuda") -> KC.CountTable:
     """Count canonical k-mers over fasta/fastq files (jellyfish count -C)
     into a host table.  n_parts > 1 counts in key-range passes, each with
-    a resident run of ~1/n_parts of the distinct set."""
+    a resident run of ~1/n_parts of the distinct set; None reads
+    HAST_COUNT_PARTS (default 1)."""
+    n_parts = _count_parts(n_parts)
     if n_parts > 1:
         def source():
             for path in paths:
@@ -199,14 +209,18 @@ def build_unshared_markers(
     """Stage 00: parent counting -> bounds -> unique.filter.mer files.
 
     Returns the paths of the two marker files (the stage 00/01
-    interface).  engine "device" (also None and "auto"): one
-    all-or-nothing checkpoint, both tables resident, only the markers
-    fetched; n_parts > 1 counts in key-range passes.  engine "host":
-    per-substep checkpoints with ``.counts.npz`` snapshots.
+    interface).  engine "device" (also "auto"): one all-or-nothing
+    checkpoint, both tables resident, only the markers fetched; n_parts
+    > 1 counts in key-range passes.  engine "host": per-substep
+    checkpoints with ``.counts.npz`` snapshots.  None reads
+    HAST_STAGE00_ENGINE (default auto) and HAST_COUNT_PARTS (default 1),
+    as the JAX package does; `run` has no flag for either.
     """
-    n_parts = n_parts or 1
+    n_parts = _count_parts(n_parts)
+    if engine is None:
+        engine = os.environ.get("HAST_STAGE00_ENGINE", "auto")
     bounds = (m_lower, m_upper, p_lower, p_upper)
-    if engine in (None, "auto", "device"):
+    if engine in ("auto", "device"):
         return _build_unshared_markers_device(
             paternal, maternal, out_dir, k, auto_bounds, bounds,
             batch_size, log, n_parts, device)

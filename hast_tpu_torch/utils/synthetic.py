@@ -22,6 +22,8 @@ jax and without a per-read Python loop, so a million reads take seconds:
 * :func:`write_fake_supernova`: a stand-in Supernova install that hands
   out a given pseudohap2 assembly, for driving ``run`` without the real
   one.
+* :func:`sort_edge_cases` and :func:`barcode_sorted_ids`: the inputs that
+  K5's look-back sort and K15's warp-aggregated tally could get wrong.
 """
 
 from __future__ import annotations
@@ -374,3 +376,41 @@ def write_fake_supernova(root: str, assembly: str, whitelist: str) -> str:
         f.write(FAKE_SUPERNOVA % {"asm": os.path.abspath(assembly)})
     os.chmod(exe, 0o755)
     return sn
+
+
+def sort_edge_cases(seed: int, k: int, tile: int) -> list:
+    """(name, int64 keys) that a radix sort with decoupled look-back and
+    a tile-local shuffle could get wrong: lengths around one tile (1,
+    tile - 1, tile, tile + 1), every key equal (one hot digit in every
+    pass), every key the INT64_MAX sentinel, ascending and descending
+    runs; canonical k-mer words with 10 % sentinels elsewhere."""
+    rng = np.random.default_rng(seed)
+    sent = np.iinfo(np.int64).max
+    top = 1 << (2 * k)
+
+    def words(n):
+        w = rng.integers(0, top, n, dtype=np.int64)
+        w[rng.random(n) < 0.1] = sent
+        return w
+
+    n = 5 * tile + 3
+    cases = [(f"random n={m}", words(m))
+             for m in (1, tile - 1, tile, tile + 1)]
+    cases += [("all equal", np.full(n, rng.integers(0, top), np.int64)),
+              ("all sentinels", np.full(n, sent, np.int64)),
+              ("sorted", np.sort(words(n))),
+              ("reverse sorted", np.sort(words(n))[::-1].copy())]
+    return cases
+
+
+def barcode_sorted_ids(seed: int, n: int, num_barcodes: int) -> np.ndarray:
+    """(n,) int32 barcode ids in runs of 20-60 reads a barcode, as stLFR
+    fastqs hold them, ascending (mod num_barcodes), with about 1 % of ids
+    -1 and 1 % past the tally inside the runs."""
+    rng = np.random.default_rng(seed)
+    runs = rng.integers(20, 61, n // 20 + 1)
+    bars = np.cumsum(rng.integers(1, 3, runs.size)) % num_barcodes
+    ids = np.repeat(bars, runs)[:n].astype(np.int32)
+    ids[rng.random(n) < 0.01] = -1
+    ids[rng.random(n) < 0.01] = num_barcodes + 3
+    return ids

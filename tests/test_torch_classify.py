@@ -12,6 +12,7 @@ first: a marker load writes its .probetable.npz beside hap0.
 """
 
 import io
+import os
 import pathlib
 import shutil
 import sys
@@ -278,8 +279,10 @@ def test_quartering_matches_goldens(tmp_path, monkeypatch, engine):
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_snapshot_shared_between_packages(tmp_path, monkeypatch, writer):
-    """A .probetable.npz written by one package loads in the other,
-    without reparsing the marker text."""
+    """A .probetable.npz written by the port loads in the JAX package
+    without reparsing the marker text.  One written by the JAX package
+    lacks the port's st_mtime_ns field: the port parses the text again,
+    rewrites the snapshot, and the JAX package then loads the port's."""
     pytest.importorskip("jax")
     from hast_tpu.ops import encode as JE
     from hast_tpu.pipeline import classify as JC
@@ -292,8 +295,15 @@ def test_snapshot_shared_between_packages(tmp_path, monkeypatch, writer):
         port, ref = first, second
     else:
         first = JC.load_marker_table(hap0, hap1)
-        monkeypatch.setattr(E, "load_mer_file", _no_parse)
+        with np.load(hap0 + ".probetable.npz") as z:
+            assert "mtime_ns" not in z
         second = C.load_marker_table(hap0, hap1)
+        with np.load(hap0 + ".probetable.npz") as z:
+            assert "mtime_ns" in z
+        monkeypatch.setattr(JE, "load_mer_file", _no_parse)
+        np.testing.assert_array_equal(
+            np.asarray(JC.load_marker_table(hap0, hap1).data),
+            np.asarray(first.data))
         port, ref = second, first
     assert pathlib.Path(hap0 + ".probetable.npz").exists()
     assert (port.fmt, port.n_buckets, port.max_probe, port.k, port.n_keys,
@@ -304,6 +314,53 @@ def test_snapshot_shared_between_packages(tmp_path, monkeypatch, writer):
 
 def _no_parse(*a, **kw):
     raise AssertionError("marker text parsed although a snapshot exists")
+
+
+def test_snapshot_sees_a_rewrite_within_one_second(tmp_path):
+    """A marker file rewritten inside the same second at the same size
+    (fixed-width lines make equal sizes likely) is parsed again: the
+    snapshot keeps both files' st_mtime_ns beside the JAX package's
+    whole-second key."""
+    hap0, hap1, _, _, _ = copy_case("main", tmp_path)
+    second = 1_700_000_000 * 10**9
+    os.utime(hap0, ns=(second + 100, second + 100))
+    first = C.load_marker_table(hap0, hap1)
+    lines = pathlib.Path(hap0).read_bytes().split(b"\n")
+    lines[0] = lines[0][::-1]          # another k-mer, the same size
+    pathlib.Path(hap0).write_bytes(b"\n".join(lines))
+    os.utime(hap0, ns=(second + 900_000_000, second + 900_000_000))
+    again = C.load_marker_table(hap0, hap1)
+    assert not np.array_equal(again.data_np(), first.data_np())
+    os.remove(hap0 + ".probetable.npz")
+    np.testing.assert_array_equal(again.data_np(),
+                                  C.load_marker_table(hap0, hap1).data_np())
+
+
+@pytest.mark.parametrize("engine", ["native", "mesh"])
+def test_native_paths_take_reads_past_1024_bases(tmp_path, engine):
+    """A read of 1,500 bases in a file: both native classify paths redo
+    the file with a larger len_cap and give the python reader's tally."""
+    from hast_tpu_torch.parallel import mesh as PM
+    hap0, hap1, reads, _, batch = copy_case("main", tmp_path)
+    lines = pathlib.Path(reads[1]).read_bytes().split(b"\n")
+    lines[1] = (lines[1] * 16)[:1500]    # the planted markers repeat
+    lines[3] = b"I" * 1500
+    long_fq = tmp_path / "long.fq"
+    long_fq.write_bytes(b"\n".join(lines))
+    table = C.load_marker_table(hap0, hap1)
+    want = C.classify_fastqs(table, [str(long_fq)], batch,
+                             engine="python").finalize()
+    if engine == "native":
+        got = C.classify_fastqs(table, [str(long_fq)], batch,
+                                engine="native").finalize()
+    else:
+        got = C.classify_fastqs_mesh(PM.make_mesh(2, devices=["cpu"] * 2),
+                                     table, [str(long_fq)], batch).finalize()
+    w, g = np.argsort(want[0]), np.argsort(got[0])
+    np.testing.assert_array_equal(got[0][g], want[0][w])
+    np.testing.assert_array_equal(got[1][g], want[1][w])
+    first = lines[0].split(b"#")[1].split(b"/")[0]
+    assert want[1][want[0] == first].sum() > 0
 
 
 def test_slice_matches_jax_on_synthetic_inputs(tmp_path):

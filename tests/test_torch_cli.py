@@ -211,13 +211,35 @@ def test_mkoutput_without_jax_matches_goldens(tmp_path):
 
 def test_mkoutput_prefer_follows_mer_order(tmp_path):
     """Without --prefer the first --*_mer flag picks the primary branch
-    (mkoutput_by_fabulous2.0.sh's order rule)."""
-    main(["mkoutput", "--assembly_path", str(GOLD03 / "assembly"),
-          "--maternal_mer", str(GOLD03 / "maternal.mer"),
-          "--paternal_mer", str(GOLD03 / "paternal.mer"),
-          "--workdir", str(tmp_path), "--device", "cpu"])
-    assert os.readlink(tmp_path / "output.primary.fa") == "output.mother.fa"
-    assert not (tmp_path / "output.father.fa").exists()
+    (mkoutput_by_fabulous2.0.sh's order rule), whether it is written
+    out, as --maternal_mer=m.mer or as a prefix argparse takes
+    (--maternal m.mer)."""
+    mat, pat = str(GOLD03 / "maternal.mer"), str(GOLD03 / "paternal.mer")
+    for i, mers in enumerate((["--maternal_mer", mat, "--paternal_mer", pat],
+                              [f"--maternal_mer={mat}", "--paternal_mer",
+                               pat],
+                              ["--maternal", mat, f"--pat={pat}"])):
+        wd = tmp_path / str(i)
+        wd.mkdir()
+        main(["mkoutput", "--assembly_path", str(GOLD03 / "assembly"), *mers,
+              "--workdir", str(wd), "--device", "cpu"])
+        assert os.readlink(wd / "output.primary.fa") == "output.mother.fa"
+        assert not (wd / "output.father.fa").exists()
+
+
+def test_merge_results_takes_paths_with_spaces(inputs, capsysbinary):
+    """merge-results --input passes each path as given (the JAX CLI's
+    list), so a path with a space names one file."""
+    shard_dir = inputs / "two shards"
+    shard_dir.mkdir()
+    lines = (GOLD / "phased.barcodes.golden").read_bytes().splitlines(True)
+    for i in (0, 1):
+        (shard_dir / f"s {i}").write_bytes(b"".join(lines[i::2]))
+    main(["merge-results", "--input", str(shard_dir / "s 0"), "--input",
+          str(shard_dir / "s 1"), "--hap0", str(inputs / "hap0.mer"),
+          "--hap1", str(inputs / "hap1.mer"), "--weight0", "1.04"])
+    assert capsysbinary.readouterr().out == \
+        (GOLD / "phased.barcodes.golden").read_bytes()
 
 
 def test_classify_segments_writes_verdicts(capfd):

@@ -99,6 +99,28 @@ def test_load_mer_file_matches_jax(name):
     np.testing.assert_array_equal(got[1], want[1])
 
 
+def test_load_mer_file_tail_with_a_newline(tmp_path):
+    """A file whose length is k (mod k + 1) and whose last k bytes hold a
+    newline (short lines at the end) is malformed: the loader says so
+    instead of encoding those k bytes as a k-mer.  A well-formed last
+    line without its newline still loads."""
+    k = 21
+    lines = (GOLD / "hap0.mer").read_bytes().split(b"\n")[:3]
+    good = b"\n".join(lines)                          # no final newline
+    bad = b"\n".join(lines[:2]) + b"\n" + b"ACGTACGTAC\nACGTACGTAC"
+    assert len(bad) % (k + 1) == k and b"\n" in bad[-k:]
+    (tmp_path / "good.mer").write_bytes(good)
+    (tmp_path / "bad.mer").write_bytes(bad)
+    hi, lo, got_k = E.load_mer_file(str(tmp_path / "good.mer"))
+    want = E.canonical_kmers_np(E.encode_np(np.frombuffer(
+        b"".join(lines), np.uint8).reshape(3, k)), k)
+    assert got_k == k
+    np.testing.assert_array_equal(hi, want[0][:, 0])
+    np.testing.assert_array_equal(lo, want[1][:, 0])
+    with pytest.raises(ValueError, match="line 3 has 10 bytes"):
+        E.load_mer_file(str(tmp_path / "bad.mer"))
+
+
 def test_host_codec_matches_jax():
     pytest.importorskip("jax")
     from hast_tpu.ops import encode as JE

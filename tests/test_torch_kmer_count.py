@@ -195,6 +195,23 @@ def test_sort_pairs_twin_matches_lax_sort(k):
 
 
 @pytest.mark.parametrize("k", [15, 21, 31])
+def test_sort_pairs_twin_on_edge_cases(k):
+    """The twin (what the card's kernel is held to) on the look-back
+    sort's edge cases equals numpy's stable argsort."""
+    from hast_tpu_torch.utils import synthetic as S
+    cases = S.sort_edge_cases(k, k, KC.SORT_TILE)
+    assert {len(keys) for _, keys in cases} >= {
+        1, KC.SORT_TILE - 1, KC.SORT_TILE, KC.SORT_TILE + 1}
+    for name, keys in cases:
+        counts = np.arange(keys.size, dtype=np.int32)
+        got_k, got_c = KC.sort_pairs(torch.from_numpy(keys),
+                                     torch.from_numpy(counts), k)
+        order = np.argsort(keys, kind="stable")
+        np.testing.assert_array_equal(got_k.numpy(), keys[order], name)
+        np.testing.assert_array_equal(got_c.numpy(), counts[order], name)
+
+
+@pytest.mark.parametrize("k", [15, 21, 31])
 def test_fold_runs_twin_matches_merge_rle(k):
     _, jnp, JKC = jax_modules()
     keys, counts = dup_heavy_keys(100 + k, k)
@@ -472,6 +489,30 @@ def test_load_library_builds_once_across_threads(monkeypatch):
     assert got[0].hast_sort_pairs.restype is _build.ctypes.c_int
 
 
+@pytest.mark.parametrize("current", [0, 1])
+def test_on_card_switches_only_to_another_card(monkeypatch, current):
+    """A launch on cuda:1's tensors makes cuda:1 current for the call when
+    another card is current, and enters no device switch when it already
+    is; either way the entry gets cuda:1's current stream."""
+    import contextlib
+    import types
+    entered = []
+
+    @contextlib.contextmanager
+    def fake_device(dev):
+        entered.append(dev)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", fake_device)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: (
+        types.SimpleNamespace(cuda_stream=0x1000 + dev.index)))
+    t = types.SimpleNamespace(device=torch.device("cuda", 1))
+    with _build.on_card(t) as stream:
+        assert stream.value == 0x1001
+    assert entered == ([] if current == 1 else [torch.device("cuda", 1)])
+
+
 def test_batch_is_clean_and_pack_good():
     seqs = np.frombuffer(b"ACGTacgtNACG" + b"\0" * 4 + b"ACGTacgtACG"
                          + b"\0" * 5, np.uint8).reshape(2, 16)
@@ -559,6 +600,38 @@ def test_sort_and_fold_kernels_match_twins(card, k):
     assert folded[0] is free[0] and folded[1] is free[1]
     for g, w in zip(folded, wfold):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [15, 17, 21, 31])
+def test_sort_kernel_on_edge_cases(card, k, monkeypatch):
+    """The inputs a one-sweep sort gets wrong, bit-exact against the twin,
+    with and without payload and with the scratch pair; once with the
+    default portion and once in portions of two tiles, so that every
+    portion past the first takes its digits' offsets from the earlier
+    ones."""
+    from hast_tpu_torch.utils import synthetic as S
+    even = -(-(2 * k + 1) // 8) % 2 == 0
+    for portion in (KC._SORT_PORTION, 2 * KC.SORT_TILE):
+        monkeypatch.setattr(KC, "_SORT_PORTION", portion)
+        for name, keys in S.sort_edge_cases(k, k, KC.SORT_TILE):
+            rng = np.random.default_rng(keys.size)
+            keys = torch.from_numpy(keys).to(card)
+            counts = torch.from_numpy(rng.integers(
+                0, 1 << 30, keys.numel()).astype(np.int32)).to(card)
+            want = KC.sort_pairs_ref(keys, counts, k)
+            launches = _build.LAUNCHES["sort_pairs"]
+            got = KC.sort_pairs(keys, counts, k)
+            assert _build.LAUNCHES["sort_pairs"] == launches + 1
+            assert torch.equal(got[0], want[0]), (name, portion)
+            assert torch.equal(got[1], want[1]), (name, portion)
+            assert torch.equal(KC.sort_pairs(keys, None, k)[0], want[0])
+            inp = (keys.clone(), counts.clone())
+            scratch = (torch.empty_like(keys), torch.empty_like(counts))
+            got = KC.sort_pairs(*inp, k, scratch=scratch)
+            assert got[0] is (inp[0] if even else scratch[0])
+            assert torch.equal(got[0], want[0]), (name, portion)
+            assert torch.equal(got[1], want[1]), (name, portion)
 
 
 @pytest.mark.cuda

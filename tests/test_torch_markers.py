@@ -76,6 +76,36 @@ def test_marker_files_byte_identical_to_jax(built, reference):
             reference[parent], parent
 
 
+@pytest.mark.parametrize("var,value", [("HAST_COUNT_PARTS", "3"),
+                                       ("HAST_STAGE00_ENGINE", "host")])
+def test_build_markers_reads_the_environment(tmp_path, monkeypatch, var,
+                                             value):
+    """Without --count-parts and --engine (and under `run`, which has
+    neither flag), build-markers takes HAST_COUNT_PARTS and
+    HAST_STAGE00_ENGINE as the JAX package does."""
+    import io
+    from hast_tpu_torch.cli import main
+    log = io.StringIO()
+    real = M.build_unshared_markers
+    monkeypatch.setattr(M, "build_unshared_markers",
+                        lambda *a, **kw: real(*a, log=log, **kw))
+    monkeypatch.setenv(var, value)
+    main(["build-markers", "--paternal", PAT[0], "--maternal", MAT[0],
+          "--out-dir", str(tmp_path), "--auto_bounds", "--device", "cpu"])
+    if var == "HAST_COUNT_PARTS":
+        assert "count pass 1/3 maternal" in log.getvalue()
+    else:
+        assert (tmp_path / "maternal.counts.npz").exists()
+    for parent in PARENTS:
+        for ours, golden in ((f"{parent}.kmercount.histo", f"{parent}.histo"),
+                             (f"{parent}.bounds.txt", f"{parent}.bounds.txt")):
+            assert (tmp_path / ours).read_bytes() == \
+                (GOLD / golden).read_bytes(), ours
+        assert sorted((tmp_path / f"{parent}.unique.filter.mer").read_bytes()
+                      .split()) == sorted(
+            (GOLD / f"{parent}.unique.filter.mer").read_bytes().split())
+
+
 def test_find_bounds_awk_quirks():
     rows = [(1, 100), (2, 50), (3, 50), (4, 80), (5, 200), (6, 90)]
     b = M.find_bounds(rows)

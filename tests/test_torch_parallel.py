@@ -232,6 +232,43 @@ def test_tally_votes_matches_segment_sum():
     assert ((ids < 0) | (ids >= nb)).any() and want.sum() > 0
 
 
+def tally_inputs(seed: int, n: int, nb: int, sorted_ids: bool):
+    """K15's inputs as tensors: votes, N flags and barcode ids, random or
+    in stLFR's barcode runs (utils/synthetic.py barcode_sorted_ids)."""
+    from hast_tpu_torch.utils import synthetic as S
+    rng = np.random.default_rng(seed)
+    votes = rng.integers(0, 9, (n, 2)).astype(np.int32)
+    votes[rng.random(n) < 0.3] = 0
+    has_n = rng.random(n) < 0.05
+    ids = (S.barcode_sorted_ids(seed, n, nb) if sorted_ids
+           else rng.integers(-3, nb + 3, n).astype(np.int32))
+    return (torch.from_numpy(votes), torch.from_numpy(has_n),
+            torch.from_numpy(ids))
+
+
+@pytest.mark.parametrize("sorted_ids", [False, True])
+def test_tally_votes_out_adds_into_a_given_tally(sorted_ids):
+    """With out=, the twin adds into the given tally: two halves tallied
+    into one tally equal the two separate tallies summed; a tally of the
+    wrong shape, type or device is refused."""
+    n, nb = 5000, 300
+    votes, has_n, ids = tally_inputs(13, n, nb, sorted_ids)
+    h = n // 2
+    parts = [C.tally_votes(votes[s], has_n[s], ids[s], nb)
+             for s in (slice(0, h), slice(h, n))]
+    out = torch.zeros((nb, 3), dtype=torch.int32)
+    for s in (slice(0, h), slice(h, n)):
+        assert C.tally_votes(votes[s], has_n[s], ids[s], nb, out=out) is out
+    assert torch.equal(out, parts[0] + parts[1])
+    assert torch.equal(out, C.tally_votes(votes, has_n, ids, nb))
+    assert int(out.sum()) > 0
+    for bad in (torch.zeros((nb + 1, 3), dtype=torch.int32),
+                torch.zeros((nb, 3), dtype=torch.int64),
+                torch.zeros((nb, 3), dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError, match="out must be"):
+            C.tally_votes(votes, has_n, ids, nb, out=bad)
+
+
 # ---------------------------------------------------------------------------
 # the mesh's classify steps
 # ---------------------------------------------------------------------------
@@ -577,6 +614,27 @@ def test_tally_votes_kernel_matches_twin(card):
     want = C.tally_votes(votes, has_n, ids, 1000)
     got = C.tally_votes(votes.to(card), has_n.to(card), ids.to(card), 1000)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [31, 20000])
+def test_tally_votes_kernel_on_barcode_runs(card, n):
+    """Barcode-sorted ids whose runs cross warp boundaries (ids -1 and
+    past the tally inside runs) and random ids, bit-exact against the
+    twin; out= adds two calls into one tally."""
+    for sorted_ids in (True, False):
+        votes, has_n, ids = tally_inputs(n, n, 500, sorted_ids)
+        want = C.tally_votes(votes, has_n, ids, 500)
+        dev = [x.to(card) for x in (votes, has_n, ids)]
+        launches = _build.LAUNCHES["tally_votes"]
+        got = C.tally_votes(*dev, 500)
+        assert _build.LAUNCHES["tally_votes"] == launches + 1
+        assert torch.equal(got.cpu(), want), sorted_ids
+        out = torch.zeros((500, 3), dtype=torch.int32, device=card)
+        h = n // 2
+        for s in (slice(0, h), slice(h, n)):
+            C.tally_votes(*(x[s] for x in dev), 500, out=out)
+        assert torch.equal(out.cpu(), want), sorted_ids
 
 
 @pytest.mark.cuda
