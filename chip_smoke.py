@@ -15,7 +15,8 @@ failure:
    keys in a forced full table (2^21 rows) and a 4e7-key quot table
    (2^24 rows, 268 MB, past the 50 MB L2); K3 classify_tally against
    tally_step_ref with N reads, id -1 rows and reads shorter than k; K10
-   grow_tally from 2^19 to 2^20 rows and K11 pack_tally on 10^6 rows
+   grow_tally from 2^19 to 2^20 rows (its int4 path, and its int32 loop
+   on a tally 12 bytes into its storage) and K11 pack_tally on 10^6 rows
    (the main path's tally shapes).
 3. the stage-00 kernels the same way: K4 count_windows on 65,536 packed
    100-bp reads at k = 15, 21, 31 (masked, clean, key range up to
@@ -79,16 +80,21 @@ failure:
    K13 vote_reads on 65,536 packed 100-bp reads and on the same reads as
    ASCII with 1 % random non-ACGT bytes, on phase 2's three tables, plus
    __graft_entry__'s 256 x 128 batch; the table split in 2 and in 4, the
-   shards' votes summed equal to the whole table's; K14 route_kmers on a
-   shard of a 16,384-read batch at dp = 4 and 8, slack 2, and on 64
-   identical reads of one key (drop counts equal the twin's); K15
-   tally_votes of 65,536 reads into 10^5 barcodes, ids -1 and past the
-   end included, random and in stLFR's barcode runs of 20-60 reads, into
-   a fresh tally and with out= over two calls (call and device times;
-   index_add_'s beside them).  Then the launch path: K10, K11, K12, K14
-   and K15 call times through the wrappers as they are and with the
-   earlier guard (a device switch on every call, the library looked up
-   under its lock), in turns.
+   shards' votes summed equal to the whole table's; K14 route_batch on a
+   16,384-read batch at dp = 4 and 8, slack 2, every shard in one launch
+   with the receive layout written in place, against route_batch_ref
+   with either pad (tail pass, fill first), route_kmers (the one-shard
+   form) on shard 0, and both forms on 64 identical reads of one key
+   (drop counts equal the twins'); in turns, dp one-shard calls plus the
+   receivers' cat beside the batch call, on card tensors and from the
+   host arrays; K15 tally_votes of 65,536 reads into 10^5 barcodes, ids
+   -1 and past the end included, random and in stLFR's barcode runs of
+   20-60 reads, into a fresh tally and with out= over two calls (call and
+   device times; index_add_'s beside them).  Then the launch path: K10
+   against F.pad, K12 against narrow(0, 0, m).clone() and K10 against
+   its wrapper as PR 6 had it, in turns (kernel, library, library,
+   kernel; 200 calls each), and K10's call taken apart step by step
+   (perf_counter_ns over 1,000 calls), now and as PR 6 had it.
 12. sharded_classify_step on meshes of cuda:0 at dp x tp = 4x1 and 2x2,
    both slot formats, equal to K3's tally of the same reads.
 13. the mesh classify main path: phase 5's workload through
@@ -99,8 +105,8 @@ failure:
 14. the mesh stage-00 main path: phase 6's trio through
    build_unshared_markers_mesh on a 4-shard mesh of cuda:0, histos,
    bounds and markers byte-identical to phase 6's; K14, K5, K6, K7, K8
-   and K12 launched, no twin called; then a skewed batch through
-   count_files_mesh_device, retried with more slack.
+   and K12 launched, K14 once a batch, no twin called; then a skewed
+   batch through count_files_mesh_device, retried with more slack.
 15. the stage-01 goldens through the CLI's mesh and multi-process paths
    on the card: ``classify --mesh 1x1``, ``classify-reads --mesh auto``,
    two processes of ``python -m hast_tpu_torch classify`` under
@@ -189,7 +195,7 @@ MERGE_OPS = 12        # K8 per row, as a merge of two sorted runs
 GROW_OPS = 1          # K10 per element of the new tally: copy or zero
 PACK_OPS = 8          # K11 per entry: two masks, two shifts, two tests, sums
 # K14 per window on top of the window itself: the ACGT test of the new
-# byte 2, the hash 9, the divide and clamp 3, the slot 2
+# byte 2, the hash 9, the route (multiply-high) and clamp 3, the slot 2
 ROUTE_OPS = 16
 # K16 per (query, slot) pair: the JAX kernel's formulation does five (the
 # key mask, two compares, the select of the payload, the running maximum),
@@ -249,10 +255,11 @@ def cuda_ms_once(fn):
     return out, start.elapsed_time(end)
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device time of the kernels whose name holds `kernel` over reps
-    calls of fn, from torch.profiler: the kernel alone, apart from the
-    wrapper's host time that cuda_ms also sees when it is the longer."""
+def device_ms(fn, reps: int, kernel) -> float:
+    """Mean device time of the kernels whose name holds `kernel` (or one
+    of a tuple of names) over reps calls of fn, from torch.profiler: the
+    kernels alone, apart from the wrapper's host time that cuda_ms also
+    sees when it is the longer."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -261,7 +268,9 @@ def device_ms(fn, reps: int, kernel: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages() if kernel in e.key)
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if any(name in e.key for name in names))
     return us / reps / 1e3
 
 
@@ -472,9 +481,20 @@ def _tally_kernels(rng) -> dict:
                   20)
     dev_ms = device_ms(lambda: C.grow_tally(acc, max_id), 20,
                        "grow_tally_kernel")
+    # the int32 loop on the same rows: a tally 12 bytes into its storage
+    off = torch.empty(acc.numel() + 3, dtype=torch.int32, device=dev)
+    off[3:] = acc.reshape(-1)
+    unaligned = off[3:].view(-1, 3)
+    err = max(err, _check_same("K10 grow_tally (int32 loop)",
+                               [C.grow_tally(unaligned, max_id)],
+                               [C.grow_tally_ref(unaligned, max_id)]))
+    loop_ms = device_ms(lambda: C.grow_tally(unaligned, max_id), 20,
+                        "grow_tally_kernel")
     log(f"K10 grow_tally {acc.shape[0]} -> {2 * acc.shape[0]} rows: kernel "
-        f"{ms:.4f} ms ({dev_ms:.4f} ms of it on the device), twin "
+        f"{ms:.4f} ms ({dev_ms:.4f} ms of it on the device; the int32 loop "
+        f"on an unaligned tally {loop_ms:.4f} ms), twin "
         f"{plain:.4f} ms, torch.nn.functional.pad {lib:.4f} ms, bit-exact")
+    del off, unaligned
     res["grow_tally"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
         **bound("K10", 4 * acc.numel() + 8 * acc.numel(),
@@ -1514,56 +1534,128 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
                 (WINDOW_OPS + PROBE_OPS[tables["quot"].fmt] + VOTE_OPS)
                 * probed))
 
-    # K14: one shard's rows of a 16,384-read batch of 100-bp reads (stride
-    # 128, as the python reader pads them), 1 % N and 2 % soft-masked
+    # K14 on a 16,384-read batch of 100-bp reads (stride 128, as the
+    # python reader pads them), 1 % N and 2 % soft-masked: the batch form
+    # (every source shard in one launch, the receive layout written in
+    # place) against route_batch_ref, both pads; the one-shard form on
+    # shard 0 against route_kmers_ref; then, in turns, dp one-shard calls
+    # plus the receivers' cat (what sharded_count_chunk did before) and
+    # the batch call, on card tensors and from the host arrays
     err = 0.0
     for dp in (4, 8):
         rows = MESH_BATCH // dp
-        seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4,
-                                                             (rows, 128))]
+        seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(
+            0, 4, (MESH_BATCH, 128))]
         u = rng.random(seqs.shape)
         seqs = np.where(u < 0.01, ord("N"), np.where(u < 0.03, seqs | 0x20,
                                                      seqs)).astype(np.uint8)
-        lens = np.full(rows, 100, np.int32)
+        lens = np.full(MESH_BATCH, 100, np.int32)
         seqs[:, 100:] = 0
         seqs_t = torch.from_numpy(seqs).to(dev)
         lens_t = torch.from_numpy(lens).to(dev)
         cap = rows * (128 - K + 1) // dp * 2
-        got, dropped = PM.route_kmers(seqs_t, lens_t, K, dp, cap)
-        want, want_dropped = PM.route_kmers_ref(seqs_t, lens_t, K, dp, cap)
+        got, dropped = PM.route_kmers(seqs_t[:rows], lens_t[:rows], K, dp,
+                                      cap)
+        want, want_dropped = PM.route_kmers_ref(seqs_t[:rows], lens_t[:rows],
+                                                K, dp, cap)
         torch.cuda.synchronize()
         if int(dropped) != int(want_dropped) or int(dropped):
             fail(f"K14 route_kmers dp={dp}: dropped {int(dropped)}, twin "
                  f"{int(want_dropped)}")
         err = max(err, _check_same(f"K14 route_kmers dp={dp}",
                                    [got.sort(dim=1).values], [want]))
+        want, want_dropped = PM.route_batch_ref(seqs_t, lens_t, K, dp, cap,
+                                                dp)
+        dev_times = {}
+        for pad in ("tail", "fill"):
+            PM.ROUTE_PAD = pad
+            got, dropped = PM.route_batch(seqs_t, lens_t, K, dp, cap, dp)
+            torch.cuda.synchronize()
+            if dropped.tolist() != want_dropped.tolist() or int(
+                    dropped.sum()):
+                fail(f"K14 route_batch dp={dp} ({pad}): dropped "
+                     f"{dropped.tolist()}, twin {want_dropped.tolist()}")
+            err = max(err, _check_same(
+                f"K14 route_batch dp={dp} ({pad})",
+                [got.reshape(dp, dp, cap).sort(dim=2).values.reshape(dp, -1)],
+                [want]))
+            dev_times[pad] = device_ms(
+                lambda: PM.route_batch(seqs_t, lens_t, K, dp, cap, dp), 20,
+                ("route_", "Memset"))
+        PM.ROUTE_PAD = "tail"
         keys = int((want != KC.SENT).sum())
-        ms = cuda_ms(lambda: PM.route_kmers(seqs_t, lens_t, K, dp, cap), 20)
-        plain = cuda_ms(lambda: PM.route_kmers_ref(seqs_t, lens_t, K, dp,
-                                                   cap), 3)
-        dev_ms = device_ms(lambda: PM.route_kmers(seqs_t, lens_t, K, dp,
-                                                  cap), 20,
-                           "route_kmers_kernel")
-        log(f"K14 route_kmers dp={dp}: {rows} reads, {keys} keys into "
-            f"{dp} x {cap}: kernel {ms:.4f} ms ({dev_ms:.4f} ms of it on "
-            f"the device), twin {plain:.4f} ms, rows equal once sorted, no "
-            "drop")
+        shard = [(seqs_t[i * rows:(i + 1) * rows],
+                  lens_t[i * rows:(i + 1) * rows]) for i in range(dp)]
+
+        def one_shard_calls():
+            bufs = [PM.route_kmers(s, n, K, dp, cap)[0] for s, n in shard]
+            return [torch.cat([buf[d] for buf in bufs]) for d in range(dp)]
+
+        def host_one_shard_calls():
+            bufs = [PM.route_kmers(torch.from_numpy(seqs[i * rows:(i + 1)
+                                                         * rows]).to(dev),
+                                   torch.from_numpy(lens[i * rows:(i + 1)
+                                                         * rows]).to(dev),
+                                   K, dp, cap)[0] for i in range(dp)]
+            return [torch.cat([buf[d] for buf in bufs]) for d in range(dp)]
+
+        def host_batch_call():
+            every = list(range(dp))
+            return PM.route_batch(
+                PM._rows_on(torch.from_numpy(seqs), every, rows, dev),
+                PM._rows_on(torch.from_numpy(lens), every, rows, dev), K, dp,
+                cap, dp)
+
+        calls = {"batch": lambda: PM.route_batch(seqs_t, lens_t, K, dp, cap,
+                                                 dp),
+                 "one-shard": one_shard_calls,
+                 "host batch": host_batch_call,
+                 "host one-shard": host_one_shard_calls}
+        times = {name: [] for name in calls}
+        for order in (list(calls), list(calls)[::-1]):
+            for name in order:
+                times[name].append(cuda_ms(calls[name], 20))
+        ms = {name: float(np.mean(t)) for name, t in times.items()}
+        old_dev = device_ms(one_shard_calls, 20,
+                            ("route_", "Memset", "CatArray"))
+        plain = cuda_ms(lambda: PM.route_batch_ref(seqs_t, lens_t, K, dp,
+                                                   cap, dp), 3)
+        log(f"K14 route_kmers dp={dp}: {MESH_BATCH} reads, {keys} keys into "
+            f"{dp} x {dp * cap}: batch call {ms['batch']:.4f} ms on card "
+            f"tensors ({dev_times['tail']:.4f} ms on the device with the "
+            f"tail pad, {dev_times['fill']:.4f} ms with the fill), "
+            f"{dp} one-shard calls + the receivers' cat "
+            f"{ms['one-shard']:.4f} ms ({old_dev:.4f} ms on the device); "
+            f"from the host arrays: pinned copy + batch call "
+            f"{ms['host batch']:.4f} ms, {dp} sliced copies + one-shard "
+            f"calls + cat {ms['host one-shard']:.4f} ms (each mean of two "
+            f"rounds in turns: {times}); twin {plain:.4f} ms; segments "
+            "equal once sorted, no drop; the one-shard form on shard 0 "
+            "equal too")
         if dp == 4:
-            # reads and lengths in, the (dp, cap) buffer out
+            # the batch's reads and lengths in, the receive layout out
             res["route_kmers"] = dict(
-                ms=ms, plain_ms=plain, library_ms=None,
-                **bound("K14", seqs.size + 4 * rows + 8 * dp * cap,
-                        (WINDOW_OPS + ROUTE_OPS) * rows * (128 - K + 1)))
-    skew = torch.full((8, 128), ord("A"), dtype=torch.uint8, device=dev)
-    skew_lens = torch.full((8,), 128, dtype=torch.int32, device=dev)
+                ms=ms["batch"], plain_ms=plain, library_ms=None,
+                **bound("K14", seqs.size + 4 * MESH_BATCH + 8 * dp * dp * cap,
+                        (WINDOW_OPS + ROUTE_OPS) * MESH_BATCH * (128 - K + 1)))
+    # 64 identical reads of one key: every key routes to one shard
+    skew = torch.full((64, 128), ord("A"), dtype=torch.uint8, device=dev)
+    skew_lens = torch.full((64,), 128, dtype=torch.int32, device=dev)
     cap = 8 * (128 - K + 1) // 8 * 2
-    got, dropped = PM.route_kmers(skew, skew_lens, K, 8, cap)
-    want, want_dropped = PM.route_kmers_ref(skew, skew_lens, K, 8, cap)
+    got, dropped = PM.route_kmers(skew[:8], skew_lens[:8], K, 8, cap)
+    want, want_dropped = PM.route_kmers_ref(skew[:8], skew_lens[:8], K, 8,
+                                            cap)
     if int(dropped) != int(want_dropped) or not int(dropped):
         fail(f"K14 route_kmers skewed batch: dropped {int(dropped)}, twin "
              f"{int(want_dropped)}")
-    log(f"K14 route_kmers: one shard of 64 identical reads of one key, dp 8,"
-        f" slack 2: {int(dropped)} keys dropped, as the twin")
+    got, lost = PM.route_batch(skew, skew_lens, K, 8, cap, 8)
+    want, want_lost = PM.route_batch_ref(skew, skew_lens, K, 8, cap, 8)
+    if lost.tolist() != want_lost.tolist() or not int(lost.sum()):
+        fail(f"K14 route_batch skewed batch: dropped {lost.tolist()}, twin "
+             f"{want_lost.tolist()}")
+    log(f"K14 route_kmers: 64 identical reads of one key, dp 8, slack 2: "
+        f"{int(dropped)} keys dropped by one shard, {lost.tolist()} by the "
+        "batch's shards, as the twins")
     res["route_kmers"]["max_abs_err"] = err
 
     # K15: 65,536 reads' votes into 10^5 barcodes, ids -1 and past the
@@ -1627,74 +1719,151 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
     return res
 
 
-def phase_launch_path() -> None:
-    """The small kernels' call times through the wrappers' launch path as
-    it is (no device switch when the tensors' card is current, the
-    library bound once) and as it was before (torch.cuda.device entered
-    on every call, the library looked up under its lock), in turns in
-    this process (now, before, before, now) at phase 2, 3 and 11's
-    shapes."""
+@contextlib.contextmanager
+def _pr6_on_card(t):
+    """_build.on_card as PR 6 had it: a torch.cuda.Stream for the stream."""
     import ctypes
-    import numpy as np
+    import torch
+    dev = t.device
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        yield stream
+    else:
+        with torch.cuda.device(dev):
+            yield stream
+
+
+def _grow_tally_pr6(acc, max_id: int):
+    """K10's wrapper as PR 6 had it, on the same kernel."""
     import torch
     from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.pipeline import classify as C
+    C._check_tally(acc)
+    rows = max(acc.shape[0], 1)
+    while max_id >= rows:
+        rows *= 2
+    if rows == acc.shape[0]:
+        return acc
+    _build.require_cuda("grow_tally", acc)
+    out = torch.empty((rows, 3), dtype=torch.int32, device=acc.device)
+    with _pr6_on_card(acc) as stream:
+        rc = _build.load_library().hast_grow_tally(
+            acc.data_ptr(), acc.numel(), out.data_ptr(), out.numel(), stream)
+    _build.check(rc, "grow_tally")
+    _build.LAUNCHES["grow_tally"] += 1
+    return out
+
+
+def _grow_tally_steps(acc, max_id: int, pr6: bool) -> dict:
+    """One K10 call with time.perf_counter_ns around each step of the
+    wrapper, as it is (pr6 False) or as PR 6 had it: the nanoseconds by
+    step (a step's clock read is in the next step)."""
+    import torch
+    from hast_tpu_torch.ops import _build
+    from hast_tpu_torch.pipeline import classify as C
+    ns, t = {}, time.perf_counter_ns()
+
+    def step(name):
+        nonlocal t
+        now = time.perf_counter_ns()
+        ns[name] = now - t
+        t = now
+
+    C._check_tally(acc)
+    step("check")
+    if pr6:
+        rows = max(acc.shape[0], 1)
+        while max_id >= rows:
+            rows *= 2
+    else:
+        rows = C._grown_rows(acc.shape[0], max_id)
+    step("rows")
+    if pr6:
+        _build.require_cuda("grow_tally", acc)
+    elif acc.device.type != "cuda" or not acc.is_contiguous():
+        _build.require_cuda("grow_tally", acc)
+    step("device check")
+    out = torch.empty((rows, 3), dtype=torch.int32, device=acc.device)
+    step("empty")
+    args = (acc.data_ptr(), acc.numel(), out.data_ptr(), out.numel())
+    if pr6:
+        cm = _pr6_on_card(acc)
+        stream = cm.__enter__()
+        step("on_card enter")
+        fn = _build.load_library().hast_grow_tally
+        step("library")
+        rc = fn(*args, stream)
+        step("ctypes call")
+        cm.__exit__(None, None, None)
+        step("on_card exit")
+        _build.check(rc, "grow_tally")
+    else:
+        fn = getattr(_build._lib or _build.load_library(), "hast_grow_tally")
+        step("library")
+        if acc.device.index != torch.cuda.current_device():
+            fail("the launch path runs on the current card")
+        stream = _build.raw_stream(acc.device.index)
+        step("stream")
+        rc = fn(*args, stream)
+        step("ctypes call")
+        if rc:
+            _build.check(rc, "grow_tally")
+    _build.LAUNCHES["grow_tally"] += 1
+    step("check + count")
+    return ns
+
+
+def phase_launch_path() -> None:
+    """K10 and K12 against their library calls, in turns (kernel,
+    library, library, kernel; 200 calls each) at phase 2's and 3's shapes,
+    and K10's wrapper now and as PR 6 had it; then K10's call taken apart:
+    the host nanoseconds of each wrapper step over 1,000 calls, both
+    ways."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
     from hast_tpu_torch.ops import kmer_count as KC
-    from hast_tpu_torch.parallel import mesh as PM
     from hast_tpu_torch.pipeline import classify as C
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2031)
     acc = torch.from_numpy(rng.integers(0, 200, (1 << 19, 3)).astype(
         np.int32)).to(dev)
-    rows = torch.from_numpy(rng.integers(0, 200, (1_000_000, 3)).astype(
-        np.int32)).to(dev)
+    grow = acc.shape[0]
     m = 1 << 22
     keys = torch.full((2 * m,), KC.SENT, device=dev)
     keys[:m] = torch.sort(_hash_keys(torch.arange(m, device=dev))).values
     counts = torch.ones(2 * m, dtype=torch.int32, device=dev)
-    seqs = torch.from_numpy(np.frombuffer(b"ACGT", np.uint8)[
-        rng.integers(0, 4, (4096, 128))].copy()).to(dev)
-    lens = torch.full((4096,), 100, dtype=torch.int32, device=dev)
-    cap = 4096 * (128 - K + 1) // 4 * 2
-    n, nb = N_VOTE_READS, N_TALLY_BARCODES
-    votes = torch.from_numpy(rng.integers(0, 50, (n, 2)).astype(
-        np.int32)).to(dev)
-    has_n = torch.from_numpy(rng.random(n) < 0.02).to(dev)
-    ids = torch.from_numpy(rng.integers(0, nb, n).astype(np.int32)).to(dev)
-    tally = torch.zeros((nb, 3), dtype=torch.int32, device=dev)
-    calls = {
-        "K10 grow_tally": lambda: C.grow_tally(acc, acc.shape[0]),
-        "K11 pack_tally": lambda: C.pack_tally(rows),
-        "K12 shrink_run": lambda: KC.shrink_run(keys, counts, m),
-        "K14 route_kmers": lambda: PM.route_kmers(seqs, lens, K, 4, cap),
-        "K15 tally_votes": lambda: C.tally_votes(votes, has_n, ids, nb,
-                                                 out=tally)}
-
-    @contextlib.contextmanager
-    def switching_on_card(t):
-        with torch.cuda.device(t.device):
-            yield ctypes.c_void_p(
-                torch.cuda.current_stream(t.device).cuda_stream)
-
-    def locked_load_library():
-        with _build._LOCK:
-            return _build._lib
-
-    now = (_build.on_card, _build.load_library)
-    before = (switching_on_card, locked_load_library)
-    try:
-        for name, fn in calls.items():
-            times = {"now": [], "before": []}
-            for mode in ("now", "before", "before", "now"):
-                _build.on_card, _build.load_library = (
-                    now if mode == "now" else before)
-                times[mode].append(cuda_ms(fn, 200))
-            log(f"launch path: {name} call {np.mean(times['now']):.4f} ms "
-                f"now, {np.mean(times['before']):.4f} ms before (now "
-                f"{times['now'][0]:.4f}, {times['now'][1]:.4f}; before "
-                f"{times['before'][0]:.4f}, {times['before'][1]:.4f})")
-    finally:
-        _build.on_card, _build.load_library = now
+    pairs = {
+        "K10 grow_tally vs F.pad": (
+            lambda: C.grow_tally(acc, grow),
+            lambda: F.pad(acc, (0, 0, 0, grow))),
+        "K12 shrink_run vs narrow().clone()": (
+            lambda: KC.shrink_run(keys, counts, m),
+            lambda: (keys.narrow(0, 0, m).clone(),
+                     counts.narrow(0, 0, m).clone())),
+        "K10 grow_tally now vs PR 6's wrapper": (
+            lambda: C.grow_tally(acc, grow),
+            lambda: _grow_tally_pr6(acc, grow))}
+    for name, (kernel, library) in pairs.items():
+        times = {"kernel": [], "library": []}
+        for mode in ("kernel", "library", "library", "kernel"):
+            times[mode].append(cuda_ms(kernel if mode == "kernel"
+                                       else library, 200))
+        log(f"launch path: {name}: {np.mean(times['kernel']):.4f} ms "
+            f"against {np.mean(times['library']):.4f} ms a call (in turns: "
+            f"{times['kernel'][0]:.4f}, {times['library'][0]:.4f}, "
+            f"{times['library'][1]:.4f}, {times['kernel'][1]:.4f})")
+    for pr6 in (False, True):
+        total: dict = {}
+        for _ in range(1000):
+            for k, v in _grow_tally_steps(acc, grow, pr6).items():
+                total[k] = total.get(k, 0) + v
+        torch.cuda.synchronize()
+        log(f"launch path: K10 grow_tally {'as PR 6 had it' if pr6 else 'now'}"
+            f", host µs a step over 1,000 calls: " + ", ".join(
+                f"{k} {v / 1000 / 1e3:.3f}" for k, v in total.items())
+            + f"; sum {sum(total.values()) / 1000 / 1e3:.3f}")
 
 
 def phase_classify_step(tables: dict, words) -> int:
@@ -1997,20 +2166,34 @@ def phase_mesh_markers(tmp: str, reads: dict) -> int:
     single, out = os.path.join(d, "00"), os.path.join(d, "00mesh")
     os.makedirs(out)
     mesh = PM.make_mesh(4, devices=[torch.device("cuda", 0)] * 4)
+    batches = [0]
+    count_chunk = PM.sharded_count_chunk
+
+    def counted(*args, **kwargs):
+        batches[0] += 1
+        return count_chunk(*args, **kwargs)
+
     _build.LAUNCHES.clear()
     _build.TWIN_CALLS.clear()
-    t0 = time.perf_counter()
-    with open(os.devnull, "w") as devnull:
-        D.build_unshared_markers_mesh(mesh, [reads["paternal"]],
-                                      [reads["maternal"]], out,
-                                      auto_bounds=True, batch_size=MESH_BATCH,
-                                      log=devnull)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    PM.sharded_count_chunk = counted
+    try:
+        t0 = time.perf_counter()
+        with open(os.devnull, "w") as devnull:
+            D.build_unshared_markers_mesh(mesh, [reads["paternal"]],
+                                          [reads["maternal"]], out,
+                                          auto_bounds=True,
+                                          batch_size=MESH_BATCH, log=devnull)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        PM.sharded_count_chunk = count_chunk
     counts, twins = dict(_build.LAUNCHES), dict(_build.TWIN_CALLS)
     for name in ("route_kmers", *STAGE00_KERNELS):
         if name != "count_windows" and counts.get(name, 0) <= 0:
             fail(f"mesh build-markers launched no {name} kernel: {counts}")
+    if counts["route_kmers"] != batches[0]:
+        fail(f"mesh build-markers: {counts['route_kmers']} K14 launches for "
+             f"{batches[0]} batches (one a batch)")
     if any(twins.values()):
         fail(f"mesh build-markers called twins: {twins}")
     for parent in ("paternal", "maternal"):
@@ -2021,7 +2204,8 @@ def phase_mesh_markers(tmp: str, reads: dict) -> int:
                      "engine's")
     log(f"mesh build-markers (4 shards on cuda:0, {MESH_BATCH}-read "
         f"batches): {wall:.3f} s; histos, bounds and markers byte-identical "
-        f"to phase 6's; launches {counts}")
+        f"to phase 6's; {batches[0]} batches, one K14 launch each; "
+        f"launches {counts}")
 
     skew = os.path.join(d, "skew.fa")
     with open(skew, "wb") as f:

@@ -11,7 +11,9 @@ Each C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.  A
 wrapper calls its entry inside :func:`on_card`, which makes the tensors'
 card the current device (the ctypes entries have no device guard of
-their own) and hands it that card's current stream.  The
+their own) and hands it that card's current stream, or through
+:func:`launch`, which does the same with no context manager on the
+current card and checks and counts the launch.  The
 launch counters ``LAUNCHES`` count the wrappers' calls of their C
 entries, one each (an entry may launch several kernels: K5 launches a
 histogram, an offset scan and one sweep a radix pass), the twin counters
@@ -66,7 +68,7 @@ _SIGNATURES = {
     "hast_vote_reads": [_P, _I64, _I, _I, _I, _I, _I64, _I64, _P, _P, _I64,
                         _I, _I, _P, _P],
     "hast_tally_votes": [_P, _P, _P, _I64, _P, _I64, _P],
-    "hast_route_kmers": [_P, _P, _I64, _I, _I, _I, _I64, _P, _P, _P, _P],
+    "hast_route_kmers": [_P, _P, _I64, _I, _I, _I, _I, _I64, _I, _P, _P, _P],
     "hast_broadcast_probe": [_P, _P, _I64, _P, _P, _I64, _I, _P, _P],
 }
 
@@ -177,6 +179,12 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
+def raw_stream(index: int) -> int:
+    """The current stream of card `index` as the int a C entry takes
+    (read without building a torch.cuda.Stream)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 @contextlib.contextmanager
 def on_card(t: torch.Tensor):
     """Around a C entry's call: make t's card the current device, so that
@@ -190,3 +198,19 @@ def on_card(t: torch.Tensor):
     else:
         with torch.cuda.device(dev):
             yield stream
+
+
+def launch(name: str, dev: torch.device, *args) -> None:
+    """The lean call of C entry ``hast_<name>`` for a wrapper whose
+    tensors are checked and lie on card dev: args, then dev's current
+    stream, with no context manager when dev is the current card; raises
+    on a refused launch and counts the launch."""
+    fn = getattr(_lib or load_library(), "hast_" + name)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, raw_stream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, raw_stream(dev.index))
+    if rc:
+        check(rc, name)
+    LAUNCHES[name] += 1

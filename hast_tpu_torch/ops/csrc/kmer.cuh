@@ -44,9 +44,10 @@ __device__ __forceinline__ uint64_t canonical_window(const uint8_t* row,
 //   kAnyByte   every byte is a base; validity comes from the read's length
 //              (hast_tpu/pipeline/classify.py `vote_kernel`, K13)
 //   kAcgtUpper uppercase A, C, G or T only (rephase.py `_strict_vote`, K9)
-//   kAcgtAny   A, C, G or T in either case (kmer_count.py `_ACGT`, the
-//              stage-00 counting of mesh.py `sharded_count_chunk`, K14)
-enum ByteRule : int { kAnyByte, kAcgtUpper, kAcgtAny };
+// and A, C, G or T in either case (kmer_count.py `_ACGT`, the stage-00
+// counting of mesh.py `sharded_count_chunk`), which K14 applies to the
+// windows it rolls: is_acgt(b & ~0x20).
+enum ByteRule : int { kAnyByte, kAcgtUpper };
 
 __device__ __forceinline__ bool is_acgt(uint32_t b) {
   return b == 'A' || b == 'C' || b == 'G' || b == 'T';
@@ -64,7 +65,6 @@ __device__ __forceinline__ bool canonical_window_bytes(const uint8_t* s,
   for (int j = 0; j < k; ++j) {
     const uint32_t b = s[j];
     if constexpr (kRule == kAcgtUpper) ok &= is_acgt(b);
-    if constexpr (kRule == kAcgtAny) ok &= is_acgt(b & ~0x20u);
     const uint64_t c = (b >> 1) & 3u;
     fwd = (fwd << 2) | c;
     rc |= (c ^ 2ull) << (2 * j);

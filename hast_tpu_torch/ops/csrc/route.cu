@@ -1,29 +1,43 @@
-// K14 `route_kmers`: one dp shard's canonical k-mers, each put in the row
-// of the shard that owns its hash range, before the all_to_all.
+// K14 `route_kmers`: the canonical k-mers of a batch's dp source shards,
+// each written straight into the slot of the shard that owns its hash
+// range: the route and the all_to_all in one launch.
 //
-// Replaces the per-shard body of hast_tpu/parallel/mesh.py
-// `sharded_count_chunk` up to the all_to_all (mesh.py:476-513).  Reads are
-// ASCII, coded (b >> 1) & 3; window p is valid iff p + k <= length and its
-// k bytes are A, C, G or T in either case (kmer.cuh kAcgtAny, the rule of
-// kmer_count.py `_ACGT`).  A valid key goes to shard
-// min(kmer_hash(hi, lo) / (2^32 / dp), dp - 1), the branch JAX takes
-// without x64 (shard 0 when dp = 1).  Row d of the (dp, cap) buffer holds
-// the keys bound for shard d, then INT64_MAX; keys past a row's cap are
-// dropped and counted.  JAX routes invalid windows, the sentinel, to the
-// tail of the shard's own row: the caller fills the buffer with INT64_MAX
-// beforehand, so they need no slot.
+// Replaces the body of hast_tpu/parallel/mesh.py `sharded_count_chunk` up
+// to the receivers' sort (mesh.py:476-521).  Reads are ASCII, coded
+// (b >> 1) & 3; window p is valid iff p + k <= length and its k bytes are
+// A, C, G or T in either case (the rule of kmer_count.py `_ACGT`).  A
+// valid key goes to shard min(kmer_hash(hi, lo) / (2^32 / dp), dp - 1),
+// the branch JAX takes without x64 (shard 0 when dp = 1).  The launch
+// covers n_src source shards of w reads each; the key of source s bound
+// for shard d takes slot j of out[d, s * cap + j], j < cap, so that row d
+// of the (dp, n_src * cap) buffer is what shard d receives, and every
+// (d, s) segment ends in INT64_MAX past its keys.  Keys past a segment's
+// cap are dropped and counted per source.  With n_src = 1 this is one
+// shard's (dp, cap) send buffer.
 //
 // JAX sorts (dest, hi, lo) only so that sentinels are shed before real
-// keys.  Here each block counts its tile's keys per destination in shared
-// memory, reserves a range of each row with one global atomic per
-// destination, and writes its keys there: the same multiset per row when
-// nothing is dropped (the receiver sorts it, K5), and always the same drop
-// count, sum over d of max(0, real_d - cap).  The order inside a row
-// depends on the blocks' timing.
+// keys.  Here the same multiset reaches each segment when nothing is
+// dropped (the receiver sorts it, K5), and always the same drop count,
+// sum over d of max(0, real_d - cap); the order inside a segment depends
+// on the blocks' timing.
 //
-// What bounds it on an H100: the 8-byte key written per valid window; the
-// reads' bytes (100 a read) stay in L1 across a read's windows.  The
-// atomics are per block and destination, not per key.
+// What bounds it on an H100: bytes, the 8-byte slot written for every
+// entry of the receive buffer (keys and pads) and the reads read once.
+// The design:
+//  - one warp a read segment of up to 128 windows; the warp loads its
+//    bytes once into shared memory (16 bytes a lane when the rows allow),
+//    and each lane rolls the forward and reverse-complement words over a
+//    run of up to 4 consecutive windows, keeping the length of the run of
+//    ACGT bytes: k - 1 + 4 byte steps a lane instead of k a window;
+//  - the route by a multiply-high with a magic number made on the host,
+//    exact for every 32-bit hash, instead of a division a window;
+//  - for dp <= 32, a ballot per destination gives each lane its rank and
+//    the warp its count; one shared atomic per warp and destination, one
+//    global atomic per block and destination reserve the slots (past 32,
+//    a shared atomic per key);
+//  - the pads: either a tail pass that writes INT64_MAX from each
+//    segment's fill count to its cap (the pads' bytes once), or one fill
+//    of the buffer before the keys.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -34,98 +48,284 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 4;   // windows a thread holds per tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 4;                      // windows a lane rolls a segment
+constexpr int kSegWindows = 32 * kPer;       // windows a warp covers a segment
+constexpr int kSegBytes = kSegWindows + 32;  // its bytes: + k - 1 <= 30
+constexpr int64_t kSent = INT64_MAX;
 
-__device__ __forceinline__ int route_of(uint64_t key, int dp) {
-  if (dp == 1) return 0;
+// floor(h / (2^32 / dp)), clamped to dp - 1: magic = 2^64 / width rounded
+// up (width = floor(2^32 / dp)), and the high word of h * magic is exact
+// for every h < 2^32 (the rounding adds less than h / 2^64 < 1 / width).
+__device__ __forceinline__ int route_of(uint64_t key, uint64_t magic,
+                                        int dp) {
   const uint32_t h = hast::kmer_hash(static_cast<uint32_t>(key >> 32),
                                      static_cast<uint32_t>(key));
-  const uint32_t width = static_cast<uint32_t>((1ull << 32) / dp);
-  const uint32_t d = h / width;
+  const uint32_t d = static_cast<uint32_t>(__umul64hi(h, magic));
   return d < static_cast<uint32_t>(dp - 1) ? static_cast<int>(d) : dp - 1;
 }
 
-__global__ void route_kmers_kernel(const uint8_t* __restrict__ reads,
-                                   const int32_t* __restrict__ lengths,
-                                   int64_t n_reads, int stride, int k,
-                                   int dp, int64_t cap,
-                                   int64_t* __restrict__ buf,
-                                   unsigned long long* __restrict__ fill,
-                                   unsigned long long* __restrict__ dropped) {
-  extern __shared__ unsigned long long shared[];
-  unsigned long long* base = shared;                       // [dp]
-  unsigned int* count = reinterpret_cast<unsigned int*>(shared + dp);
-  const int n_win = stride - k + 1;
-  const int64_t total = n_reads * n_win;
-  const int64_t tile = static_cast<int64_t>(kThreads) * kPerThread;
+// Windows of read r that may be keys: p + k <= min(length, stride).
+__device__ __forceinline__ int windows_of(const int32_t* lengths, int64_t r,
+                                          int stride, int k) {
+  const int len = min(lengths[r], stride);
+  return len >= k ? len - k + 1 : 0;
+}
+
+template <bool kBallot>
+__global__ void __launch_bounds__(kThreads) route_kmers_kernel(
+    const uint8_t* __restrict__ reads, const int32_t* __restrict__ lengths,
+    int64_t w, int stride, int k, int dp, uint64_t magic, int64_t cap,
+    bool vec, int64_t* __restrict__ out,
+    unsigned long long* __restrict__ fill,
+    unsigned long long* __restrict__ dropped) {
+  extern __shared__ uint4 shared[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  uint8_t* buf = reinterpret_cast<uint8_t*>(shared + warp * (kSegBytes / 16));
+  unsigned long long* base =
+      reinterpret_cast<unsigned long long*>(shared + kWarps * kSegBytes / 16);
+  unsigned int* count = reinterpret_cast<unsigned int*>(base + dp);
+
+  const int s = blockIdx.y;                  // source shard of this block
+  const int64_t n_src = gridDim.y;
+  reads += s * w * stride;
+  lengths += s * w;
+  fill += static_cast<int64_t>(s) * dp;
+  out += s * cap;
+  const int64_t row = n_src * cap;           // a receiver's row
+  const uint64_t kmask = (1ull << (2 * k)) - 1;
+  const int rc_shift = 2 * (k - 1);
+  const unsigned lt = (1u << lane) - 1u;
+
+  for (int d = threadIdx.x; d < dp; d += kThreads) count[d] = 0;
+  // the warp's read and the window its next segment starts at
+  const int64_t r_step = static_cast<int64_t>(gridDim.x) * kWarps;
+  int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  int seg = 0;
+  int n_win = r < w ? windows_of(lengths, r, stride, k) : 0;
+  while (r < w && n_win == 0) {
+    r += r_step;
+    n_win = r < w ? windows_of(lengths, r, stride, k) : 0;
+  }
   unsigned long long lost = 0;
-  for (int64_t t0 = static_cast<int64_t>(blockIdx.x) * tile; t0 < total;
-       t0 += static_cast<int64_t>(gridDim.x) * tile) {
-    for (int d = threadIdx.x; d < dp; d += blockDim.x) count[d] = 0;
-    __syncthreads();
-    uint64_t key[kPerThread];
-    int dest[kPerThread];
-    unsigned int off[kPerThread];
+
+  while (__syncthreads_or(r < w)) {
+    uint64_t key[kPer];
+    int dest[kPer];
+    unsigned slot[kPer];
+    bool valid[kPer];
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int64_t t = t0 + static_cast<int64_t>(j) * kThreads + threadIdx.x;
-      dest[j] = -1;
-      if (t >= total) continue;
-      const int64_t r = t / n_win;
-      const int p = static_cast<int>(t - r * n_win);
-      if (p + k > lengths[r]) continue;
-      if (!hast::canonical_window_bytes<hast::kAcgtAny>(
-              reads + r * stride + p, k, key[j]))
-        continue;
-      dest[j] = route_of(key[j], dp);
-      off[j] = atomicAdd(&count[dest[j]], 1u);
+    for (int j = 0; j < kPer; ++j) valid[j] = false;
+    const bool busy = r < w;                 // warp-uniform
+    int per = 0;
+    if (busy) {
+      const uint8_t* src = reads + r * stride + seg;
+      const int avail = min(stride - seg, kSegBytes);
+      if (vec) {
+        for (int i = lane; 16 * i < avail; i += 32)
+          reinterpret_cast<uint4*>(buf)[i] =
+              __ldg(reinterpret_cast<const uint4*>(src) + i);
+      } else {
+        for (int i = lane; i < avail; i += 32) buf[i] = src[i];
+      }
+      __syncwarp();
+      const int nw = min(n_win - seg, kSegWindows);
+      per = (nw + 31) >> 5;
+      const int first = lane * per;
+      if (first < nw) {
+        uint64_t fwd = 0, rc = 0;
+        int run = 0;
+        auto roll = [&](uint32_t b) {
+          const uint64_t c = (b >> 1) & 3u;
+          fwd = ((fwd << 2) | c) & kmask;
+          rc = (rc >> 2) | ((c ^ 2ull) << rc_shift);
+          run = hast::is_acgt(b & ~0x20u) ? run + 1 : 0;
+        };
+        for (int t = 0; t < k - 1; ++t) roll(buf[first + t]);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          if (j < per) {
+            roll(buf[first + k - 1 + j]);
+            if (first + j < nw && run >= k) {
+              key[j] = fwd < rc ? fwd : rc;
+              dest[j] = route_of(key[j], magic, dp);
+              valid[j] = true;
+            }
+          }
+        }
+      }
+      __syncwarp();                          // buf is refilled next tile
+      if constexpr (kBallot) {
+        // lane d holds the warp's keys for destination d so far
+        unsigned total = 0;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          if (j >= per) break;
+          const unsigned before = total;
+          unsigned rank = 0;
+          for (int d = 0; d < dp; ++d) {
+            const bool mine = valid[j] && dest[j] == d;
+            const unsigned m = __ballot_sync(0xFFFFFFFFu, mine);
+            if (mine) rank = __popc(m & lt);
+            if (lane == d) total += __popc(m);
+          }
+          slot[j] = rank + __shfl_sync(0xFFFFFFFFu, before,
+                                       valid[j] ? dest[j] : 0);
+        }
+        const unsigned off =
+            lane < dp && total ? atomicAdd(&count[lane], total) : 0u;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          if (j >= per) break;
+          slot[j] += __shfl_sync(0xFFFFFFFFu, off, valid[j] ? dest[j] : 0);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          if (valid[j]) slot[j] = atomicAdd(&count[dest[j]], 1u);
+      }
     }
     __syncthreads();
-    for (int d = threadIdx.x; d < dp; d += blockDim.x)
-      base[d] = count[d] ? atomicAdd(fill + d,
-                                     static_cast<unsigned long long>(count[d]))
-                         : 0ull;
+    for (int d = threadIdx.x; d < dp; d += kThreads) {
+      const unsigned c = count[d];
+      base[d] = c ? atomicAdd(fill + d, static_cast<unsigned long long>(c))
+                  : 0ull;
+      count[d] = 0;
+    }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      if (dest[j] < 0) continue;
-      const unsigned long long slot = base[dest[j]] + off[j];
-      if (slot < static_cast<unsigned long long>(cap)) {
-        buf[dest[j] * cap + static_cast<int64_t>(slot)] =
+    for (int j = 0; j < kPer; ++j) {
+      if (!valid[j]) continue;
+      const unsigned long long at = base[dest[j]] + slot[j];
+      if (at < static_cast<unsigned long long>(cap)) {
+        out[dest[j] * row + static_cast<int64_t>(at)] =
             static_cast<int64_t>(key[j]);
       } else {
         ++lost;
       }
     }
-    __syncthreads();   // count and base are reused by the next tile
+    if (busy) {                              // the warp's next segment
+      seg += kSegWindows;
+      while (r < w && seg >= n_win) {
+        r += r_step;
+        seg = 0;
+        n_win = r < w ? windows_of(lengths, r, stride, k) : 0;
+      }
+    }
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) lost += __shfl_xor_sync(0xFFFFFFFFu, lost, o);
-  if ((threadIdx.x & 31) == 0 && lost) atomicAdd(dropped, lost);
+  for (int o = 16; o > 0; o >>= 1)
+    lost += __shfl_xor_sync(0xFFFFFFFFu, lost, o);
+  if (lane == 0 && lost) atomicAdd(dropped + s, lost);
+}
+
+// INT64_MAX from each (d, s) segment's fill count to its cap.
+__global__ void route_pad_kernel(const unsigned long long* __restrict__ fill,
+                                 int dp, int64_t n_seg, int64_t cap,
+                                 int64_t* __restrict__ out) {
+  const int64_t row = n_seg / dp * cap;      // n_src * cap
+  for (int64_t g = blockIdx.y; g < n_seg; g += gridDim.y) {
+    const int64_t s = g / dp, d = g - s * dp;
+    const unsigned long long f = fill[g];
+    const int64_t from = f < static_cast<unsigned long long>(cap)
+                             ? static_cast<int64_t>(f)
+                             : cap;
+    int64_t* p = out + d * row + s * cap;
+    for (int64_t i = from + static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+         i < cap; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+      p[i] = kSent;
+  }
+}
+
+// INT64_MAX over the whole buffer (two a store, the odd last one alone),
+// and the counters zeroed.
+__global__ void route_fill_kernel(int64_t* __restrict__ out, int64_t n,
+                                  unsigned long long* __restrict__ counts,
+                                  int64_t n_counts) {
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = i0; i < n_counts; i += step) counts[i] = 0;
+  auto* out2 = reinterpret_cast<longlong2*>(out);
+  for (int64_t i = i0; i < n / 2; i += step)
+    out2[i] = make_longlong2(kSent, kSent);
+  if (i0 == 0 && n % 2) out[n - 1] = kSent;
+}
+
+int resident_blocks() {
+  static const int n = [] {
+    int dev = 0, sms = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms * (2048 / kThreads);
+  }();
+  return n;
 }
 
 }  // namespace
 
-// reads (n, stride) uint8 ASCII, lengths (n,) int32 -> buf (dp, cap) int64,
-// filled with INT64_MAX by the caller; fill (dp,) and dropped (1,) uint64
-// scratch zeroed by the caller: fill[d] ends as the keys bound for row d,
-// dropped as the keys past the cap.
+// reads (n_src * w, stride) uint8 ASCII, lengths (n_src * w,) int32: rows
+// [s * w, (s + 1) * w) are source shard s -> out (dp, n_src * cap) int64,
+// key of source s bound for shard d in out[d, s * cap + j], then INT64_MAX;
+// counts (n_src * dp + n_src,) uint64 scratch, zeroed here: [s * dp + d]
+// ends as the keys of source s bound for d, [n_src * dp + s] as the keys
+// of source s past the cap.  tail_pad: 1 writes the pads after the keys
+// from the fill counts, 0 fills the buffer before them.
 extern "C" int hast_route_kmers(const void* reads, const void* lengths,
-                                int64_t n, int stride, int k, int dp,
-                                int64_t cap, void* buf, void* fill,
-                                void* dropped, void* stream) {
-  const int64_t n_win = stride - k + 1;
-  const int64_t tiles =
-      (n * n_win + kThreads * kPerThread - 1) / (kThreads * kPerThread);
-  const int blocks = static_cast<int>(tiles < 1 ? 1 : (tiles < 132 * 16
-                                                           ? tiles
-                                                           : 132 * 16));
-  const size_t smem = dp * (sizeof(unsigned long long) + sizeof(unsigned int));
-  route_kmers_kernel<<<blocks, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(reads),
-      static_cast<const int32_t*>(lengths), n, stride, k, dp, cap,
-      static_cast<int64_t*>(buf), static_cast<unsigned long long*>(fill),
-      static_cast<unsigned long long*>(dropped));
+                                int64_t w, int n_src, int stride, int k,
+                                int dp, int64_t cap, int tail_pad, void* out,
+                                void* counts, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* cnt = static_cast<unsigned long long*>(counts);
+  auto* o = static_cast<int64_t*>(out);
+  const int64_t n_counts = static_cast<int64_t>(n_src) * (dp + 1);
+  const int64_t n_out = static_cast<int64_t>(dp) * n_src * cap;
+  const int blocks = resident_blocks();
+  if (tail_pad) {
+    cudaError_t err = cudaMemsetAsync(cnt, 0, n_counts * 8, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    const int64_t want = (n_out / 2 + kThreads - 1) / kThreads;
+    route_fill_kernel<<<static_cast<int>(want < 1 ? 1 : (want < blocks
+                                                             ? want
+                                                             : blocks)),
+                        kThreads, 0, st>>>(o, n_out, cnt, n_counts);
+  }
+  if (w > 0 && stride >= k) {
+    // a key per (uint64) multiply-high: width = floor(2^32 / dp) >= 2^21
+    const uint64_t width = (1ull << 32) / static_cast<uint64_t>(dp);
+    const uint64_t magic = UINT64_MAX / width + 1;
+    const bool vec = stride % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(reads) % 16 == 0;
+    const int64_t tiles = (w + kWarps - 1) / kWarps;
+    const int64_t per_src = blocks / n_src > 0 ? blocks / n_src : 1;
+    const dim3 grid(static_cast<unsigned>(tiles < per_src ? tiles : per_src),
+                    static_cast<unsigned>(n_src));
+    const size_t smem = kWarps * kSegBytes +
+                        dp * (sizeof(unsigned long long) + sizeof(unsigned));
+    const auto* rd = static_cast<const uint8_t*>(reads);
+    const auto* ln = static_cast<const int32_t*>(lengths);
+    if (dp <= 32) {
+      route_kmers_kernel<true><<<grid, kThreads, smem, st>>>(
+          rd, ln, w, stride, k, dp, magic, cap, vec, o, cnt,
+          cnt + static_cast<int64_t>(n_src) * dp);
+    } else {
+      route_kmers_kernel<false><<<grid, kThreads, smem, st>>>(
+          rd, ln, w, stride, k, dp, magic, cap, vec, o, cnt,
+          cnt + static_cast<int64_t>(n_src) * dp);
+    }
+  }
+  if (tail_pad && cap > 0) {
+    const int64_t n_seg = static_cast<int64_t>(n_src) * dp;
+    const int64_t ys = n_seg < 65535 ? n_seg : 65535;
+    const int64_t per_seg = (cap + kThreads - 1) / kThreads;
+    int64_t xs = blocks / ys > 0 ? blocks / ys : 1;
+    if (xs > per_seg) xs = per_seg;
+    route_pad_kernel<<<dim3(static_cast<unsigned>(xs),
+                            static_cast<unsigned>(ys)),
+                       kThreads, 0, st>>>(cnt, dp, n_seg, cap, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,10 @@
 // int32 tally concatenated with zero rows): dst holds src's elements and
 // zeros after them.  The JAX driver doubles the tally once per loop step;
 // the wrapper computes the final size first, so one launch does all the
-// doublings a batch needs.
+// doublings a batch needs.  Its rows are 3 x 2^a int32, so both ends are
+// whole 16-byte words from 4 rows on: one wave of threads (at most the
+// blocks the SMs hold at once) copies src and zeroes the rest as int4; a
+// 1- or 2-row tally, or one not 16-byte aligned, takes the int32 loop.
 //
 // K11 replaces `_pack_acc` (the uint8 and uint16 low-byte images of the
 // tally and the number of entries that do not fit each) behind
@@ -17,9 +20,9 @@
 //
 // What bounds both on an H100: bytes (K10 reads the old tally and writes
 // the new one; K11 reads 4 bytes an entry and writes 3), with one or two
-// integer operations an element.  Both are grid-stride loops, one element
-// a thread a step with neighbouring threads on neighbouring addresses; K11
-// counts the entries that do not fit with a warp shuffle sum and one
+// integer operations an element.  Both are grid-stride loops with
+// neighbouring threads on neighbouring addresses (K10 a 16-byte word a
+// thread a step, K11 one element); K11 counts the entries that do not fit with a warp shuffle sum and one
 // 64-bit atomic per warp and count, so the counts are exact.
 //
 // K15 replaces the tally of hast_tpu/parallel/mesh.py
@@ -56,14 +59,24 @@ int blocks_for(int64_t n) {
                                                             : kMaxBlocks));
 }
 
+// kVec: n_src and n_dst count int4 words (both ends whole words)
+template <bool kVec>
 __global__ void grow_tally_kernel(const int32_t* __restrict__ src,
                                   int64_t n_src, int32_t* __restrict__ dst,
                                   int64_t n_dst) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n_dst; i += stride)
-    dst[i] = i < n_src ? src[i] : 0;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  if constexpr (kVec) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    for (int64_t i = i0; i < n_src; i += stride) d4[i] = __ldg(s4 + i);
+    for (int64_t i = n_src + i0; i < n_dst; i += stride)
+      d4[i] = make_int4(0, 0, 0, 0);
+  } else {
+    for (int64_t i = i0; i < n_dst; i += stride)
+      dst[i] = i < n_src ? src[i] : 0;
+  }
 }
 
 __global__ void pack_tally_kernel(const int32_t* __restrict__ acc, int64_t n,
@@ -144,10 +157,32 @@ __global__ void tally_votes_kernel(const int2* __restrict__ votes,
 // src (n_src,) int32 -> dst (n_dst,) int32, n_dst >= n_src: src, then 0.
 extern "C" int hast_grow_tally(const void* src, int64_t n_src, void* dst,
                                int64_t n_dst, void* stream) {
-  grow_tally_kernel<<<blocks_for(n_dst), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(src), n_src, static_cast<int32_t*>(dst),
-      n_dst);
+  // the blocks of one wave: the SMs' count times the blocks an SM holds
+  static const int wave = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, grow_tally_kernel<true>, kThreads, 0);
+    return sms * per_sm > 0 ? sms * per_sm : 1;
+  }();
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* s = static_cast<const int32_t*>(src);
+  auto* d = static_cast<int32_t*>(dst);
+  const bool vec = n_src % 4 == 0 && n_dst % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+  const int64_t n = vec ? n_dst / 4 : n_dst;
+  const int64_t want = (n + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < 1 ? 1 : (want < wave ? want
+                                                                  : wave));
+  if (vec) {
+    grow_tally_kernel<true><<<blocks, kThreads, 0, st>>>(s, n_src / 4, d,
+                                                         n_dst / 4);
+  } else {
+    grow_tally_kernel<false><<<blocks, kThreads, 0, st>>>(s, n_src, d,
+                                                          n_dst);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

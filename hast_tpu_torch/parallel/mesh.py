@@ -16,7 +16,7 @@ Per shard, on a card, the work is kernels:
 
   K13 vote_reads    pipeline/classify.py  votes, the shard's buckets only
   K15 tally_votes   pipeline/classify.py  votes into the barcode tally
-  K14 route_kmers   here (csrc/route.cu)  k-mers into their owners' rows
+  K14 route_kmers   here (csrc/route.cu)  k-mers into their owners' slots
   K5, K6, K12       DeviceCounter          the per-shard sort and fold
   K7, K8            DeviceCountTable       histogram, total, marker algebra
 
@@ -240,18 +240,42 @@ def route_kmers_ref(seqs: torch.Tensor, lengths: torch.Tensor, k: int,
     return buf.reshape(dp, cap), (~keep).sum()
 
 
-def route_kmers(seqs: torch.Tensor, lengths: torch.Tensor, k: int, dp: int,
-                cap: int):
-    """One dp shard's canonical k-mers routed to their owners' rows (K14).
+def route_batch_ref(seqs: torch.Tensor, lengths: torch.Tensor, k: int,
+                    dp: int, cap: int, n_src: int):
+    """Plain PyTorch twin of :func:`route_batch`: :func:`route_kmers_ref`
+    for each source shard, then the receivers' concatenation."""
+    _build.TWIN_CALLS["route_batch_ref"] += 1
+    w = seqs.shape[0] // n_src
+    parts = [route_kmers_ref(seqs[s * w:(s + 1) * w],
+                             lengths[s * w:(s + 1) * w], k, dp, cap)
+             for s in range(n_src)]
+    return (torch.cat([buf for buf, _ in parts], dim=1),
+            torch.stack([d for _, d in parts]))
 
-    seqs: (n, L) uint8 ASCII reads; lengths: (n,) int32.  A window is a
-    key iff it lies inside its read and its k bytes are A, C, G or T in
-    either case.  A key goes to shard min(kmer_hash(hi, lo) // (2^32 //
-    dp), dp - 1) (0 when dp = 1).  Returns (buf, dropped): buf (dp, cap)
-    int64 whose row d holds, in no fixed order, the keys bound for shard
-    d and then INT64_MAX; dropped, a 0-d int64 tensor, counts the keys
-    that found their row full, sum over d of max(0, keys_d - cap).  CPU
-    tensors take the twin; CUDA tensors launch the kernel.
+
+# How K14 pads each (receiver, source) segment past its keys with
+# INT64_MAX: "tail" writes the pads after the keys from the segments' fill
+# counts (the receive buffer's bytes once), "fill" fills the whole buffer
+# before the keys.
+ROUTE_PAD = "tail"
+
+
+def route_batch(seqs: torch.Tensor, lengths: torch.Tensor, k: int, dp: int,
+                cap: int, n_src: int):
+    """The canonical k-mers of n_src source shards routed to their owners
+    and laid out as the receivers hold them (K14, one launch).
+
+    seqs: (n_src * w, L) uint8 ASCII reads, rows [s * w, (s + 1) * w) of
+    source shard s; lengths: (n_src * w,) int32.  A window is a key iff
+    it lies inside its read and its k bytes are A, C, G or T in either
+    case.  A key goes to shard min(kmer_hash(hi, lo) // (2^32 // dp),
+    dp - 1) (0 when dp = 1).  Returns (recv, dropped): recv (dp, n_src *
+    cap) int64, whose segment recv[d, s * cap:(s + 1) * cap] holds, in no
+    fixed order, the keys of source s bound for shard d and then
+    INT64_MAX, so that recv[d] is all that shard d receives; dropped
+    (n_src,) int64 counts each source's keys that found their segment
+    full, sum over d of max(0, keys_sd - cap).  CPU tensors take the
+    twin; CUDA tensors launch the kernel.
     """
     E._check_k(k)
     if seqs.dtype != torch.uint8 or seqs.dim() != 2:
@@ -262,22 +286,48 @@ def route_kmers(seqs: torch.Tensor, lengths: torch.Tensor, k: int, dp: int,
     if not 1 <= dp <= 2048 or cap < 0:
         raise ValueError(f"route_kmers: dp {dp} outside [1, 2048] or cap "
                          f"{cap} < 0")
+    if n_src < 1 or seqs.shape[0] % n_src:
+        raise ValueError(f"route_kmers: {seqs.shape[0]} reads do not split "
+                         f"into {n_src} source shards")
     if seqs.device.type == "cpu":
-        return route_kmers_ref(seqs, lengths, k, dp, cap)
+        return route_batch_ref(seqs, lengths, k, dp, cap, n_src)
     _build.require_cuda("route_kmers", seqs, lengths)
     dev = seqs.device
-    buf = torch.full((dp, cap), KC.SENT, dtype=torch.int64, device=dev)
-    fill = torch.zeros(dp + 1, dtype=torch.int64, device=dev)
     n, stride = seqs.shape
-    if n and stride >= k:
-        with _build.on_card(seqs) as stream:
-            rc = _build.load_library().hast_route_kmers(
-                seqs.data_ptr(), lengths.data_ptr(), n, stride, k, dp, cap,
-                buf.data_ptr(), fill.data_ptr(), fill[dp:].data_ptr(),
-                stream)
-        _build.check(rc, "route_kmers")
-        _build.LAUNCHES["route_kmers"] += 1
-    return buf, fill[dp]
+    recv = torch.empty((dp, n_src * cap), dtype=torch.int64, device=dev)
+    counts = torch.empty(n_src * (dp + 1), dtype=torch.int64, device=dev)
+    _build.launch("route_kmers", dev, seqs.data_ptr(), lengths.data_ptr(),
+                  n // n_src, n_src, stride, k, dp, cap,
+                  int(ROUTE_PAD == "tail"), recv.data_ptr(),
+                  counts.data_ptr())
+    return recv, counts[n_src * dp:]
+
+
+def route_kmers(seqs: torch.Tensor, lengths: torch.Tensor, k: int, dp: int,
+                cap: int):
+    """One dp shard's canonical k-mers routed to their owners' rows: the
+    one-source form of :func:`route_batch` (K14).  Returns (buf,
+    dropped): buf (dp, cap) int64 whose row d holds, in no fixed order,
+    the keys bound for shard d and then INT64_MAX; dropped, a 0-d int64
+    tensor, counts the keys that found their row full, sum over d of
+    max(0, keys_d - cap).
+    """
+    buf, dropped = route_batch(seqs, lengths, k, dp, cap, 1)
+    return buf, dropped[0]
+
+
+def _rows_on(t: torch.Tensor, shards: list[int], w: int,
+             dev: torch.device) -> torch.Tensor:
+    """The rows of the given shards (w a shard) on dev, in one copy: from
+    pinned memory without waiting when t is on the host and dev a card."""
+    lo, hi = shards[0], shards[-1] + 1
+    rows = (t[lo * w:hi * w] if shards == list(range(lo, hi)) else
+            torch.cat([t[i * w:(i + 1) * w] for i in shards]))
+    if rows.device == dev:
+        return rows.contiguous()
+    if rows.device.type == "cpu" and dev.type == "cuda":
+        return rows.pin_memory().to(dev, non_blocking=True)
+    return rows.to(dev).contiguous()
 
 
 def sharded_count_chunk(mesh: Mesh, seqs_u8, lengths, k: int,
@@ -286,10 +336,13 @@ def sharded_count_chunk(mesh: Mesh, seqs_u8, lengths, k: int,
     (B, L) ASCII reads split over dp -> each shard's received keys,
     sorted, and each source shard's drop count.
 
-    Per shard, K14 routes its keys to their owners' rows of a (dp, cap)
-    buffer, cap = n if slack >= dp else min(n, n // dp * slack) for the
-    shard's n windows; the all_to_all copies row d of every buffer to
-    shard d; K5 sorts the dp * cap keys there (INT64_MAX pads last).
+    Each distinct device of the mesh routes the shards it holds with one
+    K14 launch (:func:`route_batch`), cap = n if slack >= dp else min(n,
+    n // dp * slack) for a shard's n windows.  When every shard is on one
+    device that launch writes each key straight into its receiver's slot
+    and receiver d's keys are row d of its buffer; otherwise receiver d
+    concatenates row d of every device's buffer (the all_to_all's
+    copies).  K5 sorts the dp * cap keys there (INT64_MAX pads last).
     Returns (keys, dropped): keys[d] (dp * cap,) int64 on shard d's
     device, dropped[d] a 0-d int64 tensor on it.  When nothing is
     dropped, keys[d] equals JAX's shard d (its sentinel pair read as
@@ -303,17 +356,21 @@ def sharded_count_chunk(mesh: Mesh, seqs_u8, lengths, k: int,
     w = b // dp
     n = w * max(L - k + 1, 0)
     cap = n if slack >= dp else min(n, n // dp * slack)
-    devs = [row[0] for row in mesh.devices]
-    bufs, dropped = [], []
-    for i, dev in enumerate(devs):
-        buf, d = route_kmers(seqs_u8[i * w:(i + 1) * w].contiguous().to(dev),
-                             lengths[i * w:(i + 1) * w].contiguous().to(dev),
-                             k, dp, cap)
+    groups: dict = {}
+    for i, row in enumerate(mesh.devices):
+        groups.setdefault(row[0], []).append(i)
+    bufs, dropped = [], [None] * dp
+    for dev, shards in groups.items():
+        buf, lost = route_batch(_rows_on(seqs_u8, shards, w, dev),
+                                _rows_on(lengths, shards, w, dev), k, dp,
+                                cap, len(shards))
         bufs.append(buf)
-        dropped.append(d)
+        for j, i in enumerate(shards):
+            dropped[i] = lost[j]
     keys = []
-    for d, dev in enumerate(devs):
-        recv = torch.cat([buf[d].to(dev) for buf in bufs])
+    for d, row in enumerate(mesh.devices):
+        recv = bufs[0][d] if len(bufs) == 1 else torch.cat(
+            [buf[d].to(row[0]) for buf in bufs])
         keys.append(KC.sort_pairs(recv, None, k)[0])
     return keys, dropped
 

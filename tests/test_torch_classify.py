@@ -195,6 +195,28 @@ def test_grow_tally_twin_matches_jax(max_id):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("rows", [1, 2, 4, 1 << 10])
+def test_grow_tally_from_small_tallies(rows):
+    """From 1, 2 and 2^a rows: the closed-form row count equals the
+    doubling loop, and the twin's tally JAX's _grow_acc loop."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from hast_tpu.pipeline import classify as JC
+    for max_id in (0, rows - 1, rows, 2 * rows + 1, 5 * rows, 3 * rows + 7):
+        want_rows = rows
+        while max_id >= want_rows:
+            want_rows *= 2
+        assert C._grown_rows(rows, max_id) == want_rows
+        acc = np.random.default_rng(rows + max_id).integers(
+            0, 300, (rows, 3)).astype(np.int32)
+        want, cap = jnp.asarray(acc), rows
+        while max_id >= cap:
+            want = JC._grow_acc(want, jnp.zeros((cap, 3), jnp.int32))
+            cap *= 2
+        got = C.grow_tally(torch.from_numpy(acc), max_id)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def tally_values(regime: str) -> np.ndarray:
     """A (5000, 3) int32 tally whose largest entry fits 8 bits, 16 bits
     or neither; "negative" also holds entries below 0."""
@@ -434,3 +456,19 @@ def test_tally_growth_and_pack_kernels_match_twins(card, regime):
                                   acc.cpu().numpy().astype(np.int64))
     assert _build.LAUNCHES["grow_tally"] == launches.get("grow_tally", 0) + 1
     assert _build.LAUNCHES["pack_tally"] == launches.get("pack_tally", 0) + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 4, 1 << 12])
+def test_grow_tally_kernel_paths(card, rows):
+    """K10's int4 path (4 rows and more, aligned) and its int32 loop (1 or
+    2 rows, or a tally that starts 12 bytes into its storage) against the
+    twin, one launch each."""
+    acc = torch.from_numpy(np.random.default_rng(rows).integers(
+        -5, 300, (rows + 1, 3)).astype(np.int32)).to(card)
+    for tally in (acc[:rows], acc[1:]):
+        for max_id in (rows, 7 * rows + 3):
+            launches = _build.LAUNCHES["grow_tally"]
+            got = C.grow_tally(tally, max_id)
+            assert _build.LAUNCHES["grow_tally"] == launches + 1
+            assert torch.equal(got, C.grow_tally_ref(tally, max_id))

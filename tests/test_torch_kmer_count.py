@@ -513,6 +513,40 @@ def test_on_card_switches_only_to_another_card(monkeypatch, current):
     assert entered == ([] if current == 1 else [torch.device("cuda", 1)])
 
 
+@pytest.mark.parametrize("current", [0, 1])
+def test_launch_switches_only_to_another_card(monkeypatch, current):
+    """_build.launch on cuda:1 passes the arguments and cuda:1's current
+    stream to the entry, switches the device only when another card is
+    current, counts the launch and raises on a refused one."""
+    import contextlib
+    import types
+    entered, calls = [], []
+
+    @contextlib.contextmanager
+    def fake_device(dev):
+        entered.append(dev)
+        yield
+
+    def entry(*args):
+        calls.append(args)
+        return 0 if args[0] == "ok" else 9
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", fake_device)
+    monkeypatch.setattr(_build, "raw_stream", lambda index: 0x1000 + index)
+    monkeypatch.setattr(_build, "_lib", types.SimpleNamespace(hast_fake=entry))
+    dev = torch.device("cuda", 1)
+    launches = _build.LAUNCHES["fake"]
+    _build.launch("fake", dev, "ok", 7)
+    assert calls == [("ok", 7, 0x1001)]
+    assert _build.LAUNCHES["fake"] == launches + 1
+    with pytest.raises(RuntimeError, match="fake failed to launch"):
+        _build.launch("fake", dev, "refused")
+    assert _build.LAUNCHES["fake"] == launches + 1
+    assert entered == ([] if current == 1 else [dev, dev])
+    del _build.LAUNCHES["fake"]
+
+
 def test_batch_is_clean_and_pack_good():
     seqs = np.frombuffer(b"ACGTacgtNACG" + b"\0" * 4 + b"ACGTacgtACG"
                          + b"\0" * 5, np.uint8).reshape(2, 16)

@@ -359,9 +359,12 @@ def _port_keys(rhi, rlo) -> np.ndarray:
     return np.where(sent, KC.SENT, (hi << 32) | lo)
 
 
-def test_sharded_count_chunk_matches_jax_per_shard():
+@pytest.mark.parametrize("dp", [1, 2, 8])
+def test_sharded_count_chunk_matches_jax_per_shard(dp):
+    """Ragged lengths, N, R, U and soft-masked bytes: each shard's keys
+    (the batch twin, route_batch_ref, on the CPU) equal JAX's shard."""
     import jax.numpy as jnp
-    jmesh = jax_mesh(8)
+    jmesh = jax_mesh(dp)
     from hast_tpu.parallel import mesh as JPM
     rng = np.random.default_rng(3)
     B, L = 128, 128
@@ -372,13 +375,58 @@ def test_sharded_count_chunk_matches_jax_per_shard():
     rhi, rlo, dropped = JPM.sharded_count_chunk(
         jmesh, jnp.asarray(seqs), jnp.asarray(lengths), 21)
     assert int(np.asarray(dropped).sum()) == 0
-    keys, port_dropped = PM.sharded_count_chunk(cpu_mesh(8), seqs, lengths,
+    twin_calls = _build.TWIN_CALLS["route_batch_ref"]
+    keys, port_dropped = PM.sharded_count_chunk(cpu_mesh(dp), seqs, lengths,
                                                 21)
-    assert [int(d) for d in port_dropped] == [0] * 8
-    for d in range(8):
+    assert _build.TWIN_CALLS["route_batch_ref"] == twin_calls + 1
+    assert [int(d) for d in port_dropped] == [0] * dp
+    for d in range(dp):
         np.testing.assert_array_equal(keys[d].numpy(),
                                       _port_keys(rhi[d], rlo[d]))
     assert all((k != KC.SENT).sum() for k in keys)
+
+
+def batch_reads(seed: int, b: int, L: int = 128):
+    """(b, L) ASCII reads, half their bytes soft-masked and 1 % N, R or
+    U, ragged lengths down to 0, as tensors."""
+    rng = np.random.default_rng(seed)
+    seqs = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, (b, L))]
+    odd = rng.random((b, L)) < 0.01
+    seqs[odd] = ALPHABET[rng.integers(20, 23, int(odd.sum()))]
+    lengths = rng.integers(0, L + 1, b).astype(np.int32)
+    lengths[::3] = L
+    return torch.from_numpy(seqs), torch.from_numpy(lengths)
+
+
+@pytest.mark.parametrize("dp,cap", [(2, 400), (4, 40), (8, 0)])
+def test_route_batch_lays_out_the_one_shard_rows(dp, cap):
+    """Segment (d, s) of the receive buffer is row d of source s's
+    one-shard buffer, drops included (cap 40 and 0 overflow)."""
+    seqs, lengths = batch_reads(dp, 8 * dp)
+    recv, dropped = PM.route_batch(seqs, lengths, 21, dp, cap, dp)
+    assert tuple(recv.shape) == (dp, dp * cap)
+    w = 8
+    for s in range(dp):
+        buf, lost = PM.route_kmers(seqs[s * w:(s + 1) * w],
+                                   lengths[s * w:(s + 1) * w], 21, dp, cap)
+        assert torch.equal(recv[:, s * cap:(s + 1) * cap], buf)
+        assert int(dropped[s]) == int(lost)
+    assert (int(dropped.sum()) > 0) == (cap < 100)
+
+
+def test_sharded_count_chunk_over_several_devices():
+    """Shards on two devices (cpu and cpu:0, interleaved): one route per
+    device, the receivers concatenate; keys and drops equal those of the
+    mesh on one device."""
+    seqs, lengths = batch_reads(5, 64)
+    want, want_lost = PM.sharded_count_chunk(cpu_mesh(4), seqs, lengths, 21)
+    mesh = PM.make_mesh(4, devices=["cpu", "cpu:0"] * 2)
+    twin_calls = _build.TWIN_CALLS["route_batch_ref"]
+    got, lost = PM.sharded_count_chunk(mesh, seqs, lengths, 21)
+    assert _build.TWIN_CALLS["route_batch_ref"] == twin_calls + 2
+    for d in range(4):
+        assert torch.equal(got[d], want[d])
+        assert int(lost[d]) == int(want_lost[d]) == 0
 
 
 @pytest.mark.parametrize("slack", [2, 4, 8])
@@ -652,6 +700,48 @@ def test_route_kmers_kernel_matches_twin(card, dp, cap):
     assert int(got_drop) == int(want_drop)
     if not int(want_drop):
         assert torch.equal(got.sort(dim=1).values.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", ["tail", "fill"])
+@pytest.mark.parametrize("dp", [4, 8])
+def test_route_batch_kernel_matches_twin(card, dp, pad, monkeypatch):
+    """The batch form in one launch against route_batch_ref: segments
+    equal once sorted, drop counts equal; also the skewed batch of 64
+    identical reads, whose drops fall as the cap grows."""
+    monkeypatch.setattr(PM, "ROUTE_PAD", pad)
+    seqs, lengths = batch_reads(dp, 64 * dp)
+    skew = torch.from_numpy(np.tile(np.frombuffer(SKEW, np.uint8), (64, 1)))
+    skew_lens = torch.full((64,), len(SKEW), dtype=torch.int32)
+    for reads, lens, cap in ((seqs, lengths, 64 * 108 // dp * 2),
+                             (skew, skew_lens, 64 // dp * 108 // dp * 2),
+                             (skew, skew_lens, 64 // dp * 108)):
+        want, want_lost = PM.route_batch(reads, lens, 21, dp, cap, dp)
+        launches = _build.LAUNCHES["route_kmers"]
+        got, lost = PM.route_batch(reads.to(card), lens.to(card), 21, dp,
+                                   cap, dp)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["route_kmers"] == launches + 1
+        assert lost.tolist() == want_lost.tolist()
+        if not int(want_lost.sum()):
+            got = got.reshape(dp, dp, cap).sort(dim=2).values
+            assert torch.equal(got.reshape(dp, -1).cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sharded_count_chunk_on_one_card(card):
+    """Four shards of one card: one K14 launch, keys and drops equal to
+    the CPU mesh's."""
+    seqs, lengths = batch_reads(6, 256)
+    want, want_lost = PM.sharded_count_chunk(cpu_mesh(4), seqs.numpy(),
+                                             lengths.numpy(), 21)
+    launches = _build.LAUNCHES["route_kmers"]
+    got, lost = PM.sharded_count_chunk(PM.make_mesh(4, devices=[card] * 4),
+                                       seqs.numpy(), lengths.numpy(), 21)
+    assert _build.LAUNCHES["route_kmers"] == launches + 1
+    for d in range(4):
+        assert torch.equal(got[d].cpu(), want[d])
+        assert int(lost[d]) == int(want_lost[d]) == 0
 
 
 @pytest.mark.cuda
