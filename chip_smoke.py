@@ -82,9 +82,8 @@ failure:
    __graft_entry__'s 256 x 128 batch; the table split in 2 and in 4, the
    shards' votes summed equal to the whole table's; K14 route_batch on a
    16,384-read batch at dp = 4 and 8, slack 2, every shard in one launch
-   with the receive layout written in place, against route_batch_ref
-   with either pad (tail pass, fill first), route_kmers (the one-shard
-   form) on shard 0, and both forms on 64 identical reads of one key
+   with the receive layout written in place, against route_batch_ref,
+   route_kmers (the one-shard form) on shard 0, and both forms on 64 identical reads of one key
    (drop counts equal the twins'); in turns, dp one-shard calls plus the
    receivers' cat beside the batch call, on card tensors and from the
    host arrays; K15 tally_votes of 65,536 reads into 10^5 barcodes, ids
@@ -93,8 +92,9 @@ failure:
    device times; index_add_'s beside them).  Then the launch path: K10
    against F.pad, K12 against narrow(0, 0, m).clone() and K10 against
    its wrapper as PR 6 had it, in turns (kernel, library, library,
-   kernel; 200 calls each), and K10's call taken apart step by step
-   (perf_counter_ns over 1,000 calls), now and as PR 6 had it.
+   kernel; 200 calls each; the kernels line takes K10's and K12's call
+   and library times from these turns), and K10's call taken apart step
+   by step (perf_counter_ns over 1,000 calls), now and as PR 6 had it.
 12. sharded_classify_step on meshes of cuda:0 at dp x tp = 4x1 and 2x2,
    both slot formats, equal to K3's tally of the same reads.
 13. the mesh classify main path: phase 5's workload through
@@ -1537,7 +1537,7 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
     # K14 on a 16,384-read batch of 100-bp reads (stride 128, as the
     # python reader pads them), 1 % N and 2 % soft-masked: the batch form
     # (every source shard in one launch, the receive layout written in
-    # place) against route_batch_ref, both pads; the one-shard form on
+    # place) against route_batch_ref; the one-shard form on
     # shard 0 against route_kmers_ref; then, in turns, dp one-shard calls
     # plus the receivers' cat (what sharded_count_chunk did before) and
     # the batch call, on card tensors and from the host arrays
@@ -1566,23 +1566,18 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
                                    [got.sort(dim=1).values], [want]))
         want, want_dropped = PM.route_batch_ref(seqs_t, lens_t, K, dp, cap,
                                                 dp)
-        dev_times = {}
-        for pad in ("tail", "fill"):
-            PM.ROUTE_PAD = pad
-            got, dropped = PM.route_batch(seqs_t, lens_t, K, dp, cap, dp)
-            torch.cuda.synchronize()
-            if dropped.tolist() != want_dropped.tolist() or int(
-                    dropped.sum()):
-                fail(f"K14 route_batch dp={dp} ({pad}): dropped "
-                     f"{dropped.tolist()}, twin {want_dropped.tolist()}")
-            err = max(err, _check_same(
-                f"K14 route_batch dp={dp} ({pad})",
-                [got.reshape(dp, dp, cap).sort(dim=2).values.reshape(dp, -1)],
-                [want]))
-            dev_times[pad] = device_ms(
-                lambda: PM.route_batch(seqs_t, lens_t, K, dp, cap, dp), 20,
-                ("route_", "Memset"))
-        PM.ROUTE_PAD = "tail"
+        got, dropped = PM.route_batch(seqs_t, lens_t, K, dp, cap, dp)
+        torch.cuda.synchronize()
+        if dropped.tolist() != want_dropped.tolist() or int(dropped.sum()):
+            fail(f"K14 route_batch dp={dp}: dropped {dropped.tolist()}, "
+                 f"twin {want_dropped.tolist()}")
+        err = max(err, _check_same(
+            f"K14 route_batch dp={dp}",
+            [got.reshape(dp, dp, cap).sort(dim=2).values.reshape(dp, -1)],
+            [want]))
+        # the route kernel, the pads' tail pass and the counters' memset
+        dev_ms = device_ms(lambda: PM.route_batch(seqs_t, lens_t, K, dp, cap,
+                                                  dp), 20, ("route_", "Memset"))
         keys = int((want != KC.SENT).sum())
         shard = [(seqs_t[i * rows:(i + 1) * rows],
                   lens_t[i * rows:(i + 1) * rows]) for i in range(dp)]
@@ -1622,8 +1617,7 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
                                                    cap, dp), 3)
         log(f"K14 route_kmers dp={dp}: {MESH_BATCH} reads, {keys} keys into "
             f"{dp} x {dp * cap}: batch call {ms['batch']:.4f} ms on card "
-            f"tensors ({dev_times['tail']:.4f} ms on the device with the "
-            f"tail pad, {dev_times['fill']:.4f} ms with the fill), "
+            f"tensors ({dev_ms:.4f} ms on the device), "
             f"{dp} one-shard calls + the receivers' cat "
             f"{ms['one-shard']:.4f} ms ({old_dev:.4f} ms on the device); "
             f"from the host arrays: pinned copy + batch call "
@@ -1813,12 +1807,13 @@ def _grow_tally_steps(acc, max_id: int, pr6: bool) -> dict:
     return ns
 
 
-def phase_launch_path() -> None:
+def phase_launch_path() -> dict:
     """K10 and K12 against their library calls, in turns (kernel,
     library, library, kernel; 200 calls each) at phase 2's and 3's shapes,
     and K10's wrapper now and as PR 6 had it; then K10's call taken apart:
     the host nanoseconds of each wrapper step over 1,000 calls, both
-    ways."""
+    ways.  Returns the kernels line's call and library times of K10 and
+    K12 from the turns (steadier than phases 2 and 3's 20 calls)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1835,21 +1830,24 @@ def phase_launch_path() -> None:
     keys[:m] = torch.sort(_hash_keys(torch.arange(m, device=dev))).values
     counts = torch.ones(2 * m, dtype=torch.int32, device=dev)
     pairs = {
-        "K10 grow_tally vs F.pad": (
-            lambda: C.grow_tally(acc, grow),
-            lambda: F.pad(acc, (0, 0, 0, grow))),
-        "K12 shrink_run vs narrow().clone()": (
-            lambda: KC.shrink_run(keys, counts, m),
-            lambda: (keys.narrow(0, 0, m).clone(),
-                     counts.narrow(0, 0, m).clone())),
-        "K10 grow_tally now vs PR 6's wrapper": (
-            lambda: C.grow_tally(acc, grow),
-            lambda: _grow_tally_pr6(acc, grow))}
-    for name, (kernel, library) in pairs.items():
+        "grow_tally": ("K10 grow_tally vs F.pad",
+                       lambda: C.grow_tally(acc, grow),
+                       lambda: F.pad(acc, (0, 0, 0, grow))),
+        "shrink_run": ("K12 shrink_run vs narrow().clone()",
+                       lambda: KC.shrink_run(keys, counts, m),
+                       lambda: (keys.narrow(0, 0, m).clone(),
+                                counts.narrow(0, 0, m).clone())),
+        "pr6": ("K10 grow_tally now vs PR 6's wrapper",
+                lambda: C.grow_tally(acc, grow),
+                lambda: _grow_tally_pr6(acc, grow))}
+    res = {}
+    for key, (name, kernel, library) in pairs.items():
         times = {"kernel": [], "library": []}
         for mode in ("kernel", "library", "library", "kernel"):
             times[mode].append(cuda_ms(kernel if mode == "kernel"
                                        else library, 200))
+        res[key] = dict(ms=float(np.mean(times["kernel"])),
+                        library_ms=float(np.mean(times["library"])))
         log(f"launch path: {name}: {np.mean(times['kernel']):.4f} ms "
             f"against {np.mean(times['library']):.4f} ms a call (in turns: "
             f"{times['kernel'][0]:.4f}, {times['library'][0]:.4f}, "
@@ -1864,6 +1862,8 @@ def phase_launch_path() -> None:
             f", host µs a step over 1,000 calls: " + ", ".join(
                 f"{k} {v / 1000 / 1e3:.3f}" for k, v in total.items())
             + f"; sum {sum(total.values()) / 1000 / 1e3:.3f}")
+    del res["pr6"]
+    return res
 
 
 def phase_classify_step(tables: dict, words) -> int:
@@ -2573,7 +2573,8 @@ def main() -> None:
     kernels.update(phase_kernels00())
     kernels.update(phase_kernels03(tables, words, bwords))
     kernels.update(phase_kernels_mesh(tables, words, bwords))
-    phase_launch_path()
+    for name, turns in phase_launch_path().items():
+        kernels[name].update(turns)
     mesh_launches = {"tally_votes": phase_classify_step(tables, words)}
     del tables, words, bwords
     kernels["broadcast_probe"], mesh_launches["broadcast_probe"] = \

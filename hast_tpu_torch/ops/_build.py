@@ -68,7 +68,7 @@ _SIGNATURES = {
     "hast_vote_reads": [_P, _I64, _I, _I, _I, _I, _I64, _I64, _P, _P, _I64,
                         _I, _I, _P, _P],
     "hast_tally_votes": [_P, _P, _P, _I64, _P, _I64, _P],
-    "hast_route_kmers": [_P, _P, _I64, _I, _I, _I, _I, _I64, _I, _P, _P, _P],
+    "hast_route_kmers": [_P, _P, _I64, _I, _I, _I, _I, _I64, _P, _P, _P],
     "hast_broadcast_probe": [_P, _P, _I64, _P, _P, _I64, _I, _P, _P],
 }
 

@@ -25,19 +25,22 @@
 // entry of the receive buffer (keys and pads) and the reads read once.
 // The design:
 //  - one warp a read segment of up to 128 windows; the warp loads its
-//    bytes once into shared memory (16 bytes a lane when the rows allow),
-//    and each lane rolls the forward and reverse-complement words over a
-//    run of up to 4 consecutive windows, keeping the length of the run of
-//    ACGT bytes: k - 1 + 4 byte steps a lane instead of k a window;
+//    bytes once into shared memory (16 bytes a lane when the rows allow)
+//    and packs them once (2 bits a base and an ACGT flag a base); each
+//    lane takes its first window's words and run of ACGT bytes from the
+//    packed bases in a few shifts, then rolls the forward and
+//    reverse-complement words and the run over up to 3 more consecutive
+//    windows: a byte step a window instead of k;
 //  - the route by a multiply-high with a magic number made on the host,
 //    exact for every 32-bit hash, instead of a division a window;
 //  - for dp <= 32, a ballot per destination gives each lane its rank and
 //    the warp its count; one shared atomic per warp and destination, one
 //    global atomic per block and destination reserve the slots (past 32,
 //    a shared atomic per key);
-//  - the pads: either a tail pass that writes INT64_MAX from each
-//    segment's fill count to its cap (the pads' bytes once), or one fill
-//    of the buffer before the keys.
+//  - the pads: a tail pass writes INT64_MAX from each segment's fill
+//    count to its cap, so every slot of the buffer is written once (one
+//    fill of the buffer before the keys took as long on the device, H100,
+//    and writes the keys' slots twice).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -52,6 +55,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPer = 4;                      // windows a lane rolls a segment
 constexpr int kSegWindows = 32 * kPer;       // windows a warp covers a segment
 constexpr int kSegBytes = kSegWindows + 32;  // its bytes: + k - 1 <= 30
+// a warp's shared bytes: the segment, its codes (uint16 a lane of 8 bases)
+// and its ACGT flags (uint8 a lane), rounded to 16
+constexpr int kWarpShared = kSegBytes + kSegBytes / 4 + kSegBytes / 8 + 4;
+static_assert(kWarpShared % 16 == 0, "uint4 slots a warp");
 constexpr int64_t kSent = INT64_MAX;
 
 // floor(h / (2^32 / dp)), clamped to dp - 1: magic = 2^64 / width rounded
@@ -82,9 +89,14 @@ __global__ void __launch_bounds__(kThreads) route_kmers_kernel(
   extern __shared__ uint4 shared[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  uint8_t* buf = reinterpret_cast<uint8_t*>(shared + warp * (kSegBytes / 16));
-  unsigned long long* base =
-      reinterpret_cast<unsigned long long*>(shared + kWarps * kSegBytes / 16);
+  uint8_t* buf =
+      reinterpret_cast<uint8_t*>(shared + warp * (kWarpShared / 16));
+  uint16_t* codes = reinterpret_cast<uint16_t*>(buf + kSegBytes);
+  uint8_t* good = buf + kSegBytes + kSegBytes / 4;
+  const uint32_t* codes32 = reinterpret_cast<const uint32_t*>(codes);
+  const uint16_t* good16 = reinterpret_cast<const uint16_t*>(good);
+  unsigned long long* base = reinterpret_cast<unsigned long long*>(
+      shared + kWarps * kWarpShared / 16);
   unsigned int* count = reinterpret_cast<unsigned int*>(base + dp);
 
   const int s = blockIdx.y;                  // source shard of this block
@@ -130,23 +142,55 @@ __global__ void __launch_bounds__(kThreads) route_kmers_kernel(
         for (int i = lane; i < avail; i += 32) buf[i] = src[i];
       }
       __syncwarp();
+      // base i's code at bits 2i of codes32[i / 16], its ACGT flag at bit
+      // i of good16[i / 16]: lane l packs bytes [8l, 8l + 8)
+      if (8 * lane < kSegBytes) {
+        uint32_t cw = 0, gw = 0;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const uint32_t b = buf[8 * lane + t];
+          cw |= ((b >> 1) & 3u) << (2 * t);
+          gw |= static_cast<uint32_t>(hast::is_acgt(b & ~0x20u)) << t;
+        }
+        codes[lane] = static_cast<uint16_t>(cw);
+        good[lane] = static_cast<uint8_t>(gw);
+      }
+      __syncwarp();
       const int nw = min(n_win - seg, kSegWindows);
       per = (nw + 31) >> 5;
       const int first = lane * per;
       if (first < nw) {
-        uint64_t fwd = 0, rc = 0;
-        int run = 0;
+        // the first window: bases [first, first + k) of the packed codes
+        // (q + 2 <= 9: first < 128), base j at bits 2j; its reverse
+        // complement flips each code's high bit, and the forward word is
+        // the same codes in reverse order (bit reversal, then each pair's
+        // two bits swapped back); run counts the ACGT bases ending at its
+        // last base (k when there is no other)
+        const int q = first >> 4, o = first & 15;
+        const uint64_t lo = codes32[q] |
+                            static_cast<uint64_t>(codes32[q + 1]) << 32;
+        const uint64_t le =
+            (o ? (lo >> (2 * o)) |
+                     (static_cast<uint64_t>(codes32[q + 2]) << (64 - 2 * o))
+               : lo) & kmask;
+        uint64_t rc = le ^ (0xAAAAAAAAAAAAAAAAull & kmask);
+        uint64_t fwd = __brevll(le);
+        fwd = (((fwd >> 1) & 0x5555555555555555ull) |
+               ((fwd & 0x5555555555555555ull) << 1)) >> (64 - 2 * k);
+        const uint64_t flags =
+            (good16[q] | static_cast<uint64_t>(good16[q + 1]) << 16 |
+             static_cast<uint64_t>(good16[q + 2]) << 32) >> o;
+        int run = k - 1 - (63 - __clzll(~flags & ((1ull << k) - 1)));
         auto roll = [&](uint32_t b) {
           const uint64_t c = (b >> 1) & 3u;
           fwd = ((fwd << 2) | c) & kmask;
           rc = (rc >> 2) | ((c ^ 2ull) << rc_shift);
           run = hast::is_acgt(b & ~0x20u) ? run + 1 : 0;
         };
-        for (int t = 0; t < k - 1; ++t) roll(buf[first + t]);
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
           if (j < per) {
-            roll(buf[first + k - 1 + j]);
+            if (j) roll(buf[first + k - 1 + j]);
             if (first + j < nw && run >= k) {
               key[j] = fwd < rc ? fwd : rc;
               dest[j] = route_of(key[j], magic, dp);
@@ -239,21 +283,8 @@ __global__ void route_pad_kernel(const unsigned long long* __restrict__ fill,
   }
 }
 
-// INT64_MAX over the whole buffer (two a store, the odd last one alone),
-// and the counters zeroed.
-__global__ void route_fill_kernel(int64_t* __restrict__ out, int64_t n,
-                                  unsigned long long* __restrict__ counts,
-                                  int64_t n_counts) {
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = i0; i < n_counts; i += step) counts[i] = 0;
-  auto* out2 = reinterpret_cast<longlong2*>(out);
-  for (int64_t i = i0; i < n / 2; i += step)
-    out2[i] = make_longlong2(kSent, kSent);
-  if (i0 == 0 && n % 2) out[n - 1] = kSent;
-}
-
+// The grid's blocks: the SMs times the blocks of 256 threads an SM holds
+// at most; blocks past what the registers let run wait for a slot.
 int resident_blocks() {
   static const int n = [] {
     int dev = 0, sms = 132;
@@ -271,28 +302,18 @@ int resident_blocks() {
 // key of source s bound for shard d in out[d, s * cap + j], then INT64_MAX;
 // counts (n_src * dp + n_src,) uint64 scratch, zeroed here: [s * dp + d]
 // ends as the keys of source s bound for d, [n_src * dp + s] as the keys
-// of source s past the cap.  tail_pad: 1 writes the pads after the keys
-// from the fill counts, 0 fills the buffer before them.
+// of source s past the cap.
 extern "C" int hast_route_kmers(const void* reads, const void* lengths,
                                 int64_t w, int n_src, int stride, int k,
-                                int dp, int64_t cap, int tail_pad, void* out,
-                                void* counts, void* stream) {
+                                int dp, int64_t cap, void* out, void* counts,
+                                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* cnt = static_cast<unsigned long long*>(counts);
   auto* o = static_cast<int64_t*>(out);
   const int64_t n_counts = static_cast<int64_t>(n_src) * (dp + 1);
-  const int64_t n_out = static_cast<int64_t>(dp) * n_src * cap;
   const int blocks = resident_blocks();
-  if (tail_pad) {
-    cudaError_t err = cudaMemsetAsync(cnt, 0, n_counts * 8, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  } else {
-    const int64_t want = (n_out / 2 + kThreads - 1) / kThreads;
-    route_fill_kernel<<<static_cast<int>(want < 1 ? 1 : (want < blocks
-                                                             ? want
-                                                             : blocks)),
-                        kThreads, 0, st>>>(o, n_out, cnt, n_counts);
-  }
+  const cudaError_t err = cudaMemsetAsync(cnt, 0, n_counts * 8, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (w > 0 && stride >= k) {
     // a key per (uint64) multiply-high: width = floor(2^32 / dp) >= 2^21
     const uint64_t width = (1ull << 32) / static_cast<uint64_t>(dp);
@@ -303,7 +324,7 @@ extern "C" int hast_route_kmers(const void* reads, const void* lengths,
     const int64_t per_src = blocks / n_src > 0 ? blocks / n_src : 1;
     const dim3 grid(static_cast<unsigned>(tiles < per_src ? tiles : per_src),
                     static_cast<unsigned>(n_src));
-    const size_t smem = kWarps * kSegBytes +
+    const size_t smem = kWarps * kWarpShared +
                         dp * (sizeof(unsigned long long) + sizeof(unsigned));
     const auto* rd = static_cast<const uint8_t*>(reads);
     const auto* ln = static_cast<const int32_t*>(lengths);
@@ -317,7 +338,7 @@ extern "C" int hast_route_kmers(const void* reads, const void* lengths,
           cnt + static_cast<int64_t>(n_src) * dp);
     }
   }
-  if (tail_pad && cap > 0) {
+  if (cap > 0) {
     const int64_t n_seg = static_cast<int64_t>(n_src) * dp;
     const int64_t ys = n_seg < 65535 ? n_seg : 65535;
     const int64_t per_seg = (cap + kThreads - 1) / kThreads;

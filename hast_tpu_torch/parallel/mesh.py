@@ -253,13 +253,6 @@ def route_batch_ref(seqs: torch.Tensor, lengths: torch.Tensor, k: int,
             torch.stack([d for _, d in parts]))
 
 
-# How K14 pads each (receiver, source) segment past its keys with
-# INT64_MAX: "tail" writes the pads after the keys from the segments' fill
-# counts (the receive buffer's bytes once), "fill" fills the whole buffer
-# before the keys.
-ROUTE_PAD = "tail"
-
-
 def route_batch(seqs: torch.Tensor, lengths: torch.Tensor, k: int, dp: int,
                 cap: int, n_src: int):
     """The canonical k-mers of n_src source shards routed to their owners
@@ -297,8 +290,7 @@ def route_batch(seqs: torch.Tensor, lengths: torch.Tensor, k: int, dp: int,
     recv = torch.empty((dp, n_src * cap), dtype=torch.int64, device=dev)
     counts = torch.empty(n_src * (dp + 1), dtype=torch.int64, device=dev)
     _build.launch("route_kmers", dev, seqs.data_ptr(), lengths.data_ptr(),
-                  n // n_src, n_src, stride, k, dp, cap,
-                  int(ROUTE_PAD == "tail"), recv.data_ptr(),
+                  n // n_src, n_src, stride, k, dp, cap, recv.data_ptr(),
                   counts.data_ptr())
     return recv, counts[n_src * dp:]
 

@@ -703,13 +703,11 @@ def test_route_kmers_kernel_matches_twin(card, dp, cap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pad", ["tail", "fill"])
 @pytest.mark.parametrize("dp", [4, 8])
-def test_route_batch_kernel_matches_twin(card, dp, pad, monkeypatch):
+def test_route_batch_kernel_matches_twin(card, dp):
     """The batch form in one launch against route_batch_ref: segments
     equal once sorted, drop counts equal; also the skewed batch of 64
     identical reads, whose drops fall as the cap grows."""
-    monkeypatch.setattr(PM, "ROUTE_PAD", pad)
     seqs, lengths = batch_reads(dp, 64 * dp)
     skew = torch.from_numpy(np.tile(np.frombuffer(SKEW, np.uint8), (64, 1)))
     skew_lens = torch.full((64,), len(SKEW), dtype=torch.int32)
