@@ -83,18 +83,19 @@ failure:
    shards' votes summed equal to the whole table's; K14 route_batch on a
    16,384-read batch at dp = 4 and 8, slack 2, every shard in one launch
    with the receive layout written in place, against route_batch_ref,
-   route_kmers (the one-shard form) on shard 0, and both forms on 64 identical reads of one key
-   (drop counts equal the twins'); in turns, dp one-shard calls plus the
-   receivers' cat beside the batch call, on card tensors and from the
-   host arrays; K15 tally_votes of 65,536 reads into 10^5 barcodes, ids
-   -1 and past the end included, random and in stLFR's barcode runs of
-   20-60 reads, into a fresh tally and with out= over two calls (call and
-   device times; index_add_'s beside them).  Then the launch path: K10
-   against F.pad, K12 against narrow(0, 0, m).clone() and K10 against
-   its wrapper as PR 6 had it, in turns (kernel, library, library,
-   kernel; 200 calls each; the kernels line takes K10's and K12's call
-   and library times from these turns), and K10's call taken apart step
-   by step (perf_counter_ns over 1,000 calls), now and as PR 6 had it.
+   route_kmers (the one-shard form) on shard 0, and both forms on 64
+   identical reads of one key (drop counts equal the twins'); in turns,
+   dp one-shard calls plus the receivers' cat beside the batch call, on
+   card tensors and from the host arrays; K15 tally_votes of 65,536 reads
+   into 10^5 barcodes, ids -1 and past the end included, random and in
+   stLFR's barcode runs of 20-60 reads, into a fresh tally and with out=
+   over two calls (call and device times; index_add_'s beside them).
+   Then the launch path: K10 against F.pad, K12 against narrow(0, 0,
+   m).clone() and K10 against its earlier wrapper, in turns (kernel,
+   library, library, kernel; 200 calls each; the kernels line takes K10's
+   and K12's call and library times from these turns), and K10's call
+   taken apart step by step (perf_counter_ns over 1,000 calls), now and
+   as it was.
 12. sharded_classify_step on meshes of cuda:0 at dp x tp = 4x1 and 2x2,
    both slot formats, equal to K3's tally of the same reads.
 13. the mesh classify main path: phase 5's workload through
@@ -1576,8 +1577,9 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
             [got.reshape(dp, dp, cap).sort(dim=2).values.reshape(dp, -1)],
             [want]))
         # the route kernel, the pads' tail pass and the counters' memset
-        dev_ms = device_ms(lambda: PM.route_batch(seqs_t, lens_t, K, dp, cap,
-                                                  dp), 20, ("route_", "Memset"))
+        dev_ms = device_ms(
+            lambda: PM.route_batch(seqs_t, lens_t, K, dp, cap, dp), 20,
+            ("route_", "Memset"))
         keys = int((want != KC.SENT).sum())
         shard = [(seqs_t[i * rows:(i + 1) * rows],
                   lens_t[i * rows:(i + 1) * rows]) for i in range(dp)]
@@ -1714,8 +1716,9 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
 
 
 @contextlib.contextmanager
-def _pr6_on_card(t):
-    """_build.on_card as PR 6 had it: a torch.cuda.Stream for the stream."""
+def _earlier_on_card(t):
+    """_build.on_card as K10's wrapper used it before _build.launch: a
+    torch.cuda.Stream for the stream and a context manager."""
     import ctypes
     import torch
     dev = t.device
@@ -1727,8 +1730,10 @@ def _pr6_on_card(t):
             yield stream
 
 
-def _grow_tally_pr6(acc, max_id: int):
-    """K10's wrapper as PR 6 had it, on the same kernel."""
+def _grow_tally_earlier(acc, max_id: int):
+    """K10's earlier wrapper (a doubling loop for the row count,
+    require_cuda, _earlier_on_card, load_library(), check), on the same
+    kernel."""
     import torch
     from hast_tpu_torch.ops import _build
     from hast_tpu_torch.pipeline import classify as C
@@ -1740,7 +1745,7 @@ def _grow_tally_pr6(acc, max_id: int):
         return acc
     _build.require_cuda("grow_tally", acc)
     out = torch.empty((rows, 3), dtype=torch.int32, device=acc.device)
-    with _pr6_on_card(acc) as stream:
+    with _earlier_on_card(acc) as stream:
         rc = _build.load_library().hast_grow_tally(
             acc.data_ptr(), acc.numel(), out.data_ptr(), out.numel(), stream)
     _build.check(rc, "grow_tally")
@@ -1748,10 +1753,10 @@ def _grow_tally_pr6(acc, max_id: int):
     return out
 
 
-def _grow_tally_steps(acc, max_id: int, pr6: bool) -> dict:
+def _grow_tally_steps(acc, max_id: int, earlier: bool) -> dict:
     """One K10 call with time.perf_counter_ns around each step of the
-    wrapper, as it is (pr6 False) or as PR 6 had it: the nanoseconds by
-    step (a step's clock read is in the next step)."""
+    wrapper, as it is or (earlier) as _grow_tally_earlier has it: the
+    nanoseconds by step (a step's clock read is in the next step)."""
     import torch
     from hast_tpu_torch.ops import _build
     from hast_tpu_torch.pipeline import classify as C
@@ -1765,14 +1770,14 @@ def _grow_tally_steps(acc, max_id: int, pr6: bool) -> dict:
 
     C._check_tally(acc)
     step("check")
-    if pr6:
+    if earlier:
         rows = max(acc.shape[0], 1)
         while max_id >= rows:
             rows *= 2
     else:
         rows = C._grown_rows(acc.shape[0], max_id)
     step("rows")
-    if pr6:
+    if earlier:
         _build.require_cuda("grow_tally", acc)
     elif acc.device.type != "cuda" or not acc.is_contiguous():
         _build.require_cuda("grow_tally", acc)
@@ -1780,8 +1785,8 @@ def _grow_tally_steps(acc, max_id: int, pr6: bool) -> dict:
     out = torch.empty((rows, 3), dtype=torch.int32, device=acc.device)
     step("empty")
     args = (acc.data_ptr(), acc.numel(), out.data_ptr(), out.numel())
-    if pr6:
-        cm = _pr6_on_card(acc)
+    if earlier:
+        cm = _earlier_on_card(acc)
         stream = cm.__enter__()
         step("on_card enter")
         fn = _build.load_library().hast_grow_tally
@@ -1810,7 +1815,7 @@ def _grow_tally_steps(acc, max_id: int, pr6: bool) -> dict:
 def phase_launch_path() -> dict:
     """K10 and K12 against their library calls, in turns (kernel,
     library, library, kernel; 200 calls each) at phase 2's and 3's shapes,
-    and K10's wrapper now and as PR 6 had it; then K10's call taken apart:
+    and K10's wrapper now and as it was; then K10's call taken apart:
     the host nanoseconds of each wrapper step over 1,000 calls, both
     ways.  Returns the kernels line's call and library times of K10 and
     K12 from the turns (steadier than phases 2 and 3's 20 calls)."""
@@ -1837,9 +1842,9 @@ def phase_launch_path() -> dict:
                        lambda: KC.shrink_run(keys, counts, m),
                        lambda: (keys.narrow(0, 0, m).clone(),
                                 counts.narrow(0, 0, m).clone())),
-        "pr6": ("K10 grow_tally now vs PR 6's wrapper",
-                lambda: C.grow_tally(acc, grow),
-                lambda: _grow_tally_pr6(acc, grow))}
+        "earlier": ("K10 grow_tally now vs its earlier wrapper",
+                    lambda: C.grow_tally(acc, grow),
+                    lambda: _grow_tally_earlier(acc, grow))}
     res = {}
     for key, (name, kernel, library) in pairs.items():
         times = {"kernel": [], "library": []}
@@ -1852,17 +1857,17 @@ def phase_launch_path() -> dict:
             f"against {np.mean(times['library']):.4f} ms a call (in turns: "
             f"{times['kernel'][0]:.4f}, {times['library'][0]:.4f}, "
             f"{times['library'][1]:.4f}, {times['kernel'][1]:.4f})")
-    for pr6 in (False, True):
+    for earlier in (False, True):
         total: dict = {}
         for _ in range(1000):
-            for k, v in _grow_tally_steps(acc, grow, pr6).items():
+            for k, v in _grow_tally_steps(acc, grow, earlier).items():
                 total[k] = total.get(k, 0) + v
         torch.cuda.synchronize()
-        log(f"launch path: K10 grow_tally {'as PR 6 had it' if pr6 else 'now'}"
+        log(f"launch path: K10 grow_tally {'as it was' if earlier else 'now'}"
             f", host µs a step over 1,000 calls: " + ", ".join(
                 f"{k} {v / 1000 / 1e3:.3f}" for k, v in total.items())
             + f"; sum {sum(total.values()) / 1000 / 1e3:.3f}")
-    del res["pr6"]
+    del res["earlier"]
     return res
 
 

@@ -22,8 +22,9 @@
 // the new one; K11 reads 4 bytes an entry and writes 3), with one or two
 // integer operations an element.  Both are grid-stride loops with
 // neighbouring threads on neighbouring addresses (K10 a 16-byte word a
-// thread a step, K11 one element); K11 counts the entries that do not fit with a warp shuffle sum and one
-// 64-bit atomic per warp and count, so the counts are exact.
+// thread a step, K11 one element); K11 counts the entries that do not
+// fit with a warp shuffle sum and one 64-bit atomic per warp and count,
+// so the counts are exact.
 //
 // K15 replaces the tally of hast_tpu/parallel/mesh.py
 // `sharded_classify_step` (mesh.py:140-146): votes of N-containing reads
