@@ -15,9 +15,10 @@ failure:
    keys in a forced full table (2^21 rows) and a 4e7-key quot table
    (2^24 rows, 268 MB, past the 50 MB L2); K3 classify_tally against
    tally_step_ref with N reads, id -1 rows and reads shorter than k; K10
-   grow_tally from 2^19 to 2^20 rows (its int4 path, and its int32 loop
-   on a tally 12 bytes into its storage) and K11 pack_tally on 10^6 rows
-   (the main path's tally shapes).
+   grow_tally from 2^19 to 2^20 rows (its int4 path back to back and
+   with the L2 flushed before each call, and its int32 loop on a tally 12
+   bytes into its storage) and K11 pack_tally on 10^6 rows (the main
+   path's tally shapes).
 3. the stage-00 kernels the same way: K4 count_windows on 65,536 packed
    100-bp reads at k = 15, 21, 31 (masked, clean, key range up to
    2^64 - 1); K5 sort_pairs on the edge cases of
@@ -90,12 +91,10 @@ failure:
    into 10^5 barcodes, ids -1 and past the end included, random and in
    stLFR's barcode runs of 20-60 reads, into a fresh tally and with out=
    over two calls (call and device times; index_add_'s beside them).
-   Then the launch path: K10 against F.pad, K12 against narrow(0, 0,
-   m).clone() and K10 against its earlier wrapper, in turns (kernel,
-   library, library, kernel; 200 calls each; the kernels line takes K10's
-   and K12's call and library times from these turns), and K10's call
-   taken apart step by step (perf_counter_ns over 1,000 calls), now and
-   as it was.
+   Then the launch path: K10 against F.pad and K12 against narrow(0, 0,
+   m).clone(), in turns (kernel, library, library, kernel; 200 calls
+   each; the kernels line takes K10's and K12's call and library times
+   from these turns).
 12. sharded_classify_step on meshes of cuda:0 at dp x tp = 4x1 and 2x2,
    both slot formats, equal to K3's tally of the same reads.
 13. the mesh classify main path: phase 5's workload through
@@ -491,15 +490,26 @@ def _tally_kernels(rng) -> dict:
                                [C.grow_tally_ref(unaligned, max_id)]))
     loop_ms = device_ms(lambda: C.grow_tally(unaligned, max_id), 20,
                         "grow_tally_kernel")
+    # back to back, the 6.3 MB tally and its 12.6 MB copy stay in the 50
+    # MB L2, and the HBM bound does not hold; with 256 MB written before
+    # each call the kernel reads and writes HBM, as the bound counts
+    flush = torch.empty(1 << 28, dtype=torch.uint8, device=dev)
+    cold_ms = device_ms(lambda: (flush.zero_(), C.grow_tally(acc, max_id)),
+                        20, "grow_tally_kernel")
+    del flush
     log(f"K10 grow_tally {acc.shape[0]} -> {2 * acc.shape[0]} rows: kernel "
-        f"{ms:.4f} ms ({dev_ms:.4f} ms of it on the device; the int32 loop "
-        f"on an unaligned tally {loop_ms:.4f} ms), twin "
+        f"{ms:.4f} ms ({dev_ms:.4f} ms of it on the device back to back, "
+        f"{cold_ms:.4f} ms with the L2 flushed before each call; the int32 "
+        f"loop on an unaligned tally {loop_ms:.4f} ms back to back), twin "
         f"{plain:.4f} ms, torch.nn.functional.pad {lib:.4f} ms, bit-exact")
     del off, unaligned
-    res["grow_tally"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-        **bound("K10", 4 * acc.numel() + 8 * acc.numel(),
-                GROW_OPS * 2 * acc.numel()))
+    k10 = bound("K10", 4 * acc.numel() + 8 * acc.numel(),
+                GROW_OPS * 2 * acc.numel())
+    log(f"K10 grow_tally with the L2 flushed: "
+        f"{k10['bound_ms'] / cold_ms:.2f} of its bound on the device")
+    res["grow_tally"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             library_ms=lib, device_ms_l2_flushed=cold_ms,
+                             **k10)
     rows = C.grow_tally(acc, max_id)[:1_000_000]
     err = _check_same("K11 pack_tally", C.pack_tally(rows),
                       C.pack_tally_ref(rows))
@@ -1715,109 +1725,10 @@ def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
     return res
 
 
-@contextlib.contextmanager
-def _earlier_on_card(t):
-    """_build.on_card as K10's wrapper used it before _build.launch: a
-    torch.cuda.Stream for the stream and a context manager."""
-    import ctypes
-    import torch
-    dev = t.device
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index == torch.cuda.current_device():
-        yield stream
-    else:
-        with torch.cuda.device(dev):
-            yield stream
-
-
-def _grow_tally_earlier(acc, max_id: int):
-    """K10's earlier wrapper (a doubling loop for the row count,
-    require_cuda, _earlier_on_card, load_library(), check), on the same
-    kernel."""
-    import torch
-    from hast_tpu_torch.ops import _build
-    from hast_tpu_torch.pipeline import classify as C
-    C._check_tally(acc)
-    rows = max(acc.shape[0], 1)
-    while max_id >= rows:
-        rows *= 2
-    if rows == acc.shape[0]:
-        return acc
-    _build.require_cuda("grow_tally", acc)
-    out = torch.empty((rows, 3), dtype=torch.int32, device=acc.device)
-    with _earlier_on_card(acc) as stream:
-        rc = _build.load_library().hast_grow_tally(
-            acc.data_ptr(), acc.numel(), out.data_ptr(), out.numel(), stream)
-    _build.check(rc, "grow_tally")
-    _build.LAUNCHES["grow_tally"] += 1
-    return out
-
-
-def _grow_tally_steps(acc, max_id: int, earlier: bool) -> dict:
-    """One K10 call with time.perf_counter_ns around each step of the
-    wrapper, as it is or (earlier) as _grow_tally_earlier has it: the
-    nanoseconds by step (a step's clock read is in the next step)."""
-    import torch
-    from hast_tpu_torch.ops import _build
-    from hast_tpu_torch.pipeline import classify as C
-    ns, t = {}, time.perf_counter_ns()
-
-    def step(name):
-        nonlocal t
-        now = time.perf_counter_ns()
-        ns[name] = now - t
-        t = now
-
-    C._check_tally(acc)
-    step("check")
-    if earlier:
-        rows = max(acc.shape[0], 1)
-        while max_id >= rows:
-            rows *= 2
-    else:
-        rows = C._grown_rows(acc.shape[0], max_id)
-    step("rows")
-    if earlier:
-        _build.require_cuda("grow_tally", acc)
-    elif acc.device.type != "cuda" or not acc.is_contiguous():
-        _build.require_cuda("grow_tally", acc)
-    step("device check")
-    out = torch.empty((rows, 3), dtype=torch.int32, device=acc.device)
-    step("empty")
-    args = (acc.data_ptr(), acc.numel(), out.data_ptr(), out.numel())
-    if earlier:
-        cm = _earlier_on_card(acc)
-        stream = cm.__enter__()
-        step("on_card enter")
-        fn = _build.load_library().hast_grow_tally
-        step("library")
-        rc = fn(*args, stream)
-        step("ctypes call")
-        cm.__exit__(None, None, None)
-        step("on_card exit")
-        _build.check(rc, "grow_tally")
-    else:
-        fn = getattr(_build._lib or _build.load_library(), "hast_grow_tally")
-        step("library")
-        if acc.device.index != torch.cuda.current_device():
-            fail("the launch path runs on the current card")
-        stream = _build.raw_stream(acc.device.index)
-        step("stream")
-        rc = fn(*args, stream)
-        step("ctypes call")
-        if rc:
-            _build.check(rc, "grow_tally")
-    _build.LAUNCHES["grow_tally"] += 1
-    step("check + count")
-    return ns
-
-
 def phase_launch_path() -> dict:
     """K10 and K12 against their library calls, in turns (kernel,
-    library, library, kernel; 200 calls each) at phase 2's and 3's shapes,
-    and K10's wrapper now and as it was; then K10's call taken apart:
-    the host nanoseconds of each wrapper step over 1,000 calls, both
-    ways.  Returns the kernels line's call and library times of K10 and
+    library, library, kernel; 200 calls each) at phase 2's and 3's
+    shapes.  Returns the kernels line's call and library times of K10 and
     K12 from the turns (steadier than phases 2 and 3's 20 calls)."""
     import numpy as np
     import torch
@@ -1841,10 +1752,7 @@ def phase_launch_path() -> dict:
         "shrink_run": ("K12 shrink_run vs narrow().clone()",
                        lambda: KC.shrink_run(keys, counts, m),
                        lambda: (keys.narrow(0, 0, m).clone(),
-                                counts.narrow(0, 0, m).clone())),
-        "earlier": ("K10 grow_tally now vs its earlier wrapper",
-                    lambda: C.grow_tally(acc, grow),
-                    lambda: _grow_tally_earlier(acc, grow))}
+                                counts.narrow(0, 0, m).clone()))}
     res = {}
     for key, (name, kernel, library) in pairs.items():
         times = {"kernel": [], "library": []}
@@ -1857,17 +1765,6 @@ def phase_launch_path() -> dict:
             f"against {np.mean(times['library']):.4f} ms a call (in turns: "
             f"{times['kernel'][0]:.4f}, {times['library'][0]:.4f}, "
             f"{times['library'][1]:.4f}, {times['kernel'][1]:.4f})")
-    for earlier in (False, True):
-        total: dict = {}
-        for _ in range(1000):
-            for k, v in _grow_tally_steps(acc, grow, earlier).items():
-                total[k] = total.get(k, 0) + v
-        torch.cuda.synchronize()
-        log(f"launch path: K10 grow_tally {'as it was' if earlier else 'now'}"
-            f", host µs a step over 1,000 calls: " + ", ".join(
-                f"{k} {v / 1000 / 1e3:.3f}" for k, v in total.items())
-            + f"; sum {sum(total.values()) / 1000 / 1e3:.3f}")
-    del res["earlier"]
     return res
 
 
@@ -2126,7 +2023,7 @@ def phase_mesh_classify(tmp: str) -> int:
             4, devices=cards)))
     else:
         log("one card: every mesh shard ran on cuda:0 (the launch guard "
-            "of ops/_build.py on_card is not exercised across cards)")
+            "of ops/_build.py launch is not exercised across cards)")
     k13 = None
     with open(os.devnull, "w") as devnull:
         for name, mesh in meshes:

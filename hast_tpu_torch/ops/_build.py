@@ -8,23 +8,21 @@ under a name derived from a hash of the sources and flags, so an edited
 kernel is rebuilt and an unchanged one is loaded as it is.
 
 Each C entry launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises when that is not 0.  A
-wrapper calls its entry inside :func:`on_card`, which makes the tensors'
-card the current device (the ctypes entries have no device guard of
-their own) and hands it that card's current stream, or through
-:func:`launch`, which does the same with no context manager on the
-current card and checks and counts the launch.  The
-launch counters ``LAUNCHES`` count the wrappers' calls of their C
-entries, one each (an entry may launch several kernels: K5 launches a
-histogram, an offset scan and one sweep a radix pass), the twin counters
-calls of the plain PyTorch twins;
-``chip_smoke.py`` reads both to show which of the two ran the main path.
+``cudaGetLastError()``.  A wrapper calls its entry through
+:func:`launch`, which makes the tensors' card the current device when
+another one is (the ctypes entries have no device guard of their own),
+hands the entry that card's current stream, raises when the entry
+returns an error and counts the launch.  The launch counters
+``LAUNCHES`` count the wrappers' calls of their C entries, one each (an
+entry may launch several kernels: K5 launches a histogram, an offset
+scan and one sweep a radix pass), the twin counters calls of the plain
+PyTorch twins; ``chip_smoke.py`` reads both to show which of the two ran
+the main path.
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -185,26 +183,11 @@ def raw_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-@contextlib.contextmanager
-def on_card(t: torch.Tensor):
-    """Around a C entry's call: make t's card the current device, so that
-    the launch goes to the card whose memory the tensors are in, and give
-    that card's current stream as the entry's stream argument.  When the
-    card is already current (the usual case) nothing is switched."""
-    dev = t.device
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index == torch.cuda.current_device():
-        yield stream
-    else:
-        with torch.cuda.device(dev):
-            yield stream
-
-
 def launch(name: str, dev: torch.device, *args) -> None:
-    """The lean call of C entry ``hast_<name>`` for a wrapper whose
-    tensors are checked and lie on card dev: args, then dev's current
-    stream, with no context manager when dev is the current card; raises
-    on a refused launch and counts the launch."""
+    """Call C entry ``hast_<name>`` for a wrapper whose tensors are
+    checked and lie on card dev: args, then dev's current stream, with no
+    device switch when dev is the current card; raises on a refused
+    launch and counts the launch."""
     fn = getattr(_lib or load_library(), "hast_" + name)
     if dev.index == torch.cuda.current_device():
         rc = fn(*args, raw_stream(dev.index))

@@ -101,12 +101,7 @@ def broadcast_probe(table_hi: torch.Tensor, table_lo: torch.Tensor,
     if out.numel() == 0:
         return out
     n = table_hi.numel()
-    lib = _build.load_library()
-    with _build.on_card(q_hi) as stream:
-        rc = lib.hast_broadcast_probe(
-            table_hi.data_ptr(), table_lo.data_ptr(), n, q_hi.data_ptr(),
-            q_lo.data_ptr(), q_hi.numel(), int(n % chunk != 0),
-            out.data_ptr(), stream)
-    _build.check(rc, "broadcast_probe")
-    _build.LAUNCHES["broadcast_probe"] += 1
+    _build.launch("broadcast_probe", q_hi.device, table_hi.data_ptr(),
+                  table_lo.data_ptr(), n, q_hi.data_ptr(), q_lo.data_ptr(),
+                  q_hi.numel(), int(n % chunk != 0), out.data_ptr())
     return out

@@ -202,11 +202,7 @@ def canonical_windows(packed: torch.Tensor, lengths: torch.Tensor, k: int):
     valid = torch.empty((n, n_win), dtype=torch.bool, device=packed.device)
     if keys.numel() == 0:
         return keys, valid
-    lib = _build.load_library()
-    with _build.on_card(packed) as stream:
-        rc = lib.hast_canonical_windows(
-            packed.data_ptr(), lengths.data_ptr(), n, lp, k, keys.data_ptr(),
-            valid.data_ptr(), stream)
-    _build.check(rc, "canonical_windows")
-    _build.LAUNCHES["canonical_windows"] += 1
+    _build.launch("canonical_windows", packed.device, packed.data_ptr(),
+                  lengths.data_ptr(), n, lp, k, keys.data_ptr(),
+                  valid.data_ptr())
     return keys, valid

@@ -531,10 +531,6 @@ def probe(table: KmerTable, keys: torch.Tensor) -> torch.Tensor:
     out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
     if out.numel() == 0:
         return out
-    lib = _build.load_library()
-    with _build.on_card(keys) as stream:
-        rc = lib.hast_probe(*kernel_table_args(table), keys.data_ptr(),
-                            keys.numel(), out.data_ptr(), stream)
-    _build.check(rc, "probe")
-    _build.LAUNCHES["probe"] += 1
+    _build.launch("probe", keys.device, *kernel_table_args(table),
+                  keys.data_ptr(), keys.numel(), out.data_ptr())
     return out

@@ -288,14 +288,11 @@ def count_windows(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     keys = torch.empty(n * n_win, dtype=torch.int64, device=packed.device)
     if keys.numel() == 0:
         return keys
-    with _build.on_card(packed) as stream:
-        rc = _build.load_library().hast_count_windows(
-            packed.data_ptr(), lengths.data_ptr(),
-            None if good is None else good.data_ptr(),
-            0 if good is None else good.shape[1], n, lp, k,
-            int(key_range is not None), lo, hi, keys.data_ptr(), stream)
-    _build.check(rc, "count_windows")
-    _build.LAUNCHES["count_windows"] += 1
+    _build.launch("count_windows", packed.device, packed.data_ptr(),
+                  lengths.data_ptr(),
+                  None if good is None else good.data_ptr(),
+                  0 if good is None else good.shape[1], n, lp, k,
+                  int(key_range is not None), lo, hi, keys.data_ptr())
     return keys
 
 
@@ -383,13 +380,9 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor | None, k: int,
                          f"{_SORT_PORTION}")
     work = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with _build.on_card(keys) as stream:
-        rc = lib.hast_sort_pairs(
-            keys.data_ptr(), ptr(payload), ka.data_ptr(), ptr(pa),
-            kb.data_ptr(), ptr(pb), n, 2 * k + 1, _SORT_PORTION,
-            work.data_ptr(), stream)
-    _build.check(rc, "sort_pairs")
-    _build.LAUNCHES["sort_pairs"] += 1
+    _build.launch("sort_pairs", keys.device, keys.data_ptr(), ptr(payload),
+                  ka.data_ptr(), ptr(pa), kb.data_ptr(), ptr(pb), n, 2 * k + 1,
+                  _SORT_PORTION, work.data_ptr())
     if -(-(2 * k + 1) // 8) % 2:
         return ka, pa
     return kb, pb
@@ -449,13 +442,9 @@ def fold_runs(keys: torch.Tensor, counts: torch.Tensor, out=None):
     if keys.numel() == 0:
         return out_keys, out_counts, n_unique
     tile_sums = _scan_scratch(keys.numel(), keys.device)
-    with _build.on_card(keys) as stream:
-        rc = _build.load_library().hast_fold_runs(
-            keys.data_ptr(), counts.data_ptr(), keys.numel(),
-            out_keys.data_ptr(), out_counts.data_ptr(), n_unique.data_ptr(),
-            tile_sums.data_ptr(), stream)
-    _build.check(rc, "fold_runs")
-    _build.LAUNCHES["fold_runs"] += 1
+    _build.launch("fold_runs", keys.device, keys.data_ptr(), counts.data_ptr(),
+                  keys.numel(), out_keys.data_ptr(), out_counts.data_ptr(),
+                  n_unique.data_ptr(), tile_sums.data_ptr())
     return out_keys, out_counts, n_unique
 
 
@@ -483,12 +472,9 @@ def shrink_run(keys: torch.Tensor, counts: torch.Tensor, n: int):
     out_keys = torch.empty(n, dtype=torch.int64, device=keys.device)
     out_counts = torch.empty(n, dtype=torch.int32, device=keys.device)
     if n:
-        with _build.on_card(keys) as stream:
-            rc = _build.load_library().hast_shrink_run(
-                keys.data_ptr(), counts.data_ptr(), n, out_keys.data_ptr(),
-                out_counts.data_ptr(), stream)
-        _build.check(rc, "shrink_run")
-        _build.LAUNCHES["shrink_run"] += 1
+        _build.launch("shrink_run", keys.device, keys.data_ptr(),
+                      counts.data_ptr(), n, out_keys.data_ptr(),
+                      out_counts.data_ptr())
     return out_keys, out_counts
 
 
@@ -524,12 +510,8 @@ def count_stats(counts: torch.Tensor, high: int):
     _build.require_cuda("count_stats", counts)
     bins = torch.zeros(high + 2, dtype=torch.int64, device=counts.device)
     total = torch.zeros((), dtype=torch.int64, device=counts.device)
-    with _build.on_card(counts) as stream:
-        rc = _build.load_library().hast_count_stats(
-            counts.data_ptr(), counts.numel(), high, bins.data_ptr(),
-            total.data_ptr(), stream)
-    _build.check(rc, "count_stats")
-    _build.LAUNCHES["count_stats"] += 1
+    _build.launch("count_stats", counts.device, counts.data_ptr(),
+                  counts.numel(), high, bins.data_ptr(), total.data_ptr())
     return bins, total
 
 
@@ -567,19 +549,15 @@ def marker_filter_ref(a_keys, a_counts, a_n: int, b_keys, b_counts,
                               b_upper))
 
 
-def _filter_side(lib, x_keys, x_counts, y_keys, y_n: int, lower: int,
+def _filter_side(x_keys, x_counts, y_keys, y_n: int, lower: int,
                  upper: int):
     n = x_keys.numel()
     out = torch.empty_like(x_keys)
     keep = torch.empty(n, dtype=torch.uint8, device=x_keys.device)
     tile_sums = _scan_scratch(n, x_keys.device)
-    with _build.on_card(x_keys) as stream:
-        rc = lib.hast_marker_filter(
-            x_keys.data_ptr(), x_counts.data_ptr(), n, y_keys.data_ptr(),
-            y_n, lower, upper, keep.data_ptr(), tile_sums.data_ptr(),
-            out.data_ptr(), stream)
-    _build.check(rc, "marker_filter")
-    _build.LAUNCHES["marker_filter"] += 1
+    _build.launch("marker_filter", x_keys.device, x_keys.data_ptr(),
+                  x_counts.data_ptr(), n, y_keys.data_ptr(), y_n, lower, upper,
+                  keep.data_ptr(), tile_sums.data_ptr(), out.data_ptr())
     return out, tile_sums[-1]
 
 
@@ -606,12 +584,8 @@ def marker_filter(a_keys: torch.Tensor, a_counts: torch.Tensor, a_n: int,
         return marker_filter_ref(a_keys, a_counts, a_n, b_keys, b_counts,
                                  b_n, (a_lower, a_upper, b_lower, b_upper))
     _build.require_cuda("marker_filter", a_keys, a_counts, b_keys, b_counts)
-    lib = _build.load_library()
-    out = (*_filter_side(lib, a_keys, a_counts, b_keys, b_n, a_lower,
-                         a_upper),
-           *_filter_side(lib, b_keys, b_counts, a_keys, a_n, b_lower,
-                         b_upper))
-    return out
+    return (*_filter_side(a_keys, a_counts, b_keys, b_n, a_lower, a_upper),
+            *_filter_side(b_keys, b_counts, a_keys, a_n, b_lower, b_upper))
 
 
 # ---------------------------------------------------------------------------

@@ -187,14 +187,10 @@ def tally_step(table: H.KmerTable, acc: torch.Tensor, packed: torch.Tensor,
                         has_n)
     if n == 0:
         return acc
-    lib = _build.load_library()
-    with _build.on_card(acc) as stream:
-        rc = lib.hast_classify_tally(
-            *H.kernel_table_args(table), packed.data_ptr(),
-            lengths.data_ptr(), ids.data_ptr(), has_n.data_ptr(), n,
-            packed.shape[1], acc.data_ptr(), acc.shape[0], stream)
-    _build.check(rc, "classify_tally")
-    _build.LAUNCHES["classify_tally"] += 1
+    _build.launch("classify_tally", acc.device, *H.kernel_table_args(table),
+                  packed.data_ptr(), lengths.data_ptr(), ids.data_ptr(),
+                  has_n.data_ptr(), n, packed.shape[1], acc.data_ptr(),
+                  acc.shape[0])
     return acc
 
 
@@ -382,8 +378,8 @@ def grow_tally(acc: torch.Tensor, max_id: int) -> torch.Tensor:
     already.  CPU tensors take the twin; CUDA tensors launch the kernel.
 
     The kernel takes a few µs at 2^20 rows, so the wrapper's Python is
-    most of a call: it keeps to the checks, one allocation and the lean C
-    call of :func:`_build.launch`."""
+    most of a call: it keeps to the checks, one allocation and one call
+    of :func:`_build.launch`."""
     _check_tally(acc)
     rows = _grown_rows(acc.shape[0], max_id)
     if rows == acc.shape[0]:
@@ -425,12 +421,8 @@ def pack_tally(acc: torch.Tensor):
     lo16 = torch.empty(acc.shape, dtype=torch.int16, device=acc.device)
     over = torch.zeros(2, dtype=torch.int64, device=acc.device)
     if acc.numel():
-        with _build.on_card(acc) as stream:
-            rc = _build.load_library().hast_pack_tally(
-                acc.data_ptr(), acc.numel(), lo8.data_ptr(),
-                lo16.data_ptr(), over.data_ptr(), stream)
-        _build.check(rc, "pack_tally")
-        _build.LAUNCHES["pack_tally"] += 1
+        _build.launch("pack_tally", acc.device, acc.data_ptr(), acc.numel(),
+                      lo8.data_ptr(), lo16.data_ptr(), over.data_ptr())
     return lo8, lo16, over
 
 
@@ -496,13 +488,10 @@ def vote_reads(table: H.KmerTable, reads: torch.Tensor,
                       device=reads.device)
     if n == 0:
         return out
-    with _build.on_card(reads) as stream:
-        rc = _build.load_library().hast_vote_reads(
-            *H.kernel_table_args(table), row_lo or 0, table.data.shape[0],
-            reads.data_ptr(), lengths.data_ptr(), n, reads.shape[1],
-            int(not packed), out.data_ptr(), stream)
-    _build.check(rc, "vote_reads")
-    _build.LAUNCHES["vote_reads"] += 1
+    _build.launch("vote_reads", reads.device, *H.kernel_table_args(table),
+                  row_lo or 0, table.data.shape[0], reads.data_ptr(),
+                  lengths.data_ptr(), n, reads.shape[1], int(not packed),
+                  out.data_ptr())
     return out
 
 
@@ -604,12 +593,9 @@ def tally_votes(votes: torch.Tensor, has_n: torch.Tensor, ids: torch.Tensor,
         raise ValueError("tally_votes: votes must be 8-byte aligned (the "
                          "kernel loads a read's two votes as one word)")
     if n and num_barcodes:
-        with _build.on_card(votes) as stream:
-            rc = _build.load_library().hast_tally_votes(
-                votes.data_ptr(), has_n.data_ptr(), ids.data_ptr(), n,
-                tally.data_ptr(), num_barcodes, stream)
-        _build.check(rc, "tally_votes")
-        _build.LAUNCHES["tally_votes"] += 1
+        _build.launch("tally_votes", votes.device, votes.data_ptr(),
+                      has_n.data_ptr(), ids.data_ptr(), n, tally.data_ptr(),
+                      num_barcodes)
     return tally
 
 

@@ -266,14 +266,9 @@ def segment_votes(table: H.KmerTable, data: torch.Tensor,
     tile_start = torch.zeros(n_rec + 1, dtype=torch.int64, device=data.device)
     torch.cumsum((n_win + SEGMENT_TILE - 1) // SEGMENT_TILE, 0,
                  out=tile_start[1:])
-    lib = _build.load_library()
-    with _build.on_card(out) as stream:
-        rc = lib.hast_segment_votes(
-            *H.kernel_table_args(table), data.data_ptr(), starts.data_ptr(),
-            tile_start.data_ptr(), n_rec,
-            data.numel() // SEGMENT_TILE + n_rec, out.data_ptr(), stream)
-    _build.check(rc, "segment_votes")
-    _build.LAUNCHES["segment_votes"] += 1
+    _build.launch("segment_votes", out.device, *H.kernel_table_args(table),
+                  data.data_ptr(), starts.data_ptr(), tile_start.data_ptr(),
+                  n_rec, data.numel() // SEGMENT_TILE + n_rec, out.data_ptr())
     return out
 
 

@@ -493,10 +493,11 @@ def test_load_library_builds_once_across_threads(monkeypatch):
 def test_on_card_switches_only_to_another_card(monkeypatch, current):
     """A launch on cuda:1's tensors makes cuda:1 current for the call when
     another card is current, and enters no device switch when it already
-    is; either way the entry gets cuda:1's current stream."""
+    is; either way the entry gets cuda:1's current raw stream, as torch
+    reports it for that card."""
     import contextlib
     import types
-    entered = []
+    entered, calls = [], []
 
     @contextlib.contextmanager
     def fake_device(dev):
@@ -505,12 +506,14 @@ def test_on_card_switches_only_to_another_card(monkeypatch, current):
 
     monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
     monkeypatch.setattr(torch.cuda, "device", fake_device)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: (
-        types.SimpleNamespace(cuda_stream=0x1000 + dev.index)))
-    t = types.SimpleNamespace(device=torch.device("cuda", 1))
-    with _build.on_card(t) as stream:
-        assert stream.value == 0x1001
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0x1000 + index, raising=False)
+    monkeypatch.setattr(_build, "_lib", types.SimpleNamespace(
+        hast_fake=lambda *args: calls.append(args) or 0))
+    _build.launch("fake", torch.device("cuda", 1), 5)
+    assert calls == [(5, 0x1001)]
     assert entered == ([] if current == 1 else [torch.device("cuda", 1)])
+    del _build.LAUNCHES["fake"]
 
 
 @pytest.mark.parametrize("current", [0, 1])

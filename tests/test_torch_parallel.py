@@ -703,17 +703,27 @@ def test_route_kmers_kernel_matches_twin(card, dp, cap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dp", [4, 8])
-def test_route_batch_kernel_matches_twin(card, dp):
+@pytest.mark.parametrize("dp,L,top", [
+    pytest.param(4, 128, 128, id="4"), pytest.param(8, 128, 128, id="8"),
+    pytest.param(4, 256, 250, id="4-long-reads"),
+    pytest.param(8, 100, 100, id="8-unaligned-rows"),
+    pytest.param(40, 128, 128, id="40-shared-atomics")])
+def test_route_batch_kernel_matches_twin(card, dp, L, top):
     """The batch form in one launch against route_batch_ref: segments
-    equal once sorted, drop counts equal; also the skewed batch of 64
-    identical reads, whose drops fall as the cap grows."""
-    seqs, lengths = batch_reads(dp, 64 * dp)
-    skew = torch.from_numpy(np.tile(np.frombuffer(SKEW, np.uint8), (64, 1)))
-    skew_lens = torch.full((64,), len(SKEW), dtype=torch.int32)
-    for reads, lens, cap in ((seqs, lengths, 64 * 108 // dp * 2),
-                             (skew, skew_lens, 64 // dp * 108 // dp * 2),
-                             (skew, skew_lens, 64 // dp * 108)):
+    equal once sorted, drop counts equal; also the skewed batch of
+    identical reads, whose drops fall as the cap grows.  Rows of 256
+    bytes hold reads of up to 250 (past one warp segment of 128
+    windows), rows of 100 bytes take the byte loads (not 16-byte ones),
+    and dp 40 takes shared atomics instead of ballots."""
+    seqs, lengths = batch_reads(dp, 64 * dp, L)
+    lengths.clamp_(max=top)
+    per = max(64 // dp, 1)                   # skewed reads a source shard
+    skew = torch.full((per * dp, L), ord("A"), dtype=torch.uint8)
+    skew_lens = torch.full((per * dp,), top, dtype=torch.int32)
+    n_win = top - 21 + 1
+    for reads, lens, cap in ((seqs, lengths, 64 * n_win // dp * 2),
+                             (skew, skew_lens, per * n_win // dp * 2),
+                             (skew, skew_lens, per * n_win)):
         want, want_lost = PM.route_batch(reads, lens, 21, dp, cap, dp)
         launches = _build.LAUNCHES["route_kmers"]
         got, lost = PM.route_batch(reads.to(card), lens.to(card), 21, dp,
@@ -745,7 +755,7 @@ def test_sharded_count_chunk_on_one_card(card):
 @pytest.mark.cuda
 def test_classify_on_named_cards(card, tmp_path):
     """--device cuda:0 and, with two or more cards, the last one: the
-    launch goes to the tensors' own card (ops/_build.py on_card)."""
+    launch goes to the tensors' own card (ops/_build.py launch)."""
     from hast_tpu_torch.cli import main
     hap0, hap1, reads = _golden_inputs(tmp_path)
     names = ["cuda:0"]
