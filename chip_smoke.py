@@ -26,7 +26,8 @@ failure:
    1, all keys equal, all sentinels, sorted, reversed) at k = 15, 17, 21,
    31 in one portion and in portions of two tiles, then on 2^26 pairs at
    k = 21 and 31 beside torch.sort(stable=True); K6
-   fold_runs on a 2^26-element duplicate-heavy sorted run and K12
+   fold_runs on a 2^26-element duplicate-heavy sorted run (its two
+   kernels once a call, nothing else on the card) and K12
    shrink_run on its distinct rows; K7
    count_stats on 2^26 counts, high = 10000; K8 marker_filter on two
    2^25-row runs sharing half their keys, bounds (9, 33) and
@@ -61,9 +62,12 @@ failure:
    paternal count's device time (torch.profiler) are printed.
 8. K9 segment_votes against its twin on the card, bit-exact, with both
    times: 4,096 random records of 0-20 kb (2 % soft-masked, 1 % N, a few
-   IUPAC bytes, planted table keys) plus records of k - 1, k, 4096 + k - 1
-   and 50,000 bytes, on phase 2's 2^20-row quot table, the same keys in
-   the forced full table and the 2^24-row quot table.
+   IUPAC bytes, planted table keys) plus records of k - 1, k, 4096 + k - 1,
+   50,000 (bad bytes on every tile edge), 1024 + k - 1 (all lowercase),
+   4097 + k - 1 and 2k + 11 bytes (one good window), on phase 2's
+   2^20-row quot table, the same keys in the forced full table and the
+   2^24-row quot table; on the last, the device time back to back and
+   with the L2 flushed before each call.
 9. the stage-03 goldens on the card: ``mkoutput --device cuda`` on
    tests/golden/stage03 (the 13 files and the primary link),
    ``classify-segments --format fastq``, and ``run --device cuda`` (HAST.sh
@@ -209,6 +213,7 @@ TARGET_PANEL = 10_000         # K16: targeted-region markers at k = 21
 CROSSOVER_SLOTS = (16, 32, 64, 128, 256)   # K16 vs K2: raw panels
 N_TALLY_BARCODES = 100_000    # K15 check
 MESH_BATCH = 1 << 14          # the mesh stage-00 batch (FQ.DEFAULT_BATCH)
+FOLD_KERNELS = ("fold_tiles_kernel", "fold_tail_kernel")   # K6's two
 STAGE03_FILES = (
     "output.phb.1.fa", "output.phb.2.fa", "output.homo.fa", "phasing.out",
     "output.phb.12.father.idx", "output.phb.12.mother.idx",
@@ -668,12 +673,22 @@ def phase_kernels00() -> dict:
     err = _check_same("K6 fold_runs", got, KC.fold_runs_ref(keys, counts))
     ms = cuda_ms(lambda: KC.fold_runs(keys, counts), 10)
     plain = cuda_ms(lambda: KC.fold_runs_ref(keys, counts), 3)
+    dev_ms = [device_ms(lambda: KC.fold_runs(keys, counts), 10, name)
+              for name in FOLD_KERNELS]
+    kernels = _kernels_of_one_call(lambda: KC.fold_runs(keys, counts))
+    if sorted(kernels.values()) != [1, 1] or \
+            not all(any(f in name for f in FOLD_KERNELS) for name in kernels):
+        fail(f"K6 fold_runs: one call ran {kernels} on the card, not its "
+             "two kernels once each")
     log(f"K6 fold_runs: {n} sorted keys, {int(got[2])} distinct: kernel "
-        f"{ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
+        f"{ms:.4f} ms ({sum(dev_ms):.4f} ms of it on the device: the "
+        f"look-back pass {dev_ms[0]:.4f}, the tail {dev_ms[1]:.4f}; one "
+        f"call's device work: {kernels}), twin {plain:.4f} ms, bit-exact")
+    # keys and counts read once, every output slot written once (the
+    # contract's full-size output, kmer_count.py:337-341), n_unique
     res["fold_runs"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                            library_ms=None,
-                            **bound("K6", 12 * n + 12 * int(got[2]) + 8,
-                                    FOLD_OPS * n))
+                            library_ms=None, device_ms=sum(dev_ms),
+                            **bound("K6", 24 * n + 8, FOLD_OPS * n))
     # K12 on the fold's distinct rows, as DeviceCounter._fold runs it
     m = int(got[2])
     err = _check_same("K12 shrink_run", KC.shrink_run(got[0], got[1], m),
@@ -737,11 +752,12 @@ def phase_kernels00() -> dict:
             f"{int(got[1])} + {int(got[3])}: kernel {ms:.4f} ms, twin "
             f"{plain:.4f} ms, bit-exact")
         if bounds[0] == 9:
-            # two runs of 8-byte keys and 4-byte counts in, kept keys out
+            # two runs of 8-byte keys and 4-byte counts in, and out every
+            # slot of the two full-size key outputs (_compact_kernel keeps
+            # the input's size, kmer_count.py:602-608) and the two counts
             res["marker_filter"] = dict(
                 ms=ms, plain_ms=plain, library_ms=None,
-                **bound("K8", 2 * rows * 12
-                        + 8 * (int(got[1]) + int(got[3])) + 16,
+                **bound("K8", 2 * rows * 12 + 2 * rows * 8 + 16,
                         MERGE_OPS * 2 * rows))
     res["marker_filter"]["max_abs_err"] = err
     return res
@@ -1031,6 +1047,19 @@ def _device_us(event) -> float:
     return us if us is not None else event.self_cuda_time_total
 
 
+def _kernels_of_one_call(fn) -> dict:
+    """{name: count} of the device work (kernels, memsets, copies) of one
+    call of fn, after a warm-up call, from torch.profiler."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if _device_us(e)}
+
+
 def phase_stage00_breakdown(tmp: str, reads: dict) -> None:
     """Where stage 00's time goes: the reader alone, then the device
     engine under torch.profiler (device time by kernel, idle share)."""
@@ -1056,11 +1085,10 @@ def phase_stage00_breakdown(tmp: str, reads: dict) -> None:
 
     groups = (("K4 count_windows", ("count_windows_kernel",)),
               ("K5 sort_pairs", ("onesweep_",)),
-              ("K6 fold_runs", ("StartFlag", "fill_kernel",
-                                "n_unique_kernel")),
+              ("K6 fold_runs", FOLD_KERNELS),
               ("K7 count_stats", ("count_stats_kernel",)),
               ("K8 marker_filter", ("keep_kernel", "KeepVal")),
-              ("scan tiles (K6, K8)", ("scan_tiles_kernel",)),
+              ("scan tiles (K8)", ("scan_tiles_kernel",)),
               ("copies and memsets (K5's status words)",
                ("Memcpy", "Memset")))
     out = os.path.join(tmp, "stage00_profiled")
@@ -1096,13 +1124,20 @@ def phase_stage00_breakdown(tmp: str, reads: dict) -> None:
 
 def _segment_records(rng, k: int, key_sets):
     """K9's check input: SEG_RECORDS random records of 0-20 kb plus ones of
-    k - 1, k, 4096 + k - 1 and 50,000 bytes, a table key planted every 200
-    bytes (from each key set in turn), then 2 % of bytes soft-masked, 1 %
-    N and 0.1 % IUPAC codes.  Returns (data, starts) numpy arrays."""
+    k - 1, k, 4096 + k - 1 (one tile to the byte), 50,000, 1024 + k - 1
+    and 4097 + k - 1 bytes, a table key planted every 200 bytes (from each
+    key set in turn), then 2 % of bytes soft-masked, 1 % N and 0.1 %
+    IUPAC codes; then bad bytes on the first byte of every 1,024-window
+    and 4,096-window tile of the 50,000-byte record and on the last byte
+    of each tile's last window, one record all lowercase (the one of 1024
+    + k - 1 bytes) and one with a single good window (the last).  Returns
+    (data, starts) numpy arrays; the seven records after the random ones
+    come in the order above."""
     import numpy as np
     from hast_tpu_torch.ops import encode as E
     lengths = np.concatenate([rng.integers(0, 20_001, SEG_RECORDS),
-                              [k - 1, k, 4096 + k - 1, 50_000]])
+                              [k - 1, k, 4096 + k - 1, 50_000, 1024 + k - 1,
+                               4097 + k - 1, 2 * k + 11]])
     starts = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
     total = int(starts[-1])
     data = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, total)]
@@ -1118,6 +1153,16 @@ def _segment_records(rng, k: int, key_sets):
     iupac = np.frombuffer(b"RYKMSWBDHV", np.uint8)
     data = np.where((u >= 0.03) & (u < 0.031),
                     iupac[rng.integers(0, iupac.size, total)], data)
+    r = SEG_RECORDS + 3                      # the 50,000-byte record
+    for tile in (1024, 4096):
+        for t in range(starts[r], starts[r + 1], tile):
+            for pos in (t, t + tile + k - 2):
+                if pos < starts[r + 1]:
+                    data[pos] = b"aNRy"[pos % 4]
+    data[starts[r + 1]:starts[r + 2]] |= 0x20
+    data[starts[-2]:starts[-1]] = ord("N")
+    data[starts[-2] + k:starts[-2] + 2 * k] = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, k)]
     return data.astype(np.uint8), starts
 
 
@@ -1158,25 +1203,44 @@ def phase_kernels03(tables: dict, words, bwords) -> dict:
         R.segment_votes_ref(table, data, starts, want)
         err = max(err, _check_same(f"K9 segment_votes ({name})", [got],
                                    [want]))
-        if int(got.sum()) == 0 or int(got[n_rec - 4].sum()):
+        edges = got[SEG_RECORDS:].tolist()   # k - 1, ..., one good window
+        if int(got.sum()) == 0 or sum(edges[0]) or sum(edges[4]) or \
+                sum(edges[6]) > 2:
             fail(f"K9 segment_votes ({name}): {int(got.sum())} votes, "
-                 f"{got[n_rec - 4].tolist()} for the record of k - 1 bytes")
+                 f"{edges} for the records of k - 1 bytes, ..., all "
+                 "lowercase, one good window")
         out = torch.zeros_like(got)
-        ms = cuda_ms(lambda: R.segment_votes(table, data, starts, out), 10)
+        call = lambda: R.segment_votes(table, data, starts, out)  # noqa
+        ms = cuda_ms(call, 10)
+        dev_ms = device_ms(call, 10, "segment_votes_kernel")
         plain = cuda_ms(lambda: R.segment_votes_ref(table, data, starts,
                                                     out), 1)
         log(f"K9 segment_votes {name} table {table.n_buckets} rows, "
             f"{n_rec} records, {data.numel()} bytes, {n_valid} valid "
-            f"windows, {int(got.sum())} votes: kernel {ms:.4f} ms, twin "
+            f"windows, {int(got.sum())} votes: kernel {ms:.4f} ms "
+            f"({dev_ms:.4f} ms on the device back to back), twin "
             f"{plain:.4f} ms, bit-exact")
+    # back to back, most of the 41 MB of record bytes stay in the 50 MB
+    # L2; with 256 MB written before each call they come from HBM, as the
+    # bound counts them
+    flush = torch.empty(1 << 28, dtype=torch.uint8, device=dev)
+    cold_ms = device_ms(lambda: (flush.zero_(), call()), 10,
+                        "segment_votes_kernel")
+    del flush
+    log(f"K9 segment_votes on the 2^24-row table with the L2 flushed before "
+        f"each call: {cold_ms:.4f} ms on the device")
     # the last, HBM-resident table: bytes and starts in, votes read and
     # written, two rows per valid window
     windows = int((starts[1:] - starts[:-1] - K + 1).clamp(min=0).sum())
+    k9 = bound("K9", data.numel() + 8 * (n_rec + 1) + 32 * n_rec
+               + 32 * n_valid, WINDOW_OPS * windows
+               + (PROBE_OPS[tables["big"].fmt] + VOTE_OPS) * n_valid)
+    log(f"K9 segment_votes on the 2^24-row table: {k9['bound_ms'] / dev_ms:.2f}"
+        f" of its bound back to back, {k9['bound_ms'] / cold_ms:.2f} with "
+        "the L2 flushed")
     return {"segment_votes": dict(
         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
-        **bound("K9", data.numel() + 8 * (n_rec + 1) + 32 * n_rec
-                + 32 * n_valid, WINDOW_OPS * windows
-                + (PROBE_OPS[tables["big"].fmt] + VOTE_OPS) * n_valid))}
+        device_ms=dev_ms, device_ms_l2_flushed=cold_ms, **k9)}
 
 
 def phase_goldens03(tmp: str) -> None:

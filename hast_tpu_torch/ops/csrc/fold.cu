@@ -3,101 +3,310 @@
 //
 // Replaces the body of hast_tpu/ops/kmer_count.py `_merge_rle_kernel`
 // after its sort (K5 does the sort).  Group g is the g-th distinct key in
-// order: a start flag where a key differs from its predecessor, and an
-// inclusive scan of the flags (scan.cuh) gives each element its group.
-// out_key[g] is the group's key and out_count[g] the int32 sum of its
-// counts; the sentinel group (INT64_MAX, the invalid-window pads) keeps
-// its key with count 0, every other slot is (INT64_MAX, 0), and
-// n_unique counts the groups that are not the sentinel.
+// order.  out_key[g] is the group's key and out_count[g] the int32 sum of
+// its counts (wrapping, as the JAX scatter-add does); the sentinel group
+// (INT64_MAX, the invalid-window pads) keeps its key with count 0, every
+// other slot is (INT64_MAX, 0), and n_unique counts the groups that are
+// not the sentinel.
 //
-// What bounds it on an H100: memory traffic (the keys are read four
-// times: flag and neighbour, in the reduce and the apply launch) and, on
-// duplicate-heavy runs, atomics on one address.  The design sums a group
-// inside each warp first (__match_any_sync on the group id, then
-// __reduce_add_sync), so a group costs one int32 atomic per warp it
-// spans; integer atomics give the same sums in any order, so the result
-// is exact and equals the twin's bit for bit.
+// What bounds it on an H100: bytes.  The work must read each key and
+// count once and write every output slot once (24 bytes an element).
+// The design is one pass of a segmented scan with a decoupled look-back,
+// then one tail launch:
+//  - a block takes the next tile of kTile elements from an atomic
+//    counter, loads it coalesced into shared memory (and the keys just
+//    before and after it), and each thread folds kItems consecutive
+//    elements; a block scan of the threads' aggregates gives each element
+//    its group within the tile.  An aggregate is (group starts, count sum
+//    after the last start, or over everything when there is none), and
+//    two compose in order as a segmented sum;
+//  - the tile publishes its aggregate in a 64-bit status word, then
+//    stages its group ends (an element whose successor differs) in shared
+//    memory.  Meanwhile, from the moment the tile is claimed, an extra
+//    warp of the block walks back over the predecessors' words, 32 at a
+//    time, until an inclusive prefix, so the walk overlaps the tile's
+//    own loads; the block then publishes its inclusive prefix and writes
+//    its group slots coalesced, each slot once, by the tile that holds
+//    the group's last element, the carried count added to a group that
+//    began in an earlier tile.  No fill first, no second read of the
+//    keys, no atomics on the counts;
+//  - the tail launch reads the group total, writes (INT64_MAX, 0) into
+//    slots [groups, n) and n_unique, and zeroes the status words and the
+//    tile counter for the next call on the stream.  The wrapper keeps one
+//    such scratch buffer a card and stream, zeroed when it is allocated,
+//    so that a call is two launches and no memset.
+// The sums are uint32 additions in a fixed order, so the result equals
+// the twin bit for bit.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "scan.cuh"
-
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 8;
+constexpr int kTile = kThreads * kItems;   // FOLD_TILE in kmer_count.py
 constexpr int64_t kSent = INT64_MAX;
+// A status word: 0 while the tile is unpublished, else the high half is
+// (1 + the tile's group starts), bit 31 clear (its aggregate), or
+// kPrefix | the starts through the tile (the inclusive prefix; n < 2^31),
+// and the low half the count sum of the open group.
+constexpr uint32_t kPrefix = 1u << 31;
+// Blocks an SM holds (registers capped to fit them) and the pause between
+// polls of a status word, both chosen by timing on an H100: three blocks
+// an SM, or polls back to back, ran slower
+constexpr int kBlocksPerSm = 4;
+constexpr unsigned kPollNs = 600;
 
-__global__ void fill_kernel(int64_t* __restrict__ out_keys,
-                            int32_t* __restrict__ out_counts, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    out_keys[i] = kSent;
-    out_counts[i] = 0;
+// Shared-memory slots of element e: a thread reads elements kItems
+// apart, so one pad word every 16 keys and every 8 counts keeps a
+// half-warp's key reads and a warp's count reads on distinct banks.
+__device__ __forceinline__ int kslot(int e) { return e + (e >> 4); }
+__device__ __forceinline__ int cslot(int e) { return e + (e >> 3); }
+
+struct Agg {
+  uint32_t s;   // group starts
+  uint32_t c;   // count sum after the last start (over all if s == 0)
+};
+
+__device__ __forceinline__ Agg compose(Agg older, Agg newer) {
+  return {older.s + newer.s, newer.s ? newer.c : older.c + newer.c};
+}
+
+__device__ __forceinline__ Agg shfl_up(Agg a, int off) {
+  return {__shfl_up_sync(0xFFFFFFFFu, a.s, off),
+          __shfl_up_sync(0xFFFFFFFFu, a.c, off)};
+}
+
+__device__ __forceinline__ Agg warp_inclusive(Agg x, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const Agg y = shfl_up(x, off);
+    if (lane >= off) x = compose(y, x);
+  }
+  return x;
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             uint32_t hi, uint32_t c) {
+  *reinterpret_cast<volatile unsigned long long*>(p) =
+      static_cast<unsigned long long>(hi) << 32 | c;
+}
+
+// The earlier tiles' inclusive prefix, by one warp: lane l reads the word
+// of tile t - l, and each window of 32 folds, oldest first, up to the
+// newest inclusive prefix in it.
+__device__ __forceinline__ Agg look_back(const unsigned long long* status,
+                                         int64_t tile, int lane) {
+  Agg acc{0u, 0u};
+  for (int64_t t = tile - 1; t >= 0; t -= 32) {
+    const int64_t at = t - lane;
+    unsigned long long v = static_cast<unsigned long long>(kPrefix) << 32;
+    if (at >= 0) {
+      // a word still zero is polled again after a pause: the pause keeps
+      // the polls of the waiting tiles off the words being published
+      while (((v = load_status(status + at)) >> 32) == 0)
+        __nanosleep(kPollNs);
+    }
+    const uint32_t hi = static_cast<uint32_t>(v >> 32);
+    const bool prefix = hi & kPrefix;
+    const Agg a{prefix ? hi & ~kPrefix : hi - 1u, static_cast<uint32_t>(v)};
+    const unsigned pm = __ballot_sync(0xFFFFFFFFu, prefix);
+    const int stop = pm ? __ffs(pm) - 1 : 31;
+    Agg w{0u, 0u};
+    for (int l = stop; l >= 0; --l)
+      w = compose(w, {__shfl_sync(0xFFFFFFFFu, a.s, l),
+                      __shfl_sync(0xFFFFFFFFu, a.c, l)});
+    acc = compose(w, acc);
+    if (pm) break;
+  }
+  return acc;
+}
+
+// A barrier of the kThreads worker threads alone (the look-back warp
+// joins only the block-wide ones).
+__device__ __forceinline__ void workers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
+}
+
+// status: one word a tile, zero at launch; tail[0] the tile counter, zero
+// at launch; tail[1] gets the group total.  kThreads workers fold the
+// tile; the block's last warp walks back meanwhile, from the moment the
+// tile is claimed, so that the tile mostly publishes its inclusive prefix
+// soon after its aggregate and its successors walk back one window.
+__global__ void __launch_bounds__(kThreads + 32, kBlocksPerSm)
+fold_tiles_kernel(const int64_t* __restrict__ keys,
+                  const int32_t* __restrict__ counts, int64_t n,
+                  int64_t* __restrict__ out_keys,
+                  int32_t* __restrict__ out_counts,
+                  unsigned long long* __restrict__ status,
+                  uint32_t* __restrict__ tail) {
+  // the tile's keys and counts, then its group ends' keys and sums
+  __shared__ int64_t s_keys[kTile + kTile / 16];
+  __shared__ uint32_t s_counts[kTile + kTile / 8];
+  __shared__ Agg s_warp[kWarps];
+  __shared__ int64_t s_edge[2];     // the keys before and after the tile
+  __shared__ uint32_t s_tile, s_first_start, s_last_end;
+  __shared__ Agg s_prefix;          // the earlier tiles' inclusive prefix
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) s_tile = atomicAdd(tail, 1u);
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t base = tile * kTile;
+  const int valid = static_cast<int>(n - base < kTile ? n - base : kTile);
+  const bool has_next = base + valid < n;
+  Agg tile_agg{0u, 0u};
+  if (warp == kWarps) {
+    const Agg pre = look_back(status, tile, lane);
+    if (lane == 0) s_prefix = pre;
+  } else {
+    const bool has_prev = base > 0;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int j = i * kThreads + tid;
+      if (j < valid) {
+        s_keys[kslot(j)] = keys[base + j];
+        s_counts[cslot(j)] = static_cast<uint32_t>(counts[base + j]);
+      }
+    }
+    if (tid == 0 && has_prev) s_edge[0] = keys[base - 1];
+    if (tid == 1 && has_next) s_edge[1] = keys[base + valid];
+    workers_sync();
+
+    // this thread's elements [first, first + kItems): start and end
+    // flags, counts (0 for the sentinel's), and their aggregate
+    const int first = tid * kItems;
+    int64_t key[kItems];
+    uint32_t cnt[kItems];
+    bool start[kItems], end[kItems];
+    Agg mine{0u, 0u};
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int e = first + i;
+      const bool in = e < valid;
+      key[i] = in ? s_keys[kslot(e)] : 0;
+      cnt[i] = in && key[i] != kSent ? s_counts[cslot(e)] : 0u;
+      start[i] = in && (e ? key[i] != s_keys[kslot(e - 1)]
+                          : !has_prev || key[i] != s_edge[0]);
+      end[i] = in && (e + 1 < valid ? key[i] != s_keys[kslot(e + 1)]
+                                    : !has_next || key[i] != s_edge[1]);
+      mine = compose(mine, {start[i] ? 1u : 0u, cnt[i]});
+      if (e == valid - 1) s_last_end = end[i];
+    }
+    if (tid == 0) s_first_start = start[0];
+
+    // block scan of the aggregates: the warps', then the threads'
+    const Agg incl = warp_inclusive(mine, lane);
+    if (lane == 31) s_warp[warp] = incl;
+    workers_sync();   // also: every worker has read its elements
+    if (warp == 0) {
+      Agg w = lane < kWarps ? s_warp[lane] : Agg{0u, 0u};
+      w = warp_inclusive(w, lane);
+      if (lane < kWarps) s_warp[lane] = w;
+    }
+    workers_sync();
+    tile_agg = s_warp[kWarps - 1];
+    const Agg lane_excl = shfl_up(incl, 1);
+    Agg run = compose(warp ? s_warp[warp - 1] : Agg{0u, 0u},
+                      lane ? lane_excl : Agg{0u, 0u});
+    if (tid == 0)
+      store_status(status + tile, tile == 0 ? kPrefix | tile_agg.s
+                                            : 1u + tile_agg.s, tile_agg.c);
+
+    // stage the group ends in order: slot = starts through the element
+    // less the tile's first start flag (a group carried in takes slot 0)
+    const uint32_t first_start = s_first_start;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      run = compose(run, {start[i] ? 1u : 0u, cnt[i]});
+      if (end[i]) {
+        const int slot = static_cast<int>(run.s - first_start);
+        s_keys[kslot(slot)] = key[i];
+        s_counts[cslot(slot)] = run.c;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the inclusive prefix through this tile, then the tile's group slots
+  // (g0 is the group of its first element)
+  const Agg pre = s_prefix;
+  if (tid == 0) {
+    const Agg all = compose(pre, tile_agg);
+    if (tile > 0) store_status(status + tile, kPrefix | all.s, all.c);
+    if (!has_next) tail[1] = all.s;
+  }
+  const uint32_t first_start = s_first_start;
+  const int64_t g0 = static_cast<int64_t>(pre.s) + first_start - 1;
+  const int n_ends = static_cast<int>(s_warp[kWarps - 1].s - first_start +
+                                      s_last_end);
+  for (int j = tid; j < n_ends; j += kThreads + 32) {
+    out_keys[g0 + j] = s_keys[kslot(j)];
+    out_counts[g0 + j] = static_cast<int32_t>(
+        s_counts[cslot(j)] + (j == 0 && !first_start ? pre.c : 0u));
   }
 }
 
-struct StartFlag {
-  const int64_t* keys;
-  __device__ long long operator()(int64_t i) const {
-    return (i == 0 || keys[i] != keys[i - 1]) ? 1 : 0;
+// Slots [groups, n) -> (INT64_MAX, 0), n_unique, and the scratch zeroed:
+// one slot a thread (a grid-stride loop over fewer blocks wrote at 0.6 of
+// this rate, H100).
+__global__ void fold_tail_kernel(const int64_t* __restrict__ keys, int64_t n,
+                                 int64_t* __restrict__ out_keys,
+                                 int32_t* __restrict__ out_counts,
+                                 int64_t* __restrict__ n_unique,
+                                 unsigned long long* __restrict__ status,
+                                 int64_t n_tiles,
+                                 uint32_t* __restrict__ tail) {
+  const int64_t groups = tail[1];
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (groups + i < n) {
+    out_keys[groups + i] = kSent;
+    out_counts[groups + i] = 0;
   }
-};
-
-struct FoldEmit {
-  const int64_t* keys;
-  const int32_t* counts;
-  int64_t* out_keys;
-  int32_t* out_counts;
-  __device__ void operator()(int64_t i, long long prefix, long long start,
-                             bool ok) const {
-    const int lane = threadIdx.x & 31;
-    // past the end: a group id of its own, so no lane joins it
-    const long long g = ok ? prefix + start - 1 : -1 - lane;
-    int c = 0;
-    if (ok) {
-      const int64_t key = keys[i];
-      if (start) out_keys[g] = key;
-      if (key != kSent) c = counts[i];
-    }
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, g);
-    const int sum = __reduce_add_sync(peers, c);
-    const bool leader = (peers & ((1u << lane) - 1u)) == 0;
-    if (ok && leader && sum != 0) atomicAdd(&out_counts[g], sum);
+  if (i < n_tiles) status[i] = 0;
+  if (i == 0) {
+    *n_unique = groups - (keys[n - 1] == kSent ? 1 : 0);
+    tail[0] = 0;
   }
-};
-
-// groups (the scan total) less the sentinel group, if the run has one
-__global__ void n_unique_kernel(const long long* groups,
-                                const int64_t* keys, int64_t n,
-                                int64_t* n_unique) {
-  *n_unique = *groups - ((n > 0 && keys[n - 1] == kSent) ? 1 : 0);
 }
 
 }  // namespace
 
 // keys (n,) int64 ascending, counts (n,) int32 -> out_keys (n,) int64,
-// out_counts (n,) int32, n_unique () int64; tile_sums
-// (scan_tiles(n) + 1,) int64.
+// out_counts (n,) int32, n_unique () int64; scratch of 1 + ceil(n /
+// kTile) uint64 words (the tile counter and the group total, then a
+// status word a tile), zero but for the group total, and so again when
+// the call's work is done.
+// 0 < n < 2^31.
 extern "C" int hast_fold_runs(const void* keys, const void* counts,
                               int64_t n, void* out_keys, void* out_counts,
-                              void* n_unique, void* tile_sums,
-                              void* stream) {
+                              void* n_unique, void* scratch, void* stream) {
+  if (n <= 0 || n >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t* k = static_cast<const int64_t*>(keys);
-  int64_t* ok = static_cast<int64_t*>(out_keys);
-  int32_t* oc = static_cast<int32_t*>(out_counts);
-  long long* ts = static_cast<long long*>(tile_sums);
-  const int64_t want = (n + 255) / 256;
-  if (want > 0)
-    fill_kernel<<<static_cast<unsigned>(want < 65536 ? want : 65536), 256,
-                  0, s>>>(ok, oc, n);
-  const cudaError_t e = hast::device_scan(
-      StartFlag{k},
-      FoldEmit{k, static_cast<const int32_t*>(counts), ok, oc}, n, ts, s);
+  const int64_t n_tiles = (n + kTile - 1) / kTile;
+  // the tile counter and group total first, at a place no status word of
+  // a longer run takes
+  auto* tail = static_cast<uint32_t*>(scratch);
+  auto* status = static_cast<unsigned long long*>(scratch) + 1;
+  const auto* k = static_cast<const int64_t*>(keys);
+  auto* ok = static_cast<int64_t*>(out_keys);
+  auto* oc = static_cast<int32_t*>(out_counts);
+  fold_tiles_kernel<<<static_cast<unsigned>(n_tiles), kThreads + 32, 0,
+                      s>>>(k, static_cast<const int32_t*>(counts), n, ok, oc,
+                           status, tail);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  n_unique_kernel<<<1, 1, 0, s>>>(ts + hast::scan_tiles(n), k, n,
-                                  static_cast<int64_t*>(n_unique));
+  fold_tail_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+      k, n, ok, oc, static_cast<int64_t*>(n_unique), status, n_tiles, tail);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-// Canonical k-mer windows over 2-bit packed reads (device functions).
+// Canonical k-mer windows over 2-bit packed reads and over ASCII bytes
+// (device functions).
 //
 // Replaces hast_tpu/ops/encode.py `canonical_kmers` + `window_valid` and
 // the 4-bases-per-byte unpack of hast_tpu/pipeline/classify.py
@@ -14,7 +15,10 @@
 // the window is a few dozen integer ops; the probe that follows is what
 // costs.  The design therefore recomputes each window from the packed
 // bytes instead of materialising codes or a rolling state, which keeps
-// one thread per window with no shared memory and no ordering.
+// one thread per window with no shared memory and no ordering.  Kernels
+// whose windows come from ASCII bytes in long runs (K9, K14) pack the
+// bytes once in shared memory and roll consecutive windows instead (the
+// rolled windows below).
 #pragma once
 
 #include <cstdint>
@@ -41,16 +45,23 @@ __device__ __forceinline__ uint64_t canonical_window(const uint8_t* row,
 
 // Which ASCII bytes a window of k bytes may hold.  The repository has
 // three rules, and bytes such as a, N, R and U tell them apart:
-//   kAnyByte   every byte is a base; validity comes from the read's length
-//              (hast_tpu/pipeline/classify.py `vote_kernel`, K13)
-//   kAcgtUpper uppercase A, C, G or T only (rephase.py `_strict_vote`, K9)
-// and A, C, G or T in either case (kmer_count.py `_ACGT`, the stage-00
-// counting of mesh.py `sharded_count_chunk`), which K14 applies to the
-// windows it rolls: is_acgt(b & ~0x20).
-enum ByteRule : int { kAnyByte, kAcgtUpper };
+//   kAnyByte      every byte is a base; validity comes from the read's
+//                 length (hast_tpu/pipeline/classify.py `vote_kernel`, K13)
+//   kAcgtUpper    uppercase A, C, G or T only (rephase.py `_strict_vote`,
+//                 K9)
+//   kAcgtAnyCase  A, C, G or T in either case (kmer_count.py `_ACGT`, the
+//                 stage-00 counting of mesh.py `sharded_count_chunk`, K14)
+enum ByteRule : int { kAnyByte, kAcgtUpper, kAcgtAnyCase };
 
 __device__ __forceinline__ bool is_acgt(uint32_t b) {
   return b == 'A' || b == 'C' || b == 'G' || b == 'T';
+}
+
+template <ByteRule kRule>
+__device__ __forceinline__ bool byte_ok(uint32_t b) {
+  if constexpr (kRule == kAnyByte) return true;
+  if constexpr (kRule == kAcgtUpper) return is_acgt(b);
+  return is_acgt(b & ~0x20u);
 }
 
 // The key over k ASCII bytes, each coded (c >> 1) & 3 whatever it is
@@ -64,7 +75,7 @@ __device__ __forceinline__ bool canonical_window_bytes(const uint8_t* s,
   bool ok = true;
   for (int j = 0; j < k; ++j) {
     const uint32_t b = s[j];
-    if constexpr (kRule == kAcgtUpper) ok &= is_acgt(b);
+    ok &= byte_ok<kRule>(b);
     const uint64_t c = (b >> 1) & 3u;
     fwd = (fwd << 2) | c;
     rc |= (c ^ 2ull) << (2 * j);
@@ -73,11 +84,69 @@ __device__ __forceinline__ bool canonical_window_bytes(const uint8_t* s,
   return ok;
 }
 
-// K9's rule (soft-masked acgt, N and IUPAC bytes make the window invalid).
-__device__ __forceinline__ bool canonical_window_ascii(const uint8_t* s,
-                                                       int k,
-                                                       uint64_t& key) {
-  return canonical_window_bytes<kAcgtUpper>(s, k, key);
+// Rolled windows over ASCII bytes packed once (K9, K14).  A run of bytes
+// is packed as codes (c >> 1) & 3, base i at bits 2 * (i & 15) of
+// codes32[i >> 4], and as flags, bit i & 15 of good16[i >> 4] set iff
+// byte i passes the rule.  A thread cuts its first window's words and
+// run of good bases from the packed words in a few shifts, then rolls
+// one base a window: a byte step a window instead of k.
+
+// 32 bases from base p, base p at bits 0-1 (reads codes32[(p >> 4) + 2]).
+__device__ __forceinline__ uint64_t packed_bases(const uint32_t* codes32,
+                                                 int p) {
+  const int q = p >> 4, o = p & 15;
+  const uint64_t lo = codes32[q] | static_cast<uint64_t>(codes32[q + 1])
+                                       << 32;
+  return o ? (lo >> (2 * o)) |
+                 (static_cast<uint64_t>(codes32[q + 2]) << (64 - 2 * o))
+           : lo;
+}
+
+// At least 33 flags from base p, base p at bit 0 (reads good16[(p >> 4)
+// + 2]).
+__device__ __forceinline__ uint64_t packed_flags(const uint16_t* good16,
+                                                 int p) {
+  const int q = p >> 4;
+  return (good16[q] | static_cast<uint64_t>(good16[q + 1]) << 16 |
+          static_cast<uint64_t>(good16[q + 2]) << 32) >> (p & 15);
+}
+
+// A window's state: forward word, reverse complement (each below 4^k)
+// and the run of good bases that ends at its last base.
+struct Window {
+  uint64_t fwd, rc;
+  int run;
+};
+
+// The window of bases [p, p + k): le = packed_bases(codes32, p), flags =
+// packed_flags(good16, p).  The reverse complement flips each code's high
+// bit; the forward word is the same codes in reverse order (bit reversal,
+// then each pair's two bits swapped back); run is k when every base is
+// good, else the good bases after the last bad one.
+__device__ __forceinline__ Window first_window(uint64_t le, uint64_t flags,
+                                               int k) {
+  const uint64_t kmask = (1ull << (2 * k)) - 1;
+  le &= kmask;
+  Window w;
+  w.rc = le ^ (0xAAAAAAAAAAAAAAAAull & kmask);
+  const uint64_t r = __brevll(le);
+  w.fwd = (((r >> 1) & 0x5555555555555555ull) |
+           ((r & 0x5555555555555555ull) << 1)) >> (64 - 2 * k);
+  w.run = k - 1 - (63 - __clzll(~flags & ((1ull << k) - 1)));
+  return w;
+}
+
+// The next window: base code c (0..3) enters, good says whether its byte
+// passed the rule.
+__device__ __forceinline__ void roll_window(Window& w, uint32_t c, bool good,
+                                            int k) {
+  w.fwd = ((w.fwd << 2) | c) & ((1ull << (2 * k)) - 1);
+  w.rc = (w.rc >> 2) | (static_cast<uint64_t>(c ^ 2u) << (2 * (k - 1)));
+  w.run = good ? w.run + 1 : 0;
+}
+
+__device__ __forceinline__ uint64_t canonical_of(const Window& w) {
+  return w.fwd < w.rc ? w.fwd : w.rc;
 }
 
 }  // namespace hast

@@ -112,51 +112,75 @@ struct Table {
   int max_probe;  // hash choices of the full format (2)
 };
 
+// The two bucket choices of a canonical key and what a slot of either
+// row is tested against: the quotient (quot) or the key's halves (full).
+// Split from the test so that a kernel can issue the row loads of
+// several keys before it tests any.
+struct ProbeRows {
+  uint32_t b[2];
+  uint32_t q, hi, lo;
+};
+
+__device__ __forceinline__ ProbeRows probe_rows(const Table& t,
+                                                uint64_t key) {
+  ProbeRows a;
+  a.hi = static_cast<uint32_t>(key >> 32);
+  a.lo = static_cast<uint32_t>(key);
+  a.q = 0;
+  if (t.fmt == kQuot) {
+    quot_bucket_q(a.hi, a.lo, t.k, t.bbits, a.b[0], a.q);
+    a.b[1] = quot_alt(a.b[0], a.q, t.bbits);
+  } else {
+    const uint32_t mask = t.n_buckets - 1u;
+    a.b[0] = kmer_hash(a.hi, a.lo) & mask;
+    a.b[1] = kmer_hash2(a.hi, a.lo) & mask;
+  }
+  return a;
+}
+
+// The payload from the rows r1 (bucket b[0]) and r2 (b[1]); a row whose
+// own flag is false adds nothing.  The result is the OR over the two
+// bucket choices of the max over the row's matching slots, as the JAX
+// probes compute it.
+__device__ __forceinline__ int probe_hit(const Table& t, const ProbeRows& a,
+                                         const uint4& r1, const uint4& r2,
+                                         bool own0, bool own1) {
+  if (t.fmt == kQuot) {
+    const uint32_t p1 = own0 ? max4(quot_slot(r1.x, a.q, 0),
+                                    quot_slot(r1.y, a.q, 0),
+                                    quot_slot(r1.z, a.q, 0),
+                                    quot_slot(r1.w, a.q, 0)) : 0u;
+    const uint32_t p2 = own1 ? max4(quot_slot(r2.x, a.q, 1),
+                                    quot_slot(r2.y, a.q, 1),
+                                    quot_slot(r2.z, a.q, 1),
+                                    quot_slot(r2.w, a.q, 1)) : 0u;
+    return static_cast<int>(p1 | p2);
+  }
+  uint32_t res = own0 ? max(full_slot(r1.x, r1.y, a.hi, a.lo),
+                            full_slot(r1.z, r1.w, a.hi, a.lo)) : 0u;
+  if (t.max_probe > 1 && own1)
+    res |= max(full_slot(r2.x, r2.y, a.hi, a.lo),
+               full_slot(r2.z, r2.w, a.hi, a.lo));
+  return static_cast<int>(res);
+}
+
 // Payload (0..3) of one canonical key on a slice of the table: t.rows
 // holds rows [row_lo, row_lo + n_rows) of the t.n_buckets-row table
 // (the hashes use the whole table's n_buckets and bbits), and a bucket
 // outside the slice adds nothing, as hast_tpu/parallel/mesh.py
-// `_probe_local` masks the buckets another tp shard owns.  The result is
-// the OR over the two bucket choices of the max over the row's matching
-// slots, as the JAX probes compute it.  Both row loads issue before
-// either row is looked at.
+// `_probe_local` masks the buckets another tp shard owns.  Both row
+// loads issue before either row is looked at.
 __device__ __forceinline__ int probe_key_owned(const Table& t, uint64_t key,
                                                uint32_t row_lo,
                                                uint32_t n_rows) {
-  const uint32_t hi = static_cast<uint32_t>(key >> 32);
-  const uint32_t lo = static_cast<uint32_t>(key);
+  const ProbeRows a = probe_rows(t, key);
   const uint4 none = make_uint4(0u, 0u, 0u, 0u);
-  uint32_t b[2];
-  uint32_t q = 0;
-  if (t.fmt == kQuot) {
-    quot_bucket_q(hi, lo, t.k, t.bbits, b[0], q);
-    b[1] = quot_alt(b[0], q, t.bbits);
-  } else {
-    const uint32_t mask = t.n_buckets - 1u;
-    b[0] = kmer_hash(hi, lo) & mask;
-    b[1] = kmer_hash2(hi, lo) & mask;
-  }
   // a bucket below row_lo wraps past n_rows, so one compare tests both ends
-  const bool own0 = b[0] - row_lo < n_rows;
-  const bool own1 = b[1] - row_lo < n_rows;
-  const uint4 r1 = own0 ? __ldg(t.rows + (b[0] - row_lo)) : none;
-  const uint4 r2 = own1 ? __ldg(t.rows + (b[1] - row_lo)) : none;
-  if (t.fmt == kQuot) {
-    const uint32_t p1 = own0 ? max4(quot_slot(r1.x, q, 0),
-                                    quot_slot(r1.y, q, 0),
-                                    quot_slot(r1.z, q, 0),
-                                    quot_slot(r1.w, q, 0)) : 0u;
-    const uint32_t p2 = own1 ? max4(quot_slot(r2.x, q, 1),
-                                    quot_slot(r2.y, q, 1),
-                                    quot_slot(r2.z, q, 1),
-                                    quot_slot(r2.w, q, 1)) : 0u;
-    return static_cast<int>(p1 | p2);
-  }
-  uint32_t res = own0 ? max(full_slot(r1.x, r1.y, hi, lo),
-                            full_slot(r1.z, r1.w, hi, lo)) : 0u;
-  if (t.max_probe > 1 && own1)
-    res |= max(full_slot(r2.x, r2.y, hi, lo), full_slot(r2.z, r2.w, hi, lo));
-  return static_cast<int>(res);
+  const bool own0 = a.b[0] - row_lo < n_rows;
+  const bool own1 = a.b[1] - row_lo < n_rows;
+  const uint4 r1 = own0 ? __ldg(t.rows + (a.b[0] - row_lo)) : none;
+  const uint4 r2 = own1 ? __ldg(t.rows + (a.b[1] - row_lo)) : none;
+  return probe_hit(t, a, r1, r2, own0, own1);
 }
 
 // Payload (0..3) of one canonical key in the whole table.

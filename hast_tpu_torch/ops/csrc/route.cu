@@ -29,7 +29,8 @@
 //    and packs them once (2 bits a base and an ACGT flag a base); each
 //    lane takes its first window's words and run of ACGT bytes from the
 //    packed bases in a few shifts, then rolls the forward and
-//    reverse-complement words and the run over up to 3 more consecutive
+//    reverse-complement words and the run (kmer.cuh's rolled windows,
+//    shared with K9) over up to 3 more consecutive
 //    windows: a byte step a window instead of k;
 //  - the route by a multiply-high with a magic number made on the host,
 //    exact for every 32-bit hash, instead of a division a window;
@@ -106,8 +107,6 @@ __global__ void __launch_bounds__(kThreads) route_kmers_kernel(
   fill += static_cast<int64_t>(s) * dp;
   out += s * cap;
   const int64_t row = n_src * cap;           // a receiver's row
-  const uint64_t kmask = (1ull << (2 * k)) - 1;
-  const int rc_shift = 2 * (k - 1);
   const unsigned lt = (1u << lane) - 1u;
 
   for (int d = threadIdx.x; d < dp; d += kThreads) count[d] = 0;
@@ -150,7 +149,8 @@ __global__ void __launch_bounds__(kThreads) route_kmers_kernel(
         for (int t = 0; t < 8; ++t) {
           const uint32_t b = buf[8 * lane + t];
           cw |= ((b >> 1) & 3u) << (2 * t);
-          gw |= static_cast<uint32_t>(hast::is_acgt(b & ~0x20u)) << t;
+          gw |= static_cast<uint32_t>(
+              hast::byte_ok<hast::kAcgtAnyCase>(b)) << t;
         }
         codes[lane] = static_cast<uint16_t>(cw);
         good[lane] = static_cast<uint8_t>(gw);
@@ -160,39 +160,21 @@ __global__ void __launch_bounds__(kThreads) route_kmers_kernel(
       per = (nw + 31) >> 5;
       const int first = lane * per;
       if (first < nw) {
-        // the first window: bases [first, first + k) of the packed codes
-        // (q + 2 <= 9: first < 128), base j at bits 2j; its reverse
-        // complement flips each code's high bit, and the forward word is
-        // the same codes in reverse order (bit reversal, then each pair's
-        // two bits swapped back); run counts the ACGT bases ending at its
-        // last base (k when there is no other)
-        const int q = first >> 4, o = first & 15;
-        const uint64_t lo = codes32[q] |
-                            static_cast<uint64_t>(codes32[q + 1]) << 32;
-        const uint64_t le =
-            (o ? (lo >> (2 * o)) |
-                     (static_cast<uint64_t>(codes32[q + 2]) << (64 - 2 * o))
-               : lo) & kmask;
-        uint64_t rc = le ^ (0xAAAAAAAAAAAAAAAAull & kmask);
-        uint64_t fwd = __brevll(le);
-        fwd = (((fwd >> 1) & 0x5555555555555555ull) |
-               ((fwd & 0x5555555555555555ull) << 1)) >> (64 - 2 * k);
-        const uint64_t flags =
-            (good16[q] | static_cast<uint64_t>(good16[q + 1]) << 16 |
-             static_cast<uint64_t>(good16[q + 2]) << 32) >> o;
-        int run = k - 1 - (63 - __clzll(~flags & ((1ull << k) - 1)));
-        auto roll = [&](uint32_t b) {
-          const uint64_t c = (b >> 1) & 3u;
-          fwd = ((fwd << 2) | c) & kmask;
-          rc = (rc >> 2) | ((c ^ 2ull) << rc_shift);
-          run = hast::is_acgt(b & ~0x20u) ? run + 1 : 0;
-        };
+        // the first window from the packed codes (q + 2 <= 9: first <
+        // 128), then a roll a window
+        hast::Window win = hast::first_window(
+            hast::packed_bases(codes32, first),
+            hast::packed_flags(good16, first), k);
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
           if (j < per) {
-            if (j) roll(buf[first + k - 1 + j]);
-            if (first + j < nw && run >= k) {
-              key[j] = fwd < rc ? fwd : rc;
+            if (j) {
+              const uint32_t b = buf[first + k - 1 + j];
+              hast::roll_window(win, (b >> 1) & 3u,
+                                hast::byte_ok<hast::kAcgtAnyCase>(b), k);
+            }
+            if (first + j < nw && win.run >= k) {
+              key[j] = hast::canonical_of(win);
               dest[j] = route_of(key[j], magic, dp);
               valid[j] = true;
             }

@@ -393,6 +393,28 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor | None, k: int,
 # ---------------------------------------------------------------------------
 
 
+# fold.cu kTile: the elements a block folds together
+FOLD_TILE = 2048
+# fold.cu's scratch: one word for the tile counter and the group total,
+# then a status word a tile, zero before a call (the total aside) and left
+# so by it.  It is kept one a card and stream, grown when a run needs more
+# tiles, so that a call launches no memset; calls on one stream run in
+# order, so they never share it at once.
+_FOLD_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+_FOLD_SCRATCH_LOCK = threading.Lock()
+
+
+def _fold_scratch(n: int, device: torch.device) -> torch.Tensor:
+    words = -(-n // FOLD_TILE) + 1
+    key = (device.index, _build.raw_stream(device.index))
+    with _FOLD_SCRATCH_LOCK:
+        buf = _FOLD_SCRATCH.get(key)
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros(words, dtype=torch.int64, device=device)
+            _FOLD_SCRATCH[key] = buf
+    return buf
+
+
 def fold_runs_ref(keys: torch.Tensor, counts: torch.Tensor, out=None):
     """Plain PyTorch twin of :func:`fold_runs` (new tensors always)."""
     _build.TWIN_CALLS["fold_runs_ref"] += 1
@@ -408,15 +430,15 @@ def fold_runs_ref(keys: torch.Tensor, counts: torch.Tensor, out=None):
     out_keys[group[start]] = keys[start]
     sums = torch.zeros(n, dtype=torch.int64, device=keys.device).index_add_(
         0, group, torch.where(is_sent, 0, counts).to(torch.int64))
-    # int32 atomics in the kernel wrap as this cast does
+    # the kernel's uint32 sums wrap as this cast does
     return out_keys, sums.to(torch.int32), (start & ~is_sent).sum()
 
 
 def fold_runs(keys: torch.Tensor, counts: torch.Tensor, out=None):
     """Sum the counts of equal keys of a sorted run into the front (K6).
 
-    keys: (n,) int64 ascending (real keys, then INT64_MAX pads); counts:
-    (n,) int32.  Returns (out_keys, out_counts, n_unique): slot g < groups
+    keys: (n,) int64 ascending (real keys, then INT64_MAX pads), n <
+    2^31; counts: (n,) int32.  Returns (out_keys, out_counts, n_unique): slot g < groups
     holds the g-th distinct key and its count sum, the pads' group keeps
     INT64_MAX with count 0, other slots are (INT64_MAX, 0); n_unique is a
     0-d int64 tensor on the keys' device counting the real groups.
@@ -438,13 +460,17 @@ def fold_runs(keys: torch.Tensor, counts: torch.Tensor, out=None):
         out_keys, out_counts = out
         if keys.numel() and out_keys.data_ptr() == keys.data_ptr():
             raise ValueError("fold_runs: out must not be the input")
-    n_unique = torch.zeros((), dtype=torch.int64, device=keys.device)
-    if keys.numel() == 0:
-        return out_keys, out_counts, n_unique
-    tile_sums = _scan_scratch(keys.numel(), keys.device)
+    n = keys.numel()
+    if n == 0:
+        return out_keys, out_counts, torch.zeros((), dtype=torch.int64,
+                                                 device=keys.device)
+    if n >= 1 << 31:
+        raise ValueError(f"fold_runs: {n} keys, at most 2^31 - 1")
+    n_unique = torch.empty((), dtype=torch.int64, device=keys.device)
+    scratch = _fold_scratch(n, keys.device)
     _build.launch("fold_runs", keys.device, keys.data_ptr(), counts.data_ptr(),
-                  keys.numel(), out_keys.data_ptr(), out_counts.data_ptr(),
-                  n_unique.data_ptr(), tile_sums.data_ptr())
+                  n, out_keys.data_ptr(), out_counts.data_ptr(),
+                  n_unique.data_ptr(), scratch.data_ptr())
     return out_keys, out_counts, n_unique
 
 

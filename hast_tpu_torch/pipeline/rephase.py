@@ -47,7 +47,7 @@ from hast_tpu_torch.ops import _build
 from hast_tpu_torch.ops import encode as E
 from hast_tpu_torch.ops import hashtable as H
 
-SEGMENT_TILE = 1024        # windows a K9 tile (csrc/segment.cu kTile)
+SEGMENT_TILE = 4096        # windows a K9 tile (csrc/segment.cu kTile)
 SEGMENT_CHUNK = 1 << 24    # record bytes resident on the device at a time
 _TWIN_CHUNK = 1 << 20      # window starts per step of the plain twin
 _UPPER_ACGT = torch.zeros(256, dtype=torch.bool)

@@ -211,10 +211,43 @@ def test_sort_pairs_twin_on_edge_cases(k):
         np.testing.assert_array_equal(got_c.numpy(), counts[order], name)
 
 
-@pytest.mark.parametrize("k", [15, 21, 31])
-def test_fold_runs_twin_matches_merge_rle(k):
+def fold_edge_keys(case: str, k: int):
+    """The runs a look-back fold gets wrong: one key repeated across more
+    than one 4,096-element tile (3 x 4,096 + 1 copies, between other
+    keys), a run of one key, n = 1, and count sums that wrap int32."""
+    rng = np.random.default_rng(k)
+    top = (1 << (2 * k)) - 1
+    if case == "repeated":
+        keys = np.concatenate([rng.integers(0, top, 500),
+                               np.full(3 * 4096 + 1, top // 3),
+                               rng.integers(0, top, 500),
+                               np.full(300, SENT)])
+    elif case == "one-key":
+        keys = np.full(5000, top)
+    elif case == "n1":
+        keys = np.array([top // 2])
+    else:   # "wrap": sums past 2^31 - 1 and below -2^31
+        keys = np.repeat(rng.integers(0, top, 40), 100)
+    keys = keys.astype(np.int64)
+    counts = rng.integers(1, 50, keys.size).astype(np.int32)
+    if case == "wrap":
+        counts = rng.integers(2**30, 2**31 - 1, keys.size).astype(np.int32)
+        counts[keys.size // 2:] *= -1
+    return keys, counts
+
+
+# the duplicate-heavy runs keep their ids ("21"); the edge runs add cases
+# of the same test ("21-repeated")
+FOLD_CASES = [pytest.param(k, case, id=f"{k}{'-' + case if case else ''}")
+              for case in ("", "repeated", "one-key", "n1", "wrap")
+              for k in (15, 21, 31)]
+
+
+@pytest.mark.parametrize("k,case", FOLD_CASES)
+def test_fold_runs_twin_matches_merge_rle(k, case):
     _, jnp, JKC = jax_modules()
-    keys, counts = dup_heavy_keys(100 + k, k)
+    keys, counts = (fold_edge_keys(case, k) if case
+                    else dup_heavy_keys(100 + k, k))
     skeys, scounts = KC.sort_pairs(torch.from_numpy(keys),
                                    torch.from_numpy(counts), k)
     out_k, out_c, n_unique = KC.fold_runs(skeys, scounts)
@@ -223,7 +256,12 @@ def test_fold_runs_twin_matches_merge_rle(k):
                                              jnp.asarray(lo),
                                              jnp.asarray(counts))
     n = int(wn)
-    assert int(n_unique) == n and 0 < n < keys.size // 2
+    assert int(n_unique) == n
+    assert 0 < n < keys.size // 2 if case != "n1" else n == 1
+    if case == "wrap":
+        assert (out_c.numpy()[:n].astype(np.int64)
+                != np.bincount(np.unique(keys, return_inverse=True)[1],
+                               counts.astype(np.int64))).any()
     np.testing.assert_array_equal(out_k.numpy(), ref_keys(whi, wlo))
     np.testing.assert_array_equal(out_c.numpy(), np.asarray(wc))
     assert (out_k.numpy()[n:] == SENT).all() and (out_c.numpy()[n:] == 0
@@ -637,6 +675,56 @@ def test_sort_and_fold_kernels_match_twins(card, k):
     assert folded[0] is free[0] and folded[1] is free[1]
     for g, w in zip(folded, wfold):
         assert torch.equal(g, w)
+
+
+def card_kernels(fn) -> dict:
+    """Names and launch counts of the device work of one call of fn
+    (torch.profiler), kernels and memsets alike."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) > 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [15, 17, 21, 31])
+def test_fold_kernel_on_edge_cases(card, k):
+    """The runs of fold_edge_keys, the empty and all-sentinel runs and a
+    duplicate-heavy run of 2^22 + 4,097 keys (the look-back crosses two
+    thousand tiles), bit-exact against the twin, with and without out=;
+    one C entry a call, and on the card its two kernels and nothing
+    else."""
+    rng = np.random.default_rng(k)
+    long_keys = rng.integers(0, 1 << 20, (1 << 22) + 4097).astype(np.int64)
+    long_keys[rng.random(long_keys.size) < 0.05] = SENT
+    runs = [fold_edge_keys(case, k)
+            for case in ("repeated", "one-key", "n1", "wrap")]
+    runs += [(np.zeros(0, np.int64), np.zeros(0, np.int32)),
+             (np.full(5, SENT), np.ones(5, np.int32)),
+             (long_keys, rng.integers(1, 60, long_keys.size).astype(
+                 np.int32))]
+    for keys, counts in runs:
+        keys = torch.from_numpy(np.sort(keys)).to(card)
+        counts = torch.from_numpy(counts).to(card)
+        want = KC.fold_runs_ref(keys, counts)
+        launches = _build.LAUNCHES["fold_runs"]
+        got = KC.fold_runs(keys, counts)
+        assert _build.LAUNCHES["fold_runs"] == launches + (keys.numel() > 0)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        out = (torch.full_like(keys, 7), torch.full_like(counts, 7))
+        got = KC.fold_runs(keys, counts, out=out)
+        assert got[0] is out[0] and got[1] is out[1]
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    kernels = card_kernels(lambda: KC.fold_runs(keys, counts))
+    assert sorted(kernels.values()) == [1, 1], kernels
+    assert sorted(name for name in kernels if "fold_t" in name) == sorted(
+        kernels), kernels
 
 
 @pytest.mark.cuda

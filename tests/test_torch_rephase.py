@@ -68,6 +68,35 @@ def make_records(seed: int, k: int, n_random: int = 24) -> list[bytes]:
     return out
 
 
+def edge_records(seed: int, k: int) -> list[bytes]:
+    """The records a rolled window or a tile walk gets wrong: bad bytes
+    (lowercase, N, IUPAC) on the first and last byte of K9's tiles and of
+    1,024-window tiles, records of exactly k - 1 + 1,024 and k - 1 +
+    SEGMENT_TILE bytes (one tile to the byte) and one byte more, one all
+    lowercase, one with a single good window, and a record shorter than
+    k between long ones."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    acgt = lambda n: letters[rng.integers(0, 4, n)].copy()  # noqa: E731
+    out = []
+    for tile in (1024, R.SEGMENT_TILE):
+        s = acgt(2 * tile + k - 1 + 300)
+        for i, t in enumerate(range(0, s.size, tile)):
+            # a tile's first byte, and the last byte of its last window
+            for pos in (t, t + tile + k - 2):
+                if pos < s.size:
+                    s[pos] = b"aNRy"[(i + pos) % 4]
+        out.append(s.tobytes())
+        out.append(acgt(k - 2).tobytes())
+        for extra in (0, 1):
+            out.append(acgt(k - 1 + tile + extra).tobytes())
+    out.append(bytes(acgt(3000) | 0x20))
+    one = np.full(2 * k + 11, ord("N"), np.uint8)
+    one[k:2 * k] = acgt(k)
+    out.append(one.tobytes())
+    return out
+
+
 def marker_keys(seed: int, k: int, seqs: list[bytes]):
     """1,500 windows drawn from the records (soft-masked and N ones too)
     plus 1,500 random keys, with payloads 1, 2 and 3; 100 keys appear
@@ -94,14 +123,25 @@ def table_of(keys, k: int, fmt: str) -> H.KmerTable:
     return table
 
 
-@pytest.mark.parametrize("k,fmt", TABLES)
-def test_segment_votes_twin_matches_jax(k, fmt):
+def records_of(kind: str, k: int) -> list[bytes]:
+    return make_records(k, k) if kind == "random" else edge_records(k, k)
+
+
+# the random records keep their ids ("21-quot"); the edge records add
+# cases of the same tests ("21-quot-edges")
+RECORD_CASES = [pytest.param(k, fmt, kind, id=f"{k}-{fmt}{suffix}")
+                for kind, suffix in (("random", ""), ("edges", "-edges"))
+                for k, fmt in TABLES]
+
+
+@pytest.mark.parametrize("k,fmt,kind", RECORD_CASES)
+def test_segment_votes_twin_matches_jax(k, fmt, kind):
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from hast_tpu.ops import hashtable as JH
     from hast_tpu.pipeline import rephase as JR
 
-    seqs = make_records(k, k)
+    seqs = records_of(kind, k)
     keys = marker_keys(k + 1, k, seqs)
     table = table_of(keys, k, fmt)
     jt = JH.build_table(*keys, k, fmt=fmt, set_sizes=(1500, 1500))
@@ -114,8 +154,12 @@ def test_segment_votes_twin_matches_jax(k, fmt):
     # against the JAX pieces-and-sum path
     want = JR._segment_hits_batch(jt, seqs)
     np.testing.assert_array_equal(got, want)
-    assert got[:2].sum() == 0                   # lengths 0, k - 1: nothing
+    tiny = [i for i, s in enumerate(seqs) if len(s) < k]
+    assert tiny and got[tiny].sum() == 0        # shorter than k: nothing
     assert got[:, 0].sum() > 0 and got[:, 1].sum() > 0
+    if kind == "edges":
+        # the all-lowercase record has no window, the last one at most one
+        assert got[-2].sum() == 0 and got[-1].sum() <= 2
 
     # against one _strict_vote call on the records that fit a piece
     short = [s for s in seqs if len(s) <= 4096]
@@ -312,9 +356,9 @@ def test_mkoutput_matches_jax_on_synthetic_assembly(tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,fmt", TABLES)
-def test_segment_votes_kernel_matches_twin(card, k, fmt):
-    seqs = make_records(k, k)
+@pytest.mark.parametrize("k,fmt,kind", RECORD_CASES)
+def test_segment_votes_kernel_matches_twin(card, k, fmt, kind):
+    seqs = records_of(kind, k)
     table = table_of(marker_keys(k + 1, k, seqs), k, fmt)
     starts = np.zeros(len(seqs) + 1, np.int64)
     np.cumsum([len(s) for s in seqs], out=starts[1:])
