@@ -268,15 +268,22 @@ def device_ms(fn, reps: int, kernel) -> float:
     import torch
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     names = (kernel,) if isinstance(kernel, str) else kernel
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if any(name in e.key for name in names))
-    return us / reps / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if any(name in e.key for name in names)]
+        # each matched kernel runs at least once a call: fewer records
+        # mean the profiler dropped some, so the sum would read short
+        if seen and all(e.count >= reps for e in seen):
+            break
+        log(f"device_ms: the profiler recorded {[e.count for e in seen]} "
+            f"launches of {names} in {reps} calls; profiling again")
+    return sum(_device_us(e) for e in seen) / reps / 1e3
 
 
 def bound(name: str, n_bytes: float, n_ops: float) -> dict:
@@ -675,7 +682,7 @@ def phase_kernels00() -> dict:
     plain = cuda_ms(lambda: KC.fold_runs_ref(keys, counts), 3)
     dev_ms = [device_ms(lambda: KC.fold_runs(keys, counts), 10, name)
               for name in FOLD_KERNELS]
-    kernels = _kernels_of_one_call(lambda: KC.fold_runs(keys, counts))
+    kernels = _kernels_of_one_call(lambda: KC.fold_runs(keys, counts), 2)
     if sorted(kernels.values()) != [1, 1] or \
             not all(any(f in name for f in FOLD_KERNELS) for name in kernels):
         fail(f"K6 fold_runs: one call ran {kernels} on the card, not its "
@@ -1047,17 +1054,24 @@ def _device_us(event) -> float:
     return us if us is not None else event.self_cuda_time_total
 
 
-def _kernels_of_one_call(fn) -> dict:
+def _kernels_of_one_call(fn, want: int) -> dict:
     """{name: count} of the device work (kernels, memsets, copies) of one
-    call of fn, after a warm-up call, from torch.profiler."""
+    call of fn, after a warm-up call, from torch.profiler; profiled again
+    (up to three times) while it shows fewer than `want` launches, since
+    the profiler now and then drops a record."""
     import torch
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages() if _device_us(e)}
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages() if _device_us(e)}
+        if sum(seen.values()) >= want:
+            break
+        log(f"the profiler recorded {seen} for one call; profiling again")
+    return seen
 
 
 def phase_stage00_breakdown(tmp: str, reads: dict) -> None:

@@ -677,17 +677,23 @@ def test_sort_and_fold_kernels_match_twins(card, k):
         assert torch.equal(g, w)
 
 
-def card_kernels(fn) -> dict:
+def card_kernels(fn, want: int) -> dict:
     """Names and launch counts of the device work of one call of fn
-    (torch.profiler), kernels and memsets alike."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    (torch.profiler), kernels and memsets alike.  The profiler now and
+    then drops a record, so a call that shows fewer than `want` launches
+    is profiled again (up to three times); a call never shows more."""
+    for _ in range(3):
         torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)) > 0}
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)) > 0}
+        if sum(seen.values()) >= want:
+            break
+    return seen
 
 
 @pytest.mark.cuda
@@ -721,7 +727,7 @@ def test_fold_kernel_on_edge_cases(card, k):
         assert got[0] is out[0] and got[1] is out[1]
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    kernels = card_kernels(lambda: KC.fold_runs(keys, counts))
+    kernels = card_kernels(lambda: KC.fold_runs(keys, counts), 2)
     assert sorted(kernels.values()) == [1, 1], kernels
     assert sorted(name for name in kernels if "fold_t" in name) == sorted(
         kernels), kernels
