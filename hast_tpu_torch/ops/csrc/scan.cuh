@@ -1,17 +1,17 @@
-// Device-wide exclusive scan in three launches (kernels shared by fold.cu
-// and markers.cu), and the block-wide scan under it (also used by
-// sort.cu, whose one-sweep passes scan their digits within a block).
+// Device-wide exclusive scan in three launches (markers.cu's kernels),
+// and the block-wide scan under it (also used by sort.cu, whose
+// one-sweep passes scan their digits within a block).
 //
-// Replaces the cumsums inside hast_tpu/ops/kmer_count.py
-// `_merge_rle_kernel` (group ids) and the sort-based compaction of
-// `_compact_kernel`.
+// Replaces the sort-based compaction of hast_tpu/ops/kmer_count.py
+// `_compact_kernel` (fold.cu's group ids come from its own one-pass
+// scan).
 //
 // What bounds it on an H100: memory traffic -- each element is read
 // twice (reduce, apply) and its consumer writes once; the middle launch
 // scans one value per 4,096-element tile in a single block, which is
 // microseconds at the sizes of the stage-00 folds (<= 2^28 elements,
 // 65,536 tiles).  The design keeps the scan generic over a value functor
-// (what is summed: a group-start flag, a keep flag) and
+// (what is summed: a keep flag) and
 // an emit functor (what is done with element i's exclusive prefix), so
 // no flag or prefix array is materialised between the launches.  Every
 // thread of a block calls emit, with ok = false past the end, so an
