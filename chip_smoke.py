@@ -21,7 +21,9 @@ failure:
    path's tally shapes).
 3. the stage-00 kernels the same way: K4 count_windows on 65,536 packed
    100-bp reads at k = 15, 21, 31 (masked, clean, key range up to
-   2^64 - 1); K5 sort_pairs on the edge cases of
+   2^64 - 1; its device time), then on utils/synthetic.py
+   window_edge_reads at strides 25, 26 and 30 and k = 15, 17, 21, 31;
+   K5 sort_pairs on the edge cases of
    utils/synthetic.py sort_edge_cases (lengths 1, tile - 1, tile, tile +
    1, all keys equal, all sentinels, sorted, reversed) at k = 15, 17, 21,
    31 in one portion and in portions of two tiles, then on 2^26 pairs at
@@ -31,7 +33,10 @@ failure:
    shrink_run on its distinct rows; K7
    count_stats on 2^26 counts, high = 10000; K8 marker_filter on two
    2^25-row runs sharing half their keys, bounds (9, 33) and
-   (0, 2^31 - 1).
+   (0, 2^31 - 1) (its two kernels once a call, nothing else on the card;
+   the device time of each), then on marker_edge_cases (shared keys at
+   the tile edges of the merged order, empty sides, a and b the same
+   arrays, runs of unequal length), each call twice.
 4. the stage-01 goldens (main, edge, k15, k31; weight0 1.04) classified
    on the card, byte-identical to tests/golden/stage01/*.golden; the
    stage-00 goldens built on the card by engines device, host and device
@@ -214,6 +219,7 @@ CROSSOVER_SLOTS = (16, 32, 64, 128, 256)   # K16 vs K2: raw panels
 N_TALLY_BARCODES = 100_000    # K15 check
 MESH_BATCH = 1 << 14          # the mesh stage-00 batch (FQ.DEFAULT_BATCH)
 FOLD_KERNELS = ("fold_tiles_kernel", "fold_tail_kernel")   # K6's two
+MARKER_KERNELS = ("marker_tiles_kernel", "marker_tail_kernel")   # K8's two
 STAGE03_FILES = (
     "output.phb.1.fa", "output.phb.2.fa", "output.homo.fa", "phasing.out",
     "output.phb.12.father.idx", "output.phb.12.mother.idx",
@@ -596,16 +602,41 @@ def phase_kernels00() -> dict:
                 fail(f"K4 count_windows k={k} {variant}: {real} of "
                      f"{got.numel()} windows real")
             ms, plain = cuda_ms(fn, 20), cuda_ms(ref, 3)
+            dev_ms = device_ms(fn, 20, "count_windows_kernel")
             log(f"K4 count_windows k={k} {variant}: {n} reads x "
                 f"{got.numel() // n} windows ({real} real): kernel "
-                f"{ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
+                f"{ms:.4f} ms ({dev_ms:.4f} ms of it on the device), twin "
+                f"{plain:.4f} ms, bit-exact")
             if k == K and variant == "masked":
                 # packed reads, the ACGT bitmask and lengths in, keys out
                 res["count_windows"] = dict(
-                    ms=ms, plain_ms=plain, library_ms=None,
+                    ms=ms, plain_ms=plain, library_ms=None, device_ms=dev_ms,
                     **bound("K4", packed.numel() + good.numel() + 4 * n
                             + 8 * got.numel(),
                             (WINDOW_OPS + COUNT_RANGE_OPS) * got.numel()))
+    # the rolled windows' edges: strides that are not a multiple of 4,
+    # reads of length 0, k - 1, k and the stride, N at a window's ends
+    cases = 0
+    for k in (15, 17, 21, 31):
+        for lp in (25, 26, 30):
+            seqs, lens = S.window_edge_reads(k + lp, k, lp, n=2000)
+            packed, lengths = (torch.from_numpy(x).to(dev) for x in (
+                E.pack_codes_np(seqs), lens))
+            masks = (None,) if lp % 2 else (None, torch.from_numpy(
+                KC.pack_good_np(seqs)).to(dev))
+            for mask in masks:
+                for key_range in (None, (1 << 63, (1 << 64) - 1),
+                                  (1 << (2 * k - 2), (1 << 64) - 1)):
+                    err = max(err, _check_same(
+                        f"K4 count_windows k={k} stride {lp} edges",
+                        [KC.count_windows(packed, lengths, k, mask,
+                                          key_range)],
+                        [KC.count_windows_ref(packed, lengths, k, mask,
+                                              key_range)]))
+                    cases += 1
+    log(f"K4 count_windows: {cases} edge batches (strides 25, 26, 30; "
+        "lengths 0, k - 1, k, 4 x stride; N at window ends; k = 15, 17, 21, "
+        "31; ranges from 2^63) bit-exact")
     res["count_windows"]["max_abs_err"] = err
 
     # K5: the inputs a one-sweep sort gets wrong (lengths around a tile,
@@ -750,22 +781,51 @@ def phase_kernels00() -> dict:
         args += [keys, counts, rows - pads]
     err = 0.0
     for bounds in ((9, 33, 9, 33), (0, 2**31 - 1, 0, 2**31 - 1)):
-        got = KC.marker_filter(*args, bounds)
+        fn = lambda: KC.marker_filter(*args, bounds)  # noqa: E731
+        got = fn()
         err = max(err, _check_same(f"K8 marker_filter {bounds}", got,
                                    KC.marker_filter_ref(*args, bounds)))
-        ms = cuda_ms(lambda: KC.marker_filter(*args, bounds), 10)
+        ms = cuda_ms(fn, 10)
         plain = cuda_ms(lambda: KC.marker_filter_ref(*args, bounds), 3)
+        dev_ms = [device_ms(fn, 10, name) for name in MARKER_KERNELS]
         log(f"K8 marker_filter: 2 x {rows} rows, bounds {bounds}, kept "
-            f"{int(got[1])} + {int(got[3])}: kernel {ms:.4f} ms, twin "
-            f"{plain:.4f} ms, bit-exact")
+            f"{int(got[1])} + {int(got[3])}: kernel {ms:.4f} ms "
+            f"({sum(dev_ms):.4f} ms of it on the device: the look-back pass "
+            f"{dev_ms[0]:.4f}, the tail {dev_ms[1]:.4f}), twin {plain:.4f} "
+            "ms, bit-exact")
         if bounds[0] == 9:
             # two runs of 8-byte keys and 4-byte counts in, and out every
             # slot of the two full-size key outputs (_compact_kernel keeps
             # the input's size, kmer_count.py:602-608) and the two counts
             res["marker_filter"] = dict(
                 ms=ms, plain_ms=plain, library_ms=None,
+                device_ms=sum(dev_ms),
                 **bound("K8", 2 * rows * 12 + 2 * rows * 8 + 16,
                         MERGE_OPS * 2 * rows))
+    kernels = _kernels_of_one_call(fn, 2)
+    if sorted(kernels.values()) != [1, 1] or not all(
+            any(m in name for m in MARKER_KERNELS) for name in kernels):
+        fail(f"K8 marker_filter: one call ran {kernels} on the card, not "
+             "its two kernels once each")
+    log(f"K8 marker_filter: one call's device work: {kernels}")
+    del args, got
+    # the merge-path tiles' edges, a few tiles a case: shared keys at,
+    # across and after each tile edge, empty sides, all or no key shared,
+    # a and b the same arrays, unequal lengths; each call twice
+    cases = 0
+    for name, a, b in S.marker_edge_cases(2025, KC.MARKER_TILE):
+        ta = [torch.from_numpy(a[0]).to(dev), torch.from_numpy(a[1]).to(dev),
+              a[2]]
+        tb = ta if b is a else [torch.from_numpy(b[0]).to(dev),
+                                torch.from_numpy(b[1]).to(dev), b[2]]
+        for bounds in ((1, 11, 2, 9), (0, 2**31 - 1, 0, 2**31 - 1)):
+            want = KC.marker_filter_ref(*ta, *tb, bounds)
+            for _ in range(2):
+                err = max(err, _check_same(f"K8 marker_filter {name}",
+                                           KC.marker_filter(*ta, *tb, bounds),
+                                           want))
+                cases += 1
+    log(f"K8 marker_filter: {cases} edge calls bit-exact")
     res["marker_filter"]["max_abs_err"] = err
     return res
 
@@ -1101,8 +1161,7 @@ def phase_stage00_breakdown(tmp: str, reads: dict) -> None:
               ("K5 sort_pairs", ("onesweep_",)),
               ("K6 fold_runs", FOLD_KERNELS),
               ("K7 count_stats", ("count_stats_kernel",)),
-              ("K8 marker_filter", ("keep_kernel", "KeepVal")),
-              ("scan tiles (K8)", ("scan_tiles_kernel",)),
+              ("K8 marker_filter", MARKER_KERNELS),
               ("copies and memsets (K5's status words)",
                ("Memcpy", "Memset")))
     out = os.path.join(tmp, "stage00_profiled")

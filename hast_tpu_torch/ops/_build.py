@@ -53,8 +53,8 @@ _SIGNATURES = {
     "hast_sort_pairs": [_P, _P, _P, _P, _P, _P, _I64, _I, _I64, _P, _P],
     "hast_fold_runs": [_P, _P, _I64, _P, _P, _P, _P, _P],
     "hast_count_stats": [_P, _I64, _I, _P, _P, _P],
-    "hast_marker_filter": [_P, _P, _I64, _P, _I64, _I64, _I64, _P, _P, _P,
-                           _P],
+    "hast_marker_filter": [_P, _P, _I64, _I64, _P, _P, _I64, _I64, _I64,
+                           _I64, _I64, _I64, _P, _P, _P, _P, _P],
     "hast_probe": [_P, _I64, _I, _I, _I, _I, _P, _I64, _P, _P],
     "hast_segment_votes": [_P, _I64, _I, _I, _I, _I, _P, _P, _P, _I64, _I64,
                            _P, _P],

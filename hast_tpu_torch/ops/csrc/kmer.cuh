@@ -12,13 +12,13 @@
 //
 // What bounds it on an H100: nothing here touches device memory except
 // the k bytes of the row (L1-resident: a 100-bp read is 28 bytes), so
-// the window is a few dozen integer ops; the probe that follows is what
-// costs.  The design therefore recomputes each window from the packed
-// bytes instead of materialising codes or a rolling state, which keeps
-// one thread per window with no shared memory and no ordering.  Kernels
-// whose windows come from ASCII bytes in long runs (K9, K14) pack the
-// bytes once in shared memory and roll consecutive windows instead (the
-// rolled windows below).
+// the window is a few dozen integer ops; in K1, K3 and K13 the probe
+// that follows is what costs, so they recompute each window from the
+// packed bytes (canonical_window), one thread a window with no shared
+// memory and no ordering.  Kernels that write or probe every window of
+// long runs roll consecutive windows instead (the rolled windows below):
+// K9 and K14 from ASCII bytes they pack once in shared memory, K4 from
+// the packed rows as the native reader lays them out.
 #pragma once
 
 #include <cstdint>
@@ -84,12 +84,14 @@ __device__ __forceinline__ bool canonical_window_bytes(const uint8_t* s,
   return ok;
 }
 
-// Rolled windows over ASCII bytes packed once (K9, K14).  A run of bytes
-// is packed as codes (c >> 1) & 3, base i at bits 2 * (i & 15) of
-// codes32[i >> 4], and as flags, bit i & 15 of good16[i >> 4] set iff
-// byte i passes the rule.  A thread cuts its first window's words and
-// run of good bases from the packed words in a few shifts, then rolls
-// one base a window: a byte step a window instead of k.
+// Rolled windows over packed words (K4, K9, K14).  Codes lie base i at
+// bits 2 * (i & 15) of codes32[i >> 4] and flags bit i & 15 of
+// good16[i >> 4], set iff base i is good: K9 and K14 pack ASCII bytes so
+// (codes (c >> 1) & 3, flags from the byte rule); the native reader's
+// packed rows and ACGT masks, read as little-endian words, are already
+// so (K4).  A thread cuts its first window's words and run of good bases
+// from the packed words in a few shifts, then rolls one base a window: a
+// step a window instead of k.
 
 // 32 bases from base p, base p at bits 0-1 (reads codes32[(p >> 4) + 2]).
 __device__ __forceinline__ uint64_t packed_bases(const uint32_t* codes32,

@@ -304,12 +304,6 @@ SORT_TILE = 4096      # sort.cu kTile: the keys a block ranks together
 # sort.cu sweeps the input in portions of this many keys (a multiple of
 # SORT_TILE, at most 2^28), each with its own look-back
 _SORT_PORTION = 1 << 28
-_SCAN_TILE = 4096     # scan.cuh kScanTile
-
-
-def _scan_scratch(n: int, device) -> torch.Tensor:
-    return torch.empty(-(-n // _SCAN_TILE) + 1, dtype=torch.int64,
-                       device=device)
 
 
 def _check_keys(name: str, keys: torch.Tensor, *int32s) -> None:
@@ -395,23 +389,26 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor | None, k: int,
 
 # fold.cu kTile: the elements a block folds together
 FOLD_TILE = 2048
-# fold.cu's scratch: one word for the tile counter and the group total,
-# then a status word a tile, zero before a call (the total aside) and left
-# so by it.  It is kept one a card and stream, grown when a run needs more
-# tiles, so that a call launches no memset; calls on one stream run in
-# order, so they never share it at once.
-_FOLD_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
-_FOLD_SCRATCH_LOCK = threading.Lock()
+# The look-back scratch of fold.cu and markers.cu, int64 words: word 0
+# holds the tile counter and a second count (fold.cu's group total,
+# markers.cu's edge counter), then a status word a tile (markers.cu: then
+# a split a tile edge), zero before a call (fold.cu's total aside) and
+# left so by it.  Each kernel keeps one a card and
+# stream, grown when a call needs more words, so that a call launches no
+# memset; calls on one stream run in order, so they never share it at
+# once.
+_STATUS_SCRATCH: dict[tuple[str, int, int], torch.Tensor] = {}
+_STATUS_SCRATCH_LOCK = threading.Lock()
 
 
-def _fold_scratch(n: int, device: torch.device) -> torch.Tensor:
-    words = -(-n // FOLD_TILE) + 1
-    key = (device.index, _build.raw_stream(device.index))
-    with _FOLD_SCRATCH_LOCK:
-        buf = _FOLD_SCRATCH.get(key)
+def _status_scratch(kernel: str, words: int,
+                    device: torch.device) -> torch.Tensor:
+    key = (kernel, device.index, _build.raw_stream(device.index))
+    with _STATUS_SCRATCH_LOCK:
+        buf = _STATUS_SCRATCH.get(key)
         if buf is None or buf.numel() < words:
             buf = torch.zeros(words, dtype=torch.int64, device=device)
-            _FOLD_SCRATCH[key] = buf
+            _STATUS_SCRATCH[key] = buf
     return buf
 
 
@@ -467,7 +464,8 @@ def fold_runs(keys: torch.Tensor, counts: torch.Tensor, out=None):
     if n >= 1 << 31:
         raise ValueError(f"fold_runs: {n} keys, at most 2^31 - 1")
     n_unique = torch.empty((), dtype=torch.int64, device=keys.device)
-    scratch = _fold_scratch(n, keys.device)
+    scratch = _status_scratch("fold_runs", -(-n // FOLD_TILE) + 1,
+                              keys.device)
     _build.launch("fold_runs", keys.device, keys.data_ptr(), counts.data_ptr(),
                   n, out_keys.data_ptr(), out_counts.data_ptr(),
                   n_unique.data_ptr(), scratch.data_ptr())
@@ -545,6 +543,8 @@ def count_stats(counts: torch.Tensor, high: int):
 # K8: the marker algebra
 # ---------------------------------------------------------------------------
 
+MARKER_TILE = 2048    # markers.cu kTile: the merged rows a block tests
+
 
 def _filter_side_ref(x_keys, x_counts, y_keys, y_n: int, lower: int,
                      upper: int):
@@ -575,18 +575,6 @@ def marker_filter_ref(a_keys, a_counts, a_n: int, b_keys, b_counts,
                               b_upper))
 
 
-def _filter_side(x_keys, x_counts, y_keys, y_n: int, lower: int,
-                 upper: int):
-    n = x_keys.numel()
-    out = torch.empty_like(x_keys)
-    keep = torch.empty(n, dtype=torch.uint8, device=x_keys.device)
-    tile_sums = _scan_scratch(n, x_keys.device)
-    _build.launch("marker_filter", x_keys.device, x_keys.data_ptr(),
-                  x_counts.data_ptr(), n, y_keys.data_ptr(), y_n, lower, upper,
-                  keep.data_ptr(), tile_sums.data_ptr(), out.data_ptr())
-    return out, tile_sums[-1]
-
-
 def marker_filter(a_keys: torch.Tensor, a_counts: torch.Tensor, a_n: int,
                   b_keys: torch.Tensor, b_counts: torch.Tensor, b_n: int,
                   bounds):
@@ -598,7 +586,9 @@ def marker_filter(a_keys: torch.Tensor, a_counts: torch.Tensor, a_n: int,
     (a_out, a_kept, b_out, b_kept): each out holds the kept keys
     ascending at its front and INT64_MAX after them; each kept is a 0-d
     int64 tensor on the device.  A key is kept iff it is real, absent
-    from the other table and its count lies within the bounds.
+    from the other table and its count lies within the bounds.  a and b
+    may be the same tensors.  On the card it is one C call (two kernels,
+    one merge of both runs) on a status scratch kept a card and stream.
     """
     _check_keys("marker_filter", a_keys, a_counts)
     _check_keys("marker_filter", b_keys, b_counts)
@@ -610,8 +600,20 @@ def marker_filter(a_keys: torch.Tensor, a_counts: torch.Tensor, a_n: int,
         return marker_filter_ref(a_keys, a_counts, a_n, b_keys, b_counts,
                                  b_n, (a_lower, a_upper, b_lower, b_upper))
     _build.require_cuda("marker_filter", a_keys, a_counts, b_keys, b_counts)
-    return (*_filter_side(a_keys, a_counts, b_keys, b_n, a_lower, a_upper),
-            *_filter_side(b_keys, b_counts, a_keys, a_n, b_lower, b_upper))
+    a_len, b_len = a_keys.numel(), b_keys.numel()
+    if max(a_len, b_len) >= 1 << 31:
+        raise ValueError(f"marker_filter: {a_len} and {b_len} rows, at most "
+                         "2^31 - 1 each")
+    dev = a_keys.device
+    a_out, b_out = torch.empty_like(a_keys), torch.empty_like(b_keys)
+    kept = torch.empty(2, dtype=torch.int64, device=dev)
+    scratch = _status_scratch(
+        "marker_filter", 2 * -(-(a_n + b_n) // MARKER_TILE) + 2, dev)
+    _build.launch("marker_filter", dev, a_keys.data_ptr(), a_counts.data_ptr(),
+                  a_len, a_n, b_keys.data_ptr(), b_counts.data_ptr(), b_len,
+                  b_n, a_lower, a_upper, b_lower, b_upper, a_out.data_ptr(),
+                  b_out.data_ptr(), kept.data_ptr(), scratch.data_ptr())
+    return a_out, kept[0], b_out, kept[1]
 
 
 # ---------------------------------------------------------------------------

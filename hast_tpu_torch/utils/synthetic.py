@@ -22,8 +22,10 @@ jax and without a per-read Python loop, so a million reads take seconds:
 * :func:`write_fake_supernova`: a stand-in Supernova install that hands
   out a given pseudohap2 assembly, for driving ``run`` without the real
   one.
-* :func:`sort_edge_cases` and :func:`barcode_sorted_ids`: the inputs that
-  K5's look-back sort and K15's warp-aggregated tally could get wrong.
+* :func:`sort_edge_cases`, :func:`marker_edge_cases`,
+  :func:`window_edge_reads` and :func:`barcode_sorted_ids`: the inputs
+  that K5's look-back sort, K8's merge-path filter, K4's rolled windows
+  and K15's warp-aggregated tally could get wrong.
 """
 
 from __future__ import annotations
@@ -401,6 +403,103 @@ def sort_edge_cases(seed: int, k: int, tile: int) -> list:
               ("sorted", np.sort(words(n))),
               ("reverse sorted", np.sort(words(n))[::-1].copy())]
     return cases
+
+
+def _count_run(rng, keys: np.ndarray, pads: int):
+    """(keys, counts, n_valid) of a count table: ascending keys with
+    counts 1-11, then `pads` INT64_MAX rows of count 0."""
+    sent = np.iinfo(np.int64).max
+    return (np.concatenate([keys, np.full(pads, sent, np.int64)]),
+            np.concatenate([rng.integers(1, 12, keys.size),
+                            np.zeros(pads, np.int64)]).astype(np.int32),
+            keys.size)
+
+
+def marker_edge_cases(seed: int, tile: int, n_tiles: int = 4) -> list:
+    """(name, a, b) where a and b are (keys int64, counts int32, n_valid)
+    count tables, that a marker filter over tiles of `tile` rows of the
+    merged order could get wrong: a shared key (an a row, then the equal b
+    row) ending at, straddling or starting at every multiple of tile / 2
+    in the merged order; a_n = 0, b_n = 0 or both; every key shared; none
+    shared; a and b the very same arrays; runs of unequal length.  Keys
+    are distinct 21-mer words, each run padded with 1-40 sentinel rows.
+    About n_tiles * tile merged rows a case."""
+    rng = np.random.default_rng(seed)
+    m = n_tiles * tile + tile // 3
+
+    def words(n):
+        w = np.unique(rng.integers(0, 1 << 42, n + n // 8 + 16,
+                                   dtype=np.int64))
+        return np.sort(rng.choice(w, n, replace=False))
+
+    def pads():
+        return int(rng.integers(1, 41))
+
+    def pairs_at(offset):
+        # walk the merged order: a shared key takes two rows (a, then b)
+        # starting at each multiple of tile / 2 plus offset; every other
+        # key is a's or b's
+        starts = {t + offset for t in range(tile // 2, m, tile // 2)}
+        keys = words(m)
+        a, b, pos = [], [], 0
+        for key in keys:
+            if pos >= m:
+                break
+            if pos in starts:
+                a.append(key)
+                b.append(key)
+                pos += 2
+            else:
+                (a if rng.random() < 0.5 else b).append(key)
+                pos += 1
+        a, b = np.array(a, np.int64), np.array(b, np.int64)
+        return _count_run(rng, a, pads()), _count_run(rng, b, pads())
+
+    empty = np.zeros(0, np.int64)
+    shared = words(m // 2)
+    merged = words(m)
+    same = _count_run(rng, words(m // 2), pads())
+    long_a = words(3 * m // 4)
+    return [
+        ("shared pairs ending at each edge", *pairs_at(-2)),
+        ("shared pairs across each edge", *pairs_at(-1)),
+        ("shared pairs starting at each edge", *pairs_at(0)),
+        ("a_n = 0", _count_run(rng, empty, pads()),
+         _count_run(rng, words(m // 2), pads())),
+        ("b_n = 0", _count_run(rng, words(m // 2), pads()),
+         _count_run(rng, empty, pads())),
+        ("a_n = b_n = 0", _count_run(rng, empty, pads()),
+         _count_run(rng, empty, pads())),
+        ("every key shared", _count_run(rng, shared, pads()),
+         _count_run(rng, shared, pads())),
+        ("no key shared", _count_run(rng, merged[0::2], pads()),
+         _count_run(rng, merged[1::2], pads())),
+        ("a and b the same arrays", same, same),
+        ("unequal lengths", _count_run(rng, long_a, pads()),
+         _count_run(rng, np.union1d(long_a[::7], words(m // 8)), pads())),
+    ]
+
+
+def window_edge_reads(seed: int, k: int, lp: int, n: int = 64):
+    """(seqs (n, 4*lp) uint8 ASCII, zero past each length; lengths (n,)
+    int32) whose windows a rolled-window counter could get wrong: lengths
+    0, k - 1, k and 4*lp first, then random ones; an N at the first and
+    at the last base of a window, and bases in both cases, elsewhere 1 %
+    N."""
+    rng = np.random.default_rng(seed)
+    L = 4 * lp
+    letters = np.frombuffer(b"ACGTacgt", np.uint8)
+    seqs = letters[rng.integers(0, letters.size, (n, L))]
+    seqs[rng.random((n, L)) < 0.01] = ord("N")
+    lengths = rng.integers(k, L + 1, n).astype(np.int32)
+    lengths[:4] = (0, k - 1, k, L)
+    for r in range(4, n):
+        p = int(rng.integers(0, max(lengths[r] - k + 1, 1)))
+        seqs[r, p] = ord("N")                        # first base of window p
+        if p + 2 * k - 1 < L:
+            seqs[r, p + 2 * k - 1] = ord("N")        # last of window p + k
+    seqs[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    return seqs, lengths
 
 
 def barcode_sorted_ids(seed: int, n: int, num_barcodes: int) -> np.ndarray:

@@ -21,6 +21,7 @@ import torch
 from hast_tpu_torch.ops import _build
 from hast_tpu_torch.ops import encode as E
 from hast_tpu_torch.ops import kmer_count as KC
+from hast_tpu_torch.utils import synthetic as S
 
 SENT = KC.SENT
 U32 = 0xFFFFFFFF
@@ -62,8 +63,11 @@ def ascii_reads(seed: int, k: int, n: int = 48, L: int = 64,
 
 
 def packed_reads(seqs, lengths):
+    """(packed, good, lengths) tensors; good is None for a stride of an
+    odd number of bytes, which takes no mask."""
     return (torch.from_numpy(E.pack_codes_np(seqs)),
-            torch.from_numpy(KC.pack_good_np(seqs)),
+            torch.from_numpy(KC.pack_good_np(seqs))
+            if seqs.shape[1] % 8 == 0 else None,
             torch.from_numpy(lengths))
 
 
@@ -93,15 +97,28 @@ RANGES = {
 }
 
 
-@pytest.mark.parametrize("k", [15, 21, 31])
-@pytest.mark.parametrize("variant", ["masked", "clean", "range",
-                                     "sorted"])
+# variant: what count_windows is asked for, on ascii_reads (stride 16
+# bytes), or "<variant>_lp<stride>" on window_edge_reads of that stride:
+# strides that are not a multiple of 4 (a mask needs an even one), reads
+# of length 0, k - 1, k and the full stride, N at a window's first and
+# last base
+@pytest.mark.parametrize("k", [15, 17, 21, 31])
+@pytest.mark.parametrize("variant", ["masked", "clean", "range", "sorted",
+                                     "masked_lp26", "masked_lp30",
+                                     "range_lp30", "clean_lp25"])
 def test_count_windows_twin_matches_jax(k, variant):
     jax, jnp, JKC = jax_modules()
-    seqs, lengths = ascii_reads(k, k, **(dict(alphabet=b"ACGTacgt")
-                                         if variant == "clean" else {}))
+    if "_lp" in variant:
+        variant, lp = variant.split("_lp")
+        seqs, lengths = S.window_edge_reads(k, k, int(lp))
+        if variant == "clean":
+            seqs[seqs == ord("N")] = ord("A")
+    else:
+        seqs, lengths = ascii_reads(k, k, **(dict(alphabet=b"ACGTacgt")
+                                             if variant == "clean" else {}))
     packed, good, lens = packed_reads(seqs, lengths)
-    jp, jg, jl = (jnp.asarray(x.numpy()[None]) for x in (packed, good, lens))
+    jp, jg, jl = (None if x is None else jnp.asarray(x.numpy()[None])
+                  for x in (packed, good, lens))
     before = dict(_build.LAUNCHES)
     if variant == "masked":
         got = KC.count_windows(packed, lens, k, good)
@@ -357,6 +374,49 @@ def test_marker_filter_lone_sentinel_at_lower_zero():
     wp, wm = JKC.device_marker_algebra(ref_p, ref_m, 0, 100, 0, 100)
     np.testing.assert_array_equal(p, wp)
     np.testing.assert_array_equal(m, wm)
+
+
+def jax_halves(keys: np.ndarray):
+    """The port's int64 keys -> JAX (hi, lo) uint32, INT64_MAX as
+    (0xFFFFFFFF, 0xFFFFFFFF)."""
+    sent = keys == SENT
+    return (np.where(sent, U32, keys >> 32).astype(np.uint32),
+            np.where(sent, U32, keys & U32).astype(np.uint32))
+
+
+def marker_case_tensors(a, b, device="cpu"):
+    """marker_edge_cases' (a, b) as the twin's and the kernel's arguments;
+    a case whose a is b passes the same tensors twice."""
+    ta = [torch.from_numpy(a[0]).to(device),
+          torch.from_numpy(a[1]).to(device), a[2]]
+    tb = ta if b is a else [torch.from_numpy(b[0]).to(device),
+                            torch.from_numpy(b[1]).to(device), b[2]]
+    return [*ta, *tb]
+
+
+@pytest.mark.parametrize("case", range(10))
+@pytest.mark.parametrize("bounds", [(1, 11, 2, 9),
+                                    (0, 2**31 - 1, 0, 2**31 - 1)])
+def test_marker_filter_twin_on_edge_cases_matches_jax(case, bounds):
+    """marker_edge_cases (shared keys at, across and after every tile
+    edge of the merged order, empty sides, all or no key shared, a and b
+    the same arrays, unequal lengths) through the twin and through
+    _unique_filter_kernel + _compact_kernel; lower = 0 with pads keeps
+    no pad."""
+    _, jnp, JKC = jax_modules()
+    cases = S.marker_edge_cases(9, KC.MARKER_TILE)
+    assert len(cases) == 10
+    name, a, b = cases[case]
+    got = KC.marker_filter_ref(*marker_case_tensors(a, b), bounds)
+    keep = JKC._unique_filter_kernel(
+        *(jnp.asarray(x) for x in (*jax_halves(a[0]), a[1],
+                                   *jax_halves(b[0]), b[1])),
+        *(np.int32(x) for x in bounds))
+    for (keys, _, _), k, out, n in zip((a, b), keep, got[0::2], got[1::2]):
+        hi, lo, want_n = JKC._compact_kernel(*(jnp.asarray(x) for x in
+                                               jax_halves(keys)), k)
+        np.testing.assert_array_equal(out.numpy(), ref_keys(hi, lo), name)
+        assert int(n) == int(want_n), name
 
 
 def test_device_table_round_trips_and_matches_jax(jax_tables):
@@ -632,18 +692,32 @@ def test_shrink_run_rejects_bad_input():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [15, 21, 31])
+@pytest.mark.parametrize("k", [15, 17, 21, 31])
 def test_count_windows_kernel_matches_twin(card, k):
-    seqs, lengths = ascii_reads(k, k, n=3000, L=128)
-    packed, good, lens = (x.to(card) for x in packed_reads(seqs, lengths))
-    for g in (None, good):
-        for key_range in (None, (1 << 30, (1 << 64) - 1),
-                          ((1 << 63) + 1, (1 << 64) - 1)):
-            launches = _build.LAUNCHES["count_windows"]
-            got = KC.count_windows(packed, lens, k, g, key_range)
-            assert _build.LAUNCHES["count_windows"] == launches + 1
-            assert torch.equal(got, KC.count_windows_ref(packed, lens, k, g,
-                                                         key_range))
+    """3,000 reads of stride 32 bytes, window_edge_reads at strides 25,
+    26 and 30, and 4096 // n_win - 1, + 0 and + 1 reads of some 64
+    windows (one tile of the kernel is 4,096 windows), with and without
+    the mask (even strides) and key ranges up to 2^64 - 1: bit-exact, one
+    C call each."""
+    batches = [ascii_reads(k, k, n=3000, L=128)]
+    batches += [S.window_edge_reads(k, k, lp) for lp in (25, 26, 30)]
+    lp = (63 + k + 3) // 4
+    tile_reads = 4096 // (4 * lp - k + 1)
+    edge = S.window_edge_reads(k + 1, k, lp, n=tile_reads + 1)
+    batches += [(edge[0][:n], edge[1][:n])
+                for n in (tile_reads - 1, tile_reads, tile_reads + 1)]
+    for seqs, lengths in batches:
+        packed, good, lens = (None if x is None else x.to(card)
+                              for x in packed_reads(seqs, lengths))
+        for g in (None,) if good is None else (None, good):
+            for key_range in (None, (1 << 30, (1 << 64) - 1),
+                              (1 << 63, (1 << 64) - 1),
+                              ((1 << 63) + 1, (1 << 64) - 1)):
+                launches = _build.LAUNCHES["count_windows"]
+                got = KC.count_windows(packed, lens, k, g, key_range)
+                assert _build.LAUNCHES["count_windows"] == launches + 1
+                assert torch.equal(got, KC.count_windows_ref(
+                    packed, lens, k, g, key_range))
 
 
 @pytest.mark.cuda
@@ -805,22 +879,50 @@ def test_count_stats_kernel_matches_twin(card, high):
 
 @pytest.mark.cuda
 def test_marker_filter_kernel_matches_twin(card):
+    """Two runs of 150,000 and 120,000 keys with 1,000 pads each;
+    marker_edge_cases over four tiles; runs with no rows; merged lengths
+    one under, at and one over one tile and one persistent wave (every
+    block of the grid takes one tile): bit-exact, twice in a row (the
+    status words are zero again), one C call a call.  chip_smoke.py holds
+    a call to its two kernels and nothing else: in this process the
+    profiler, after the fold tests' profiles, showed the tail alone."""
     rng = np.random.default_rng(8)
     pool = np.unique(rng.integers(0, 1 << 42, 400_000, dtype=np.int64))
     a = np.sort(rng.choice(pool, 150_000, replace=False))
     b = np.sort(rng.choice(pool, 120_000, replace=False))
-    args = []
+    runs = []
     for keys in (a, b):
         pad = np.full(1000, SENT, np.int64)
         counts = np.concatenate([rng.integers(1, 60, keys.size),
                                  np.zeros(pad.size)]).astype(np.int32)
-        args += [torch.from_numpy(np.concatenate([keys, pad])).to(card),
-                 torch.from_numpy(counts).to(card), keys.size]
-    for bounds in ((9, 33, 9, 33), (0, 2**31 - 1, 0, 2**31 - 1)):
-        got = KC.marker_filter(*args, bounds)
-        want = KC.marker_filter_ref(*args, bounds)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+        runs.append((np.concatenate([keys, pad]), counts, keys.size))
+    cases = [tuple(runs)]
+    cases += [(a, b) for _, a, b in S.marker_edge_cases(5, KC.MARKER_TILE)]
+    empty = (np.zeros(0, np.int64), np.zeros(0, np.int32), 0)
+    cases += [(empty, empty), (empty, cases[1][1])]
+    wave = (torch.cuda.get_device_properties(card).multi_processor_count
+            * 3 * KC.MARKER_TILE)
+    for m in (KC.MARKER_TILE, wave):
+        pool = np.unique(rng.integers(0, 1 << 42, 2 * m, dtype=np.int64))
+        for n in (m - 1, m, m + 1):
+            a = np.sort(rng.choice(pool, n // 2, replace=False))
+            rest = np.setdiff1d(pool, a)
+            b = np.union1d(a[::3], rng.choice(rest, n - n // 2 - a[::3].size,
+                                               replace=False))
+            cases.append(tuple((x, rng.integers(1, 12, x.size).astype(
+                np.int32), x.size) for x in (a, b)))
+            assert a.size + b.size == n
+    for a, b in cases:
+        args = marker_case_tensors(a, b, card)
+        for bounds in ((9, 33, 9, 33), (1, 11, 2, 9),
+                       (0, 2**31 - 1, 0, 2**31 - 1)):
+            want = KC.marker_filter_ref(*args, bounds)
+            for _ in range(2):
+                launches = _build.LAUNCHES["marker_filter"]
+                got = KC.marker_filter(*args, bounds)
+                assert _build.LAUNCHES["marker_filter"] == launches + 1
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
