@@ -5,8 +5,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It exits non-zero, printing no result, when torch sees no CUDA device or
 when the package is not beside it.  ``python3 chip_smoke.py
 --across-cards`` on a machine with two or more cards runs only the paths
-that cross cards (phase_across_cards) instead.  Phases, each fatal on
-failure:
+that cross cards (phase_across_cards) instead; ``python3 chip_smoke.py
+--read-votes [DIR]`` only times K3 and K13 (time_read_votes) with the
+hast_tpu_torch package under DIR (default: beside this file), so that
+two trees' kernels can be timed in turns on one card.  Phases, each
+fatal on failure:
 
 1. toolchain: card, power limit, torch, CUDA, nvcc; the kernels' build.
 2. kernels vs their plain PyTorch twins on the card, bit-exact, with
@@ -47,9 +50,11 @@ failure:
 5. the stage-01 main path at bench.py's scale: 10^6 markers per
    haplotype at k = 21 and 10^6 100-bp stLFR reads, through
    ``classify-reads --device cuda`` (classify, splits, quartering); K3,
-   K10 and K11 must have been launched and no twin called.  The first
-   10^5 reads are classified on the card and on the CPU twins, and the
-   outputs must be equal bytes.
+   K10 and K11 must have been launched and no twin called.  A warm
+   run_classify under torch.profiler gives K3's device time over its
+   launches and the device idle share.  The first 10^5 reads are
+   classified on the card and on the CPU twins, and the outputs must be
+   equal bytes.
 6. the stage-00 main path at bench.py's scale: a 3 Mb trio, 100-bp reads
    at 33x with 0.2 % errors (about 990,000 reads a parent), through
    ``build-markers --auto_bounds --device cuda``; K4-K8 and K12 must each
@@ -100,6 +105,14 @@ failure:
    into 10^5 barcodes, ids -1 and past the end included, random and in
    stLFR's barcode runs of 20-60 reads, into a fresh tally and with out=
    over two calls (call and device times; index_add_'s beside them).
+   Then K3 and K13, which share csrc/reads.cuh, on
+   utils/synthetic.py read_tile_edge_batches (strides of 1, 25, 26, 28,
+   30, 256, 2,048 and 16,384 bytes; k = 15, 17, 21, 31; both table
+   formats; tp shards 2 and 4), one C call a wrapper call and one kernel a
+   call in the short and the long form; their device times on the three
+   tables (random and barcode-sorted ids for K3, packed and ASCII for
+   K13; the 2^24-row table also with 256 MB written before each call)
+   and K3's long form on 8,192 reads of len_cap 8,192.
    Then the launch path: K10 against F.pad and K12 against narrow(0, 0,
    m).clone(), in turns (kernel, library, library, kernel; 200 calls
    each; the kernels line takes K10's and K12's call and library times
@@ -219,6 +232,14 @@ CROSSOVER_SLOTS = (16, 32, 64, 128, 256)   # K16 vs K2: raw panels
 N_TALLY_BARCODES = 100_000    # K15 check
 MESH_BATCH = 1 << 14          # the mesh stage-00 batch (FQ.DEFAULT_BATCH)
 FOLD_KERNELS = ("fold_tiles_kernel", "fold_tail_kernel")   # K6's two
+# K3's and K13's kernels; each call runs one of them, in the short form
+# (<false>, a tile of whole reads) or the long (<true>, a block a read)
+READ_VOTE_KERNELS = {"classify_tally": "classify_tally_kernel",
+                     "vote_reads": "vote_reads_kernel"}
+# read_tile_edge_batches' strides in packed bytes: under k bases, 100-104,
+# 112 and 120 bases, 1,024 bases, and the native paths' 8,192 and 65,536
+EDGE_STRIDES = (1, 25, 26, 28, 30, 256, 2048, 16384)
+FLUSH_BYTES = 1 << 28         # written before a call to empty the 50 MB L2
 MARKER_KERNELS = ("marker_tiles_kernel", "marker_tail_kernel")   # K8's two
 STAGE03_FILES = (
     "output.phb.1.fa", "output.phb.2.fa", "output.homo.fa", "phasing.out",
@@ -375,8 +396,7 @@ def phase_kernels() -> dict:
     res["canonical_windows"]["max_abs_err"] = err
 
     # K2 on the bench-scale key count, quot and forced full
-    words, hi, lo = random_keys(rng, 2_000_000, K)
-    pay = rng.integers(1, 4, words.size).astype(np.uint32)
+    tables, words, pay, bwords = vote_tables(rng)
     absent = random_keys(np.random.default_rng(99), 1 << 21, K)[0]
     absent = absent[~np.isin(absent, words)]
     q_np = np.concatenate([words[rng.integers(0, words.size, 1 << 21)],
@@ -385,12 +405,8 @@ def phase_kernels() -> dict:
                              np.zeros(absent.size, np.uint32)])
     queries = torch.from_numpy(q_np).to(dev)
     err = 0.0
-    tables = {}
     for fmt in ("quot", "full"):
-        t0 = time.perf_counter()
-        table = H.build_table(hi, lo, pay, K, load=0.7, fmt=fmt).to(dev)
-        build_s = time.perf_counter() - t0
-        tables[fmt] = table
+        table = tables[fmt]
         got = H.probe(table, queries)
         ref = H.probe_ref(table, queries)
         torch.cuda.synchronize()
@@ -401,9 +417,8 @@ def phase_kernels() -> dict:
         err = max(err, max_abs_err(got, ref))
         ms = cuda_ms(lambda: H.probe(table, queries), 20)
         plain = cuda_ms(lambda: H.probe_ref(table, queries), 3)
-        log(f"K2 probe {fmt} table {table.n_buckets} rows "
-            f"({table.data.numel() * 4 / 1e6:.1f} MB, built in {build_s:.2f}"
-            f" s), {queries.numel()} keys: kernel {ms:.4f} ms, twin "
+        log(f"K2 probe {fmt} table {table.n_buckets} rows, "
+            f"{queries.numel()} keys: kernel {ms:.4f} ms, twin "
             f"{plain:.4f} ms, bit-exact")
         if fmt == "quot":
             # 8-byte key in, 4-byte payload out, two 16-byte rows a key
@@ -411,18 +426,8 @@ def phase_kernels() -> dict:
                                 **bound("K2", queries.numel() * (8 + 4 + 32),
                                         PROBE_OPS[fmt] * queries.numel()))
 
-    # K2 and K3 past the L2: 4e7 random keys -> 2^24 quot rows (the few
-    # duplicate draws merge in the build)
-    t0 = time.perf_counter()
-    bwords = rng.integers(0, 1 << (2 * K), 40_000_000, dtype=np.int64)
-    bpay = rng.integers(1, 4, bwords.size).astype(np.uint32)
-    t1 = time.perf_counter()
-    big = H.build_table((bwords >> 32).astype(np.uint32),
-                        (bwords & 0xFFFFFFFF).astype(np.uint32), bpay, K,
-                        load=0.7).to(dev)
-    log(f"4e7-key table: {big.fmt}, {big.n_buckets} rows, "
-        f"{big.data.numel() * 4 / 1e6:.1f} MB; keys drawn in "
-        f"{t1 - t0:.2f} s, table built in {time.perf_counter() - t1:.2f} s")
+    # K2 and K3 past the L2
+    big = tables["big"]
     bq = torch.from_numpy(np.concatenate(
         [bwords[rng.integers(0, bwords.size, 1 << 22)],
          random_keys(rng, 1 << 22, K)[0]])).to(dev)
@@ -474,8 +479,7 @@ def phase_kernels() -> dict:
                 * int(probed) + READ_OPS * b))
     del bq
     res.update(_tally_kernels(rng))
-    return res, dict(quot=tables["quot"], full=tables["full"], big=big), \
-        words, bwords
+    return res, tables, words, bwords
 
 
 def _tally_kernels(rng) -> dict:
@@ -957,6 +961,8 @@ def phase_goldens00(tmp: str) -> None:
 def phase_main_path(tmp: str) -> dict:
     import io
     import itertools
+
+    import torch
     from hast_tpu_torch import cli
     from hast_tpu_torch.ops import _build
     from hast_tpu_torch.pipeline import classify as C
@@ -1009,6 +1015,24 @@ def phase_main_path(tmp: str) -> dict:
     log("run_classify warm (snapshot): " + ", ".join(
         f"{k} {v:.3f} s" for k, v in timings.items())
         + f"; classify phase {N_READS / timings['classify']:.0f} reads/s")
+    # the same warm run under torch.profiler: K3's device time over its
+    # launches, and the device's idle share
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        C.run_classify(hap0, hap1, [reads], io.BytesIO(), w0=1.04,
+                       batch_size=1 << 15, device="cuda")
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if _device_us(e)]
+    k3 = [e for e in events if READ_VOTE_KERNELS["classify_tally"] in e.key]
+    k3_ms = sum(_device_us(e) for e in k3) / 1e3
+    busy = sum(_device_us(e) for e in events) / 1e6
+    log(f"run_classify warm under torch.profiler: wall {prof_wall:.3f} s, "
+        f"K3 {k3_ms:.4f} ms of device time over "
+        f"{sum(e.count for e in k3)} launches, device busy {busy:.4f} s, "
+        f"idle share {1 - busy / prof_wall:.4f}")
 
     # the first 10^5 reads on the card and on the CPU twins
     small = os.path.join(d, "son.100k.fq")
@@ -1027,7 +1051,8 @@ def phase_main_path(tmp: str) -> dict:
         if a.read() != b.read():
             fail("first 10^5 reads: cuda and cpu phased.barcodes differ")
     log(f"first {N_CPU_READS} reads: cuda and cpu phased.barcodes equal")
-    return dict(launches=launches, wall=wall, timings=timings)
+    return dict(launches=launches, wall=wall, timings=timings,
+                k3_device_ms=k3_ms)
 
 
 def phase_markers_main(tmp: str) -> dict:
@@ -1597,6 +1622,264 @@ def _vote_reads_input(rng, key_sets, n: int, L: int = 112):
     lens = np.full(n, 100, np.int32)
     lens[rng.integers(0, n, 512)] = rng.integers(0, K, 512)
     return seqs, lens
+
+
+def vote_tables(rng) -> tuple:
+    """The probed tables at the main paths' sizes: 2x10^6 random 21-mers
+    as a quot table (2^20 rows, 16.8 MB, in the 50 MB L2) and a forced
+    full one (2^21 rows), 4x10^7 as a quot table of 2^24 rows (268 MB,
+    past the L2; the few duplicate draws merge in the build).  Returns
+    ({"quot", "full", "big"}: table on the card, the 2x10^6 keys, their
+    payloads, the 4x10^7 keys)."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import hashtable as H
+    dev = torch.device("cuda")
+    words, hi, lo = random_keys(rng, 2_000_000, K)
+    pay = rng.integers(1, 4, words.size).astype(np.uint32)
+    bwords = rng.integers(0, 1 << (2 * K), 40_000_000, dtype=np.int64)
+    bpay = rng.integers(1, 4, bwords.size).astype(np.uint32)
+    tables = {}
+    for name, args, fmt in (("quot", (hi, lo, pay), "quot"),
+                            ("full", (hi, lo, pay), "full"),
+                            ("big", ((bwords >> 32).astype(np.uint32),
+                                     (bwords & 0xFFFFFFFF).astype(np.uint32),
+                                     bpay), "auto")):
+        t0 = time.perf_counter()
+        tables[name] = t = H.build_table(*args, K, load=0.7, fmt=fmt).to(dev)
+        log(f"{name} table: {t.fmt}, {t.n_buckets} rows, "
+            f"{t.data.numel() * 4 / 1e6:.1f} MB, built in "
+            f"{time.perf_counter() - t0:.2f} s")
+    return tables, words, pay, bwords
+
+
+def time_read_votes(tables: dict, words, bwords) -> dict:
+    """Call and device times (ms) of K3 and K13 at the main paths' shapes:
+    K3 on 32,768 reads (_planted_batch's random ids, and barcode-sorted
+    ids), K13 on 65,536 packed and ASCII reads (_vote_reads_input), on the
+    2^20-row quot, 2^21-row full and 2^24-row quot tables, the last also
+    with FLUSH_BYTES written before each call.  Uses only the wrappers'
+    public calls, so it also times an earlier tree's kernels
+    (``--read-votes DIR``)."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import encode as E
+    from hast_tpu_torch.pipeline import classify as C
+    from hast_tpu_torch.utils import synthetic as S
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2031)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    seqs, lens = _vote_reads_input(rng, (words, bwords), N_VOTE_READS)
+    odd = np.frombuffer(b"acgtNRUnKMSWBDHV", np.uint8)
+    ascii_np = np.where(rng.random(seqs.shape) < 0.01,
+                        odd[rng.integers(0, odd.size, seqs.shape)], seqs)
+    forms = {"packed": (True, torch.from_numpy(E.pack_codes_np(seqs)).to(dev)),
+             "ascii": (False, torch.from_numpy(ascii_np).to(dev))}
+    lengths = torch.from_numpy(lens).to(dev)
+    acc = torch.zeros((4096, 3), dtype=torch.int32, device=dev)
+    out = {}
+
+    def both(key, fn, kernel):
+        ms = cuda_ms(fn, 20)
+        dev_ms = device_ms(fn, 20, kernel)
+        cold = None
+        if key[1] == "big":
+            cold = device_ms(lambda: (flush.zero_(), fn()), 20, kernel)
+        out["/".join(key)] = dict(ms=ms, device_ms=dev_ms,
+                                  device_ms_l2_flushed=cold)
+        log(f"{'K3' if key[0] == 'classify_tally' else 'K13'} {key[0]} "
+            f"{key[1]} table, {key[2]}: call {ms:.4f} ms, device "
+            f"{dev_ms:.4f} ms" + (f", {cold:.4f} ms with the L2 flushed "
+                                  "before each call" if cold else ""))
+
+    for name in ("quot", "full", "big"):
+        table = tables[name]
+        batch = _planted_batch(rng, bwords if name == "big" else words,
+                               32768, K)
+        runs = torch.from_numpy(S.barcode_sorted_ids(
+            2031, 32768, acc.shape[0])).to(dev)
+        for ids_name, ids in (("random ids", batch[2]),
+                              ("barcode-sorted ids", runs)):
+            args = (batch[0], batch[1], ids, batch[3])
+            both(("classify_tally", name, ids_name),
+                 lambda: C.tally_step(table, acc, *args),
+                 READ_VOTE_KERNELS["classify_tally"])
+        for form, (packed, reads) in forms.items():
+            both(("vote_reads", name, form),
+                 lambda: C.vote_reads(table, reads, lengths, packed),
+                 READ_VOTE_KERNELS["vote_reads"])
+    return out
+
+
+def _one_kernel(fn, what: str, form: str) -> str:
+    """The name of the one kernel one call of fn runs; fails unless it is
+    the only device work of the call and its name holds `form`."""
+    kernels = _kernels_of_one_call(fn, 1)
+    if list(kernels.values()) != [1] or form not in next(iter(kernels)):
+        fail(f"{what}: one call ran {kernels} on the card, not one "
+             f"{form} kernel")
+    return next(iter(kernels))
+
+
+def _launched(name: str, fn):
+    """fn's result; fails unless fn called the C entry `name` once."""
+    from hast_tpu_torch.ops import _build
+    before = _build.LAUNCHES[name]
+    got = fn()
+    if _build.LAUNCHES[name] != before + 1:
+        fail(f"{name}: {_build.LAUNCHES[name] - before} C calls in one "
+             "wrapper call")
+    return got
+
+
+def phase_read_votes(tables: dict, words, bwords) -> dict:
+    """K3 and K13, which share csrc/reads.cuh: bit-exact against their
+    twins on utils/synthetic.py read_tile_edge_batches (k = 15, 17, 21 in
+    both table formats and 31 in the full one, every stride of
+    EDGE_STRIDES, the long-row form included; K3 into a tally that
+    already holds counts, random and barcode-sorted ids; K13 packed and
+    ASCII on the whole table and its 2- and 4-way shards, the shards'
+    votes summing to the whole table's), one C call a wrapper call and
+    one kernel a call, of the form the stride names; then the device
+    times of time_read_votes and of K3's long form on 8,192 reads of
+    len_cap 8,192."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import encode as E
+    from hast_tpu_torch.ops import hashtable as H
+    from hast_tpu_torch.pipeline import classify as C
+    from hast_tpu_torch.utils import synthetic as S
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2030)
+    err = {"classify_tally": 0.0, "vote_reads": 0.0}
+    calls = 0
+    for k in (15, 17, 21, 31):
+        for fmt in ("quot", "full") if k < 31 else ("full",):
+            kw, hi, lo = random_keys(rng, 5000, k)
+            table = H.build_table(hi, lo, rng.integers(1, 4, kw.size).astype(
+                np.uint32), k, load=0.7, fmt=fmt).to(dev)
+            for lp in EDGE_STRIDES:
+                batches = S.read_tile_edge_batches(k * lp, k, lp, kw)
+                seqs, lens = batches[0][1], batches[0][2]
+                lengths = torch.from_numpy(lens).to(dev)
+                packed = torch.from_numpy(E.pack_codes_np(seqs)).to(dev)
+                for name, _, _, ids, has_n in batches:
+                    args = (packed, lengths, torch.from_numpy(ids).to(dev),
+                            torch.from_numpy(has_n).to(dev))
+                    acc = torch.from_numpy(rng.integers(
+                        0, 50, (512, 3)).astype(np.int32)).to(dev)
+                    want = C.tally_step_ref(table, acc.clone(), *args)
+                    got = _launched("classify_tally", lambda: C.tally_step(
+                        table, acc, *args))
+                    err["classify_tally"] = max(err["classify_tally"],
+                                                _check_same(
+                        f"K3 classify_tally k={k} {fmt} lp={lp} {name}",
+                        [got], [want]))
+                    calls += 1
+                forms = ((True, packed),
+                         (False, torch.from_numpy(seqs).to(dev)))
+                for is_packed, reads in forms:
+                    whole = _launched("vote_reads", lambda: C.vote_reads(
+                        table, reads, lengths, is_packed))
+                    err["vote_reads"] = max(err["vote_reads"], _check_same(
+                        f"K13 vote_reads k={k} {fmt} lp={lp} packed="
+                        f"{is_packed}", [whole], [C.vote_reads_ref(
+                            table, reads, lengths, is_packed)]))
+                    calls += 1
+                    for tp in (2, 4):
+                        rows = table.n_buckets // tp
+                        total = torch.zeros_like(whole, dtype=torch.int64)
+                        for j in range(tp):
+                            part = H.KmerTable(
+                                table.data[j * rows:(j + 1) * rows],
+                                table.n_buckets, table.max_probe, k, 0, (),
+                                table.fmt)
+                            got = _launched("vote_reads", lambda: C.vote_reads(
+                                part, reads, lengths, is_packed, j * rows))
+                            err["vote_reads"] = max(err["vote_reads"],
+                                                    _check_same(
+                                f"K13 vote_reads k={k} {fmt} lp={lp} shard "
+                                f"{j}/{tp}", [got], [C.vote_reads_ref(
+                                    part, reads, lengths, is_packed,
+                                    j * rows)]))
+                            total += got.long() & 0xFFFF
+                            calls += 1
+                        if not torch.equal(total, whole.long() & 0xFFFF):
+                            fail(f"K13 vote_reads k={k} {fmt} lp={lp}: the "
+                                 f"{tp} shards' votes do not sum to the "
+                                 "whole table's")
+    log(f"K3 and K13 on read_tile_edge_batches: {calls} calls bit-exact "
+        f"(strides {EDGE_STRIDES} bytes, k = 15, 17, 21, 31)")
+
+    # one kernel a call, of the form the stride names
+    table = tables["quot"]
+    for lp, form in ((28, "false"), (2048, "true")):
+        seqs, lens = _vote_reads_input(rng, (words,), 256, 4 * lp)
+        packed = torch.from_numpy(E.pack_codes_np(seqs)).to(dev)
+        lengths = torch.from_numpy(lens).to(dev)
+        ids = torch.zeros(256, dtype=torch.int32, device=dev)
+        has_n = torch.zeros(256, dtype=torch.uint8, device=dev)
+        acc = torch.zeros((4, 3), dtype=torch.int32, device=dev)
+        names = [_one_kernel(lambda: C.tally_step(table, acc, packed, lengths,
+                                                  ids, has_n),
+                             f"K3 classify_tally lp={lp}",
+                             f"classify_tally_kernel<{form}>")]
+        for ascii_form, reads in (("false", packed),
+                                  ("true", torch.from_numpy(seqs).to(dev))):
+            names.append(_one_kernel(
+                lambda: C.vote_reads(table, reads, lengths,
+                                     ascii_form == "false"),
+                f"K13 vote_reads lp={lp}",
+                f"vote_reads_kernel<{ascii_form}, {form}"))
+        log(f"stride {lp} bytes: one kernel a call: {names}")
+
+    times = time_read_votes(tables, words, bwords)
+    # K3's long form on a batch the native paths redo at len_cap 8,192:
+    # 100-bp reads but for 1 % of 1,000-8,192 bases
+    n, lp = 8192, 2048
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, 4 * lp))]
+    lens = np.full(n, 100, np.int32)
+    longer = rng.random(n) < 0.01
+    lens[longer] = rng.integers(1000, 4 * lp + 1, int(longer.sum()))
+    kmers = E.words_to_bytes(words[rng.integers(0, words.size, n)], K)
+    seqs[:, 10:10 + K] = kmers
+    args = [torch.from_numpy(x).to(dev) for x in (
+        E.pack_codes_np(seqs), lens,
+        S.barcode_sorted_ids(2032, n, 4096),
+        (rng.random(n) < 0.02).astype(np.uint8))]
+    acc = torch.zeros((4096, 3), dtype=torch.int32, device=dev)
+    want = C.tally_step_ref(table, acc.clone(), *args)
+    err["classify_tally"] = max(err["classify_tally"], _check_same(
+        "K3 classify_tally long form, len_cap 8192",
+        [C.tally_step(table, acc, *args)], [want]))
+    long_ms = device_ms(lambda: C.tally_step(table, acc, *args), 10,
+                        READ_VOTE_KERNELS["classify_tally"])
+    log(f"K3 classify_tally long form: {n} reads of len_cap {4 * lp}, "
+        f"{int(longer.sum())} past 1,000 bases: device {long_ms:.4f} ms, "
+        "bit-exact")
+    return {
+        "classify_tally": dict(
+            max_abs_err=err["classify_tally"],
+            device_ms=times["classify_tally/quot/random ids"]["device_ms"],
+            device_ms_sorted_ids=times[
+                "classify_tally/quot/barcode-sorted ids"]["device_ms"],
+            device_ms_full=times[
+                "classify_tally/full/random ids"]["device_ms"],
+            device_ms_2_24=times[
+                "classify_tally/big/random ids"]["device_ms"],
+            device_ms_2_24_l2_flushed=times[
+                "classify_tally/big/random ids"]["device_ms_l2_flushed"],
+            device_ms_long_form=long_ms),
+        "vote_reads": dict(
+            max_abs_err=err["vote_reads"],
+            device_ms=times["vote_reads/quot/packed"]["device_ms"],
+            device_ms_ascii=times["vote_reads/quot/ascii"]["device_ms"],
+            device_ms_full=times["vote_reads/full/packed"]["device_ms"],
+            device_ms_2_24=times["vote_reads/big/packed"]["device_ms"],
+            device_ms_2_24_l2_flushed=times[
+                "vote_reads/big/packed"]["device_ms_l2_flushed"])}
 
 
 def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
@@ -2585,18 +2868,31 @@ def main() -> None:
         fail(f"torch is not installed: {e}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
-    if not os.path.isdir(os.path.join(ROOT, "hast_tpu_torch")):
-        fail(f"the hast_tpu_torch package is not beside {__file__}")
-    sys.path.insert(0, ROOT)
-
-    across = sys.argv[1:] == ["--across-cards"]
-    if sys.argv[1:] and not across:
-        fail(f"unknown arguments {sys.argv[1:]} (only --across-cards)")
+    args = sys.argv[1:]
+    across = args == ["--across-cards"]
+    votes_only = args[:1] == ["--read-votes"] and len(args) <= 2
+    if args and not (across or votes_only):
+        fail(f"unknown arguments {args} (only --across-cards, or "
+             "--read-votes [DIR])")
+    # --read-votes DIR times the kernels of the hast_tpu_torch under DIR
+    root = os.path.abspath(args[1]) if votes_only and len(args) == 2 \
+        else ROOT
+    if not os.path.isdir(os.path.join(root, "hast_tpu_torch")):
+        fail(f"the hast_tpu_torch package is not in {root}")
+    sys.path.insert(0, root)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
     phase_toolchain()
+    if votes_only:
+        import numpy as np
+        tables, words, _, bwords = vote_tables(np.random.default_rng(2024))
+        print(json.dumps({"read_votes": time_read_votes(tables, words,
+                                                        bwords),
+                          "root": root}))
+        print(smi)
+        return
     if across:
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
@@ -2612,6 +2908,10 @@ def main() -> None:
     kernels.update(phase_kernels00())
     kernels.update(phase_kernels03(tables, words, bwords))
     kernels.update(phase_kernels_mesh(tables, words, bwords))
+    for name, extra in phase_read_votes(tables, words, bwords).items():
+        extra["max_abs_err"] = max(extra["max_abs_err"],
+                                   kernels[name]["max_abs_err"])
+        kernels[name].update(extra)
     for name, turns in phase_launch_path().items():
         kernels[name].update(turns)
     mesh_launches = {"tally_votes": phase_classify_step(tables, words)}
@@ -2623,7 +2923,10 @@ def main() -> None:
         phase_goldens(tmp)
         phase_goldens00(tmp)
         phase_goldens03(tmp)
-        launches = phase_main_path(tmp)["launches"]
+        main_path = phase_main_path(tmp)
+        launches = main_path["launches"]
+        kernels["classify_tally"]["main_path_device_ms"] = \
+            main_path["k3_device_ms"]
         mesh_launches["vote_reads"] = phase_mesh_classify(tmp)
         markers = phase_markers_main(tmp)
         launches.update(markers["launches"])

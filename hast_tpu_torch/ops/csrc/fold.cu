@@ -193,8 +193,12 @@ fold_tiles_kernel(const int64_t* __restrict__ keys,
         }
       __syncwarp();
       // iteration i - 1 was past the end: its workers left, so leave too
-      if (i > 0 && *reinterpret_cast<volatile int64_t*>(&s_tile[b ^ 1]) >=
-                       n_tiles)
+      // (lane 0's reading: once lane 0 has claimed below, the other
+      // look-back warp may rewrite the word)
+      if (__shfl_sync(0xFFFFFFFFu,
+                      i > 0 && *reinterpret_cast<volatile int64_t*>(
+                                   &s_tile[b ^ 1]) >= n_tiles,
+                      0))
         break;
       int64_t tile = 0;
       if (lane == 0) {

@@ -11,14 +11,13 @@
 // the JAX package is (key >> 32, key & 0xFFFFFFFF).
 //
 // What bounds it on an H100: nothing here touches device memory except
-// the k bytes of the row (L1-resident: a 100-bp read is 28 bytes), so
-// the window is a few dozen integer ops; in K1, K3 and K13 the probe
-// that follows is what costs, so they recompute each window from the
-// packed bytes (canonical_window), one thread a window with no shared
-// memory and no ordering.  Kernels that write or probe every window of
-// long runs roll consecutive windows instead (the rolled windows below):
-// K9 and K14 from ASCII bytes they pack once in shared memory, K4 from
-// the packed rows as the native reader lays them out.
+// the row's bytes.  K1 writes every window of a read, so it recomputes
+// each from the packed bytes (canonical_window), one thread a window with
+// no shared memory and no ordering.  The kernels that probe or write the
+// windows of staged rows roll consecutive windows instead (the rolled
+// windows below, a step a window instead of k): K9 and K14 from ASCII
+// bytes they pack in shared memory, K4 and K3/K13 (reads.cuh) from the
+// packed rows as the native reader lays them out, K13 from ASCII rows too.
 #pragma once
 
 #include <cstdint>
@@ -43,15 +42,15 @@ __device__ __forceinline__ uint64_t canonical_window(const uint8_t* row,
   return fwd < rc ? fwd : rc;
 }
 
-// Which ASCII bytes a window of k bytes may hold.  The repository has
-// three rules, and bytes such as a, N, R and U tell them apart:
-//   kAnyByte      every byte is a base; validity comes from the read's
-//                 length (hast_tpu/pipeline/classify.py `vote_kernel`, K13)
+// Which ASCII bytes make a base good, where a window must hold k good
+// bases.  The repository has two such rules, and bytes such as a, N, R
+// and U tell them apart (K13's ASCII form has none: every byte is a base,
+// and validity comes from the read's length):
 //   kAcgtUpper    uppercase A, C, G or T only (rephase.py `_strict_vote`,
 //                 K9)
 //   kAcgtAnyCase  A, C, G or T in either case (kmer_count.py `_ACGT`, the
 //                 stage-00 counting of mesh.py `sharded_count_chunk`, K14)
-enum ByteRule : int { kAnyByte, kAcgtUpper, kAcgtAnyCase };
+enum ByteRule : int { kAcgtUpper, kAcgtAnyCase };
 
 __device__ __forceinline__ bool is_acgt(uint32_t b) {
   return b == 'A' || b == 'C' || b == 'G' || b == 'T';
@@ -59,39 +58,18 @@ __device__ __forceinline__ bool is_acgt(uint32_t b) {
 
 template <ByteRule kRule>
 __device__ __forceinline__ bool byte_ok(uint32_t b) {
-  if constexpr (kRule == kAnyByte) return true;
   if constexpr (kRule == kAcgtUpper) return is_acgt(b);
   return is_acgt(b & ~0x20u);
 }
 
-// The key over k ASCII bytes, each coded (c >> 1) & 3 whatever it is
-// (hast_tpu/ops/encode.py `encode_bases`).  Returns whether the bytes
-// pass the rule.
-template <ByteRule kRule>
-__device__ __forceinline__ bool canonical_window_bytes(const uint8_t* s,
-                                                       int k,
-                                                       uint64_t& key) {
-  uint64_t fwd = 0, rc = 0;
-  bool ok = true;
-  for (int j = 0; j < k; ++j) {
-    const uint32_t b = s[j];
-    ok &= byte_ok<kRule>(b);
-    const uint64_t c = (b >> 1) & 3u;
-    fwd = (fwd << 2) | c;
-    rc |= (c ^ 2ull) << (2 * j);
-  }
-  key = fwd < rc ? fwd : rc;
-  return ok;
-}
-
-// Rolled windows over packed words (K4, K9, K14).  Codes lie base i at
-// bits 2 * (i & 15) of codes32[i >> 4] and flags bit i & 15 of
-// good16[i >> 4], set iff base i is good: K9 and K14 pack ASCII bytes so
-// (codes (c >> 1) & 3, flags from the byte rule); the native reader's
-// packed rows and ACGT masks, read as little-endian words, are already
-// so (K4).  A thread cuts its first window's words and run of good bases
-// from the packed words in a few shifts, then rolls one base a window: a
-// step a window instead of k.
+// Rolled windows over packed words (K3, K4, K9, K13, K14).  Codes lie
+// base i at bits 2 * (i & 15) of codes32[i >> 4] and flags bit i & 15 of
+// good16[i >> 4], set iff base i is good: K9, K13 and K14 pack ASCII
+// bytes so (codes (c >> 1) & 3, flags from the byte rule); the native
+// reader's packed rows and ACGT masks, read as little-endian words, are
+// already so (K3, K4, K13).  A thread cuts its first window's words and
+// run of good bases from the packed words in a few shifts, then rolls one
+// base a window: a step a window instead of k.
 
 // 32 bases from base p, base p at bits 0-1 (reads codes32[(p >> 4) + 2]).
 __device__ __forceinline__ uint64_t packed_bases(const uint32_t* codes32,

@@ -23,9 +23,10 @@ jax and without a per-read Python loop, so a million reads take seconds:
   out a given pseudohap2 assembly, for driving ``run`` without the real
   one.
 * :func:`sort_edge_cases`, :func:`marker_edge_cases`,
-  :func:`window_edge_reads` and :func:`barcode_sorted_ids`: the inputs
-  that K5's look-back sort, K8's merge-path filter, K4's rolled windows
-  and K15's warp-aggregated tally could get wrong.
+  :func:`window_edge_reads`, :func:`barcode_sorted_ids` and
+  :func:`read_tile_edge_batches`: the inputs that K5's look-back sort,
+  K8's merge-path filter, K4's rolled windows, K15's warp-aggregated
+  tally and the read tiles of K3 and K13 could get wrong.
 """
 
 from __future__ import annotations
@@ -513,3 +514,67 @@ def barcode_sorted_ids(seed: int, n: int, num_barcodes: int) -> np.ndarray:
     ids[rng.random(n) < 0.01] = -1
     ids[rng.random(n) < 0.01] = num_barcodes + 3
     return ids
+
+
+# the read tiles of K3 and K13 (csrc/reads.cuh): kTile windows, at most
+# kMaxRows whole rows a tile
+READ_TILE = 2048
+READ_TILE_ROWS = 128
+EDGE_BYTES = np.frombuffer(b"ACGTACGTACGTACGTaNRU", np.uint8)
+
+
+def read_tile_edge_batches(seed: int, k: int, lp: int, key_words,
+                           cap: int = 512, tile: int = READ_TILE,
+                           max_rows: int = READ_TILE_ROWS) -> list:
+    """[(name, seqs (n, 4*lp) uint8 ASCII, lengths (n,) int32, ids (n,)
+    int32, has_n (n,) uint8)] whose votes a read-tile kernel could get
+    wrong, for rows of lp packed bytes (4*lp ASCII bytes).
+
+    The reads mix A, C, G, T with a, N, R and U bytes and carry table
+    keys (key_words) at their first and last window and at random
+    places.  Lengths 0, 1, k - 1, k, k + 1, 4*lp and past 4*lp come
+    first; where a tile holds whole rows (4*lp - k + 1 windows a row, at
+    most `tile` windows and `max_rows` rows a tile) there are three tiles
+    and five rows more, the rows about each tile edge full; a row of more
+    than `tile` windows gets lengths whose last window falls just before,
+    on and just past the first, second and last multiple of `tile`.
+    About 10 % of the reads have has_n set.  Two batches, the same
+    reads: "sorted", barcode runs of one id (barcode_sorted_ids), and
+    "distinct", a different id a read (cap at least the rows); both hold
+    ids -1, cap - 1 and cap."""
+    rng = np.random.default_rng(seed)
+    L = 4 * lp
+    n_win = L - k + 1
+    rows = tile // n_win if 0 < n_win and tile // n_win < max_rows \
+        else max_rows
+    if n_win > tile:
+        ends = [t * tile + d for t in sorted({1, 2, n_win // tile})
+                for d in (-1, 0, 1)]     # index of the last window
+        lengths = [0, k - 1, k, L, L + 7] + [e + k for e in ends
+                                             if e + k <= L]
+    else:
+        n = 3 * rows + 5
+        lengths = rng.integers(0, L + 1, n)
+        # the rows about each tile edge are full, the odd one past 4*lp
+        edges = [t * rows + d for t in (1, 2, 3) for d in (-1, 0)]
+        lengths[[e for e in edges if e < n]] = L
+        lengths[:7] = (0, 1, k - 1, k, k + 1, L, L + 9)
+    lengths = np.asarray(lengths, np.int32)
+    n = lengths.size
+    seqs = EDGE_BYTES[rng.integers(0, EDGE_BYTES.size, (n, L))]
+    if L >= k and key_words.size:
+        kmers = E.words_to_bytes(key_words[rng.integers(
+            0, key_words.size, 3 * n)], k)
+        for r in range(n):
+            last = min(int(lengths[r]), L) - k
+            if last < 0:
+                continue
+            for j, p in enumerate((0, last, int(rng.integers(0, last + 1)))):
+                seqs[r, p:p + k] = kmers[3 * r + j]
+    has_n = (rng.random(n) < 0.1).astype(np.uint8)
+    sorted_ids = barcode_sorted_ids(seed, n, cap)
+    distinct = rng.permutation(cap)[:n].astype(np.int32)
+    for ids in (sorted_ids, distinct):
+        ids[[1, n // 2, n - 1]] = (-1, cap - 1, cap)
+    return [("sorted", seqs, lengths, sorted_ids, has_n),
+            ("distinct", seqs, lengths, distinct, has_n)]

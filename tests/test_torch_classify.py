@@ -1,7 +1,8 @@
 """hast_tpu_torch.pipeline against hast_tpu.pipeline and the stage-01 goldens.
 
 K3's twin (tally_step_ref, what the wrapper runs on CPU tensors) against
-the JAX tally_step on one packed super-batch, and the twins of K10 and
+the JAX tally_step on one packed super-batch and on the read tiles' edge
+batches (utils/synthetic.py read_tile_edge_batches), and the twins of K10 and
 K11 (the tally's growth and its narrow fetch) against _grow_acc,
 _pack_acc and _fetch_acc; the whole slice on the CPU
 against every golden of tests/test_stage01_parity.py, byte for byte, with
@@ -78,12 +79,24 @@ def super_batch(seed: int, key_words: np.ndarray, k: int, s: int = 2,
 
 
 TALLY_CASES = [("quot", 15), ("quot", 21), ("full", 21), ("full", 31)]
+# read_tile_edge_batches' strides in packed bytes on the CPU: under k
+# bases, 100-120 bases, 1,024 and 8,192 (past one tile of windows).  JAX
+# takes minutes to compile the 65,536-base stride; the card tests take it.
+EDGE_STRIDES = (1, 25, 26, 28, 30, 256, 2048)
+CARD_EDGE_STRIDES = (*EDGE_STRIDES, 16384)
+EDGE_CAP = 512
 
 
-@pytest.mark.parametrize("fmt,k", TALLY_CASES)
-def test_tally_step_twin_matches_jax(fmt, k):
-    """The id -1 rows are reads that hit markers."""
-    _tally_vs_jax(fmt, k, empty_pads=False)
+@pytest.mark.parametrize("fmt,k,edges", [
+    *(pytest.param(f, k, False, id=f"{f}-{k}") for f, k in TALLY_CASES),
+    *(pytest.param(f, k, True, id=f"{f}-{k}-edges") for f, k in TALLY_CASES)])
+def test_tally_step_twin_matches_jax(fmt, k, edges):
+    """The id -1 rows are reads that hit markers; with edges, the reads of
+    read_tile_edge_batches at every stride of EDGE_STRIDES."""
+    if edges:
+        _tally_edges_vs_jax(fmt, k)
+    else:
+        _tally_vs_jax(fmt, k, empty_pads=False)
 
 
 @pytest.mark.parametrize("fmt,k", TALLY_CASES)
@@ -92,12 +105,10 @@ def test_tally_step_empty_pads_match_jax(fmt, k):
     _tally_vs_jax(fmt, k, empty_pads=True)
 
 
-def _tally_vs_jax(fmt: str, k: int, empty_pads: bool):
-    pytest.importorskip("jax")
-    import jax.numpy as jnp
+def jax_and_port_tables(fmt: str, k: int):
+    """(hast_tpu table, the port's copy on the CPU, its keys as int64
+    words) of 500 random k-mers."""
     from hast_tpu.ops import hashtable as JH
-    from hast_tpu.pipeline import classify as JC
-
     rng = np.random.default_rng(k)
     hi, lo = E.canonical_kmers_np(rng.integers(0, 4, (500, k), np.int32), k)
     hi, lo = hi[:, 0], lo[:, 0]
@@ -106,8 +117,59 @@ def _tally_vs_jax(fmt: str, k: int, empty_pads: bool):
     table = H.from_reference(ref.data, ref.n_buckets, ref.max_probe, k,
                              ref.n_keys, ref.set_sizes, ref.fmt,
                              device="cpu")
-    packed, lengths, ids, has_n, acc = super_batch(
-        k, (hi.astype(np.int64) << 32) | lo, k)
+    return ref, table, (hi.astype(np.int64) << 32) | lo
+
+
+def edge_tally_inputs(lp: int, seqs, lengths, ids, has_n):
+    """(packed, lengths, ids, has_n) of an edge batch, and a tally that
+    already holds counts."""
+    acc = np.random.default_rng(lp).integers(
+        0, 50, (EDGE_CAP, 3)).astype(np.int32)
+    return (E.pack_codes_np(seqs), lengths, ids, has_n), acc
+
+
+def _tally_edges_vs_jax(fmt: str, k: int):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from hast_tpu.pipeline import classify as JC
+    from hast_tpu_torch.utils import synthetic as S
+
+    ref, table, words = jax_and_port_tables(fmt, k)
+    hits = 0
+    for lp in EDGE_STRIDES:
+        for name, *batch in S.read_tile_edge_batches(k + lp, k, lp, words,
+                                                     EDGE_CAP):
+            args, acc = edge_tally_inputs(lp, *batch)
+            ids = args[2]
+            got = C.tally_step(table, torch.from_numpy(acc.copy()),
+                               *map(torch.from_numpy, args)).numpy()
+            if 4 * lp < k:
+                # JAX refuses a stride under k bases; each kept read votes
+                # (0, 0, 1)
+                want = acc.copy()
+                keep = (ids >= 0) & (ids < EDGE_CAP)
+                np.add.at(want[:, 2], ids[keep], 1)
+            else:
+                # JAX's id -1 rows land in row cap - 1 (see _tally_vs_jax);
+                # as id cap they are dropped, as the port drops them
+                jids = np.where(ids < 0, EDGE_CAP, ids).astype(np.int32)
+                want = np.asarray(JC.tally_step(
+                    jnp.asarray(ref.data), jnp.asarray(acc),
+                    *(jnp.asarray(x[None]) for x in (args[0], args[1], jids,
+                                                     args[3])),
+                    k, ref.max_probe, fmt))
+            np.testing.assert_array_equal(got, want, err_msg=f"{lp} {name}")
+            hits += int((want[:, :2] - acc[:, :2]).sum())
+    assert hits > 0
+
+
+def _tally_vs_jax(fmt: str, k: int, empty_pads: bool):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from hast_tpu.pipeline import classify as JC
+
+    ref, table, words = jax_and_port_tables(fmt, k)
+    packed, lengths, ids, has_n, acc = super_batch(k, words, k)
     if empty_pads:
         lengths[ids == -1] = 0
     lp = packed.shape[-1]
@@ -411,8 +473,18 @@ def test_slice_matches_jax_on_synthetic_inputs(tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt,k", [("quot", 21), ("full", 31)])
-def test_tally_kernel_matches_twin(card, fmt, k):
+@pytest.mark.parametrize("fmt,k,edges", [
+    pytest.param("quot", 21, False, id="quot-21"),
+    pytest.param("full", 31, False, id="full-31"),
+    *(pytest.param(f, k, True, id=f"{f}-{k}-edges") for f, k in (
+        ("quot", 15), ("quot", 17), ("quot", 21), ("full", 21),
+        ("full", 31)))])
+def test_tally_kernel_matches_twin(card, fmt, k, edges):
+    """With edges: read_tile_edge_batches at every stride (the long-row
+    form at 2,048 and 16,384 bytes), into a tally that holds counts."""
+    if edges:
+        _tally_edges_on_card(card, fmt, k)
+        return
     rng = np.random.default_rng(k)
     hi, lo = E.canonical_kmers_np(rng.integers(0, 4, (5000, k), np.int32), k)
     hi, lo = hi[:, 0], lo[:, 0]
@@ -431,6 +503,27 @@ def test_tally_kernel_matches_twin(card, fmt, k):
     assert _build.LAUNCHES["classify_tally"] == launches + 1
     C.tally_step_ref(table, want, *args)
     assert torch.equal(got, want)
+
+
+def _tally_edges_on_card(card, fmt: str, k: int):
+    from hast_tpu_torch.utils import synthetic as S
+    rng = np.random.default_rng(k)
+    hi, lo = E.canonical_kmers_np(rng.integers(0, 4, (5000, k), np.int32), k)
+    hi, lo = hi[:, 0], lo[:, 0]
+    table = H.build_table(hi, lo, rng.integers(1, 4, 5000).astype(np.uint32),
+                          k, load=0.7, fmt=fmt).to(card)
+    words = (hi.astype(np.int64) << 32) | lo
+    for lp in CARD_EDGE_STRIDES:
+        for name, *batch in S.read_tile_edge_batches(k + lp, k, lp, words,
+                                                     EDGE_CAP):
+            args, acc = edge_tally_inputs(lp, *batch)
+            args = [torch.from_numpy(x).to(card) for x in args]
+            got = torch.from_numpy(acc).to(card)
+            want = C.tally_step_ref(table, got.clone(), *args)
+            launches = _build.LAUNCHES["classify_tally"]
+            C.tally_step(table, got, *args)
+            assert _build.LAUNCHES["classify_tally"] == launches + 1
+            assert torch.equal(got, want), (lp, name)
 
 
 @pytest.mark.cuda

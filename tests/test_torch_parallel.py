@@ -10,7 +10,8 @@ the tolerance is exact equality; the JAX comparisons skip where JAX has
 fewer devices than the grid (a run without tests/conftest.py).
 
 Covered: K13's twin (vote_reads: vote_kernel, vote_kernel_multi,
-vote_kernel_packed, owned bucket ranges), K15's (tally_votes, against
+vote_kernel_packed, owned bucket ranges; on planted reads and on
+utils/synthetic.py read_tile_edge_batches), K15's (tally_votes, against
 segment_sum's drop of out-of-range ids), K14's (route_kmers, through
 sharded_count_chunk and its drop counts); sharded_classify_step and
 sharded_vote_step at (dp, tp) in {(8, 1), (4, 2), (2, 4)} and both slot
@@ -130,10 +131,90 @@ def planted_reads(seed: int, words: np.ndarray, k: int, b: int = 64,
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("k", [15, 21, 31])
+# read_tile_edge_batches' strides in packed bytes (4x as many ASCII
+# bytes) on the CPU: under k bases, 100-120 bases, 1,024 and 8,192 (past
+# one tile of windows).  JAX takes minutes to compile the 65,536-base
+# stride; the card tests take it.
+EDGE_STRIDES = (1, 25, 26, 28, 30, 256, 2048)
+CARD_EDGE_STRIDES = (*EDGE_STRIDES, 16384)
+
+
+def edge_reads(k: int, lp: int, words: np.ndarray):
+    """The reads of read_tile_edge_batches: (ASCII seqs, packed, lengths)."""
+    from hast_tpu_torch.utils import synthetic as S
+    _, seqs, lengths, _, _ = S.read_tile_edge_batches(k + lp, k, lp,
+                                                      words)[0]
+    return seqs, E.pack_codes_np(seqs), lengths
+
+
+def formats(k: int) -> tuple:
+    return ("quot", "full") if k < 31 else ("full",)
+
+
+def jax_votes(fn: str, ref, seqs, packed, lengths, k: int) -> np.ndarray:
+    """(n, 2) votes of hast_tpu's vote_kernel, vote_kernel_multi (one
+    slice) or vote_kernel_packed (one slice, uint16)."""
+    import jax.numpy as jnp
+    from hast_tpu.pipeline import classify as JC
+    args = (k, ref.max_probe, ref.fmt)
+    if fn == "vote_kernel":
+        return np.stack([np.asarray(v) for v in JC.vote_kernel(
+            jnp.asarray(ref.data), jnp.asarray(seqs), jnp.asarray(lengths),
+            *args)], axis=-1)
+    if fn == "vote_kernel_multi":
+        return np.asarray(JC.vote_kernel_multi(
+            jnp.asarray(ref.data), jnp.asarray(seqs[None]),
+            jnp.asarray(lengths[None]), *args))[0]
+    return np.asarray(JC.vote_kernel_packed(
+        jnp.asarray(ref.data), jnp.asarray(packed[None]),
+        jnp.asarray(lengths[None]), *args))[0]
+
+
+def _vote_edges_vs_jax(fn: str, k: int):
+    """fn's port on read_tile_edge_batches' reads at every stride of
+    EDGE_STRIDES, both table formats, against JAX's (a stride under k
+    bases, which JAX refuses, votes nothing)."""
+    pytest.importorskip("jax")
+    votes = 0
+    words = marker_words(k, 600, k)
+    for fmt in formats(k):
+        ref, table = tables(k, k, fmt, n=600)
+        data = torch.from_numpy(np.asarray(ref.data).view(np.int32))
+        args = (k, ref.max_probe, ref.fmt)
+        for lp in EDGE_STRIDES:
+            seqs, packed, lengths = edge_reads(k, lp, words)
+            lens = torch.from_numpy(lengths)
+            if fn == "vote_kernel":
+                got = torch.stack(C.vote_kernel(
+                    data, torch.from_numpy(seqs), lens, *args), dim=-1)
+            elif fn == "vote_kernel_multi":
+                got = C.vote_kernel_multi(data, torch.from_numpy(seqs[None]),
+                                          lens[None], *args)[0]
+            else:
+                got = C.vote_kernel_packed(
+                    data, torch.from_numpy(packed[None]), lens[None],
+                    *args)[0].view(torch.uint16)
+            got = got.numpy()
+            if 4 * lp < k:
+                want = np.zeros_like(got)
+            else:
+                want = jax_votes(fn, ref, seqs, packed, lengths, k)
+            np.testing.assert_array_equal(got, want, err_msg=f"{fmt} {lp}")
+            votes += int(want.astype(np.int64).sum())
+    assert votes > 0
+
+
+@pytest.mark.parametrize("k,edges", [
+    *(pytest.param(k, False, id=str(k)) for k in (15, 21, 31)),
+    *(pytest.param(k, True, id=f"{k}-edges") for k in (15, 21, 31))])
 @pytest.mark.parametrize("fn", ["vote_kernel", "vote_kernel_multi",
                                 "vote_kernel_packed"])
-def test_vote_kernels_match_jax(fn, k):
+def test_vote_kernels_match_jax(fn, k, edges):
+    """Planted reads over ALPHABET; with edges, read_tile_edge_batches'
+    reads at every stride in both table formats."""
+    if edges:
+        _vote_edges_vs_jax(fn, k)
+        return
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from hast_tpu.pipeline import classify as JC
@@ -169,25 +250,45 @@ def test_vote_kernels_match_jax(fn, k):
     assert want.sum() > 0
 
 
-@pytest.mark.parametrize("fmt", ["full", "quot"])
+@pytest.mark.parametrize("fmt,edges", [
+    pytest.param("full", False, id="full"),
+    pytest.param("quot", False, id="quot"),
+    pytest.param("full", True, id="full-edges"),
+    pytest.param("quot", True, id="quot-edges")])
 @pytest.mark.parametrize("tp", [2, 4])
-def test_owned_ranges_sum_to_the_whole_table(tp, fmt):
+def test_owned_ranges_sum_to_the_whole_table(tp, fmt, edges):
     """Each shard's votes over its own rows, summed over tp, are the whole
-    table's votes, in both read forms."""
+    table's votes, in both read forms; with edges, on
+    read_tile_edge_batches' reads at every stride, and the whole table's
+    votes are JAX's vote_kernel's (ASCII) and vote_kernel_packed's."""
     pytest.importorskip("jax")
-    _, table = tables(5, 21, fmt)
-    seqs, lengths = planted_reads(6, marker_words(5, 4000, 21), 21)
+    ref, table = tables(5, 21, fmt)
+    words = marker_words(5, 4000, 21)
     rows = table.n_buckets // tp
-    for packed, reads in ((False, seqs), (True, E.pack_codes_np(seqs))):
-        reads, lens = torch.from_numpy(reads), torch.from_numpy(lengths)
-        whole = C.vote_reads(table, reads, lens, packed).to(torch.int64)
-        parts = [C.vote_reads(
-            H.KmerTable(table.data[j * rows:(j + 1) * rows], table.n_buckets,
-                        table.max_probe, 21, 0, (), table.fmt),
-            reads, lens, packed, row_lo=j * rows).to(torch.int64)
-            for j in range(tp)]
-        assert torch.equal(sum(parts), whole)
-        assert int(whole.sum()) > 0 and all(int(p.sum()) for p in parts)
+    inputs = [planted_reads(6, words, 21)] if not edges else [
+        edge_reads(21, lp, words)[::2] for lp in EDGE_STRIDES]
+    for seqs, lengths in inputs:
+        for packed, reads in ((False, seqs), (True, E.pack_codes_np(seqs))):
+            reads, lens = torch.from_numpy(reads), torch.from_numpy(lengths)
+            whole = C.vote_reads(table, reads, lens, packed).to(torch.int64)
+            parts = [C.vote_reads(
+                H.KmerTable(table.data[j * rows:(j + 1) * rows],
+                            table.n_buckets, table.max_probe, 21, 0, (),
+                            table.fmt),
+                reads, lens, packed, row_lo=j * rows).to(torch.int64)
+                for j in range(tp)]
+            assert torch.equal(sum(parts), whole)
+            if not edges:
+                assert int(whole.sum()) > 0 and all(int(p.sum())
+                                                    for p in parts)
+            elif seqs.shape[1] >= 21:
+                want = jax_votes("vote_kernel_packed" if packed
+                                 else "vote_kernel", ref, seqs,
+                                 reads.numpy(), lengths, 21)
+                np.testing.assert_array_equal(
+                    whole.numpy(), want.astype(np.int64))
+    if edges:
+        assert int(whole.sum()) > 0
 
 
 def test_vote_reads_checks_its_table_slice():
@@ -633,8 +734,20 @@ def test_get_hap_matches_decide_haps_and_jax():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt", ["full", "quot"])
-def test_vote_reads_kernel_matches_twin(card, fmt):
+@pytest.mark.parametrize("fmt,edges", [
+    pytest.param("full", False, id="full"),
+    pytest.param("quot", False, id="quot"),
+    pytest.param("full", True, id="full-edges"),
+    pytest.param("quot", True, id="quot-edges")])
+def test_vote_reads_kernel_matches_twin(card, fmt, edges):
+    """With edges: read_tile_edge_batches' reads at every stride (the
+    long-row form at 2,048 and 16,384 packed bytes), k = 15, 17, 21 and,
+    in the full format, 31; packed and ASCII; the whole table and its 2-
+    and 4-way shards, one C call each."""
+    if edges:
+        for k in (15, 17, 21, 31) if fmt == "full" else (15, 17, 21):
+            _vote_edges_on_card(card, fmt, k)
+        return
     table = port_table(9, 21, fmt)
     seqs, lengths = planted_reads(9, marker_words(9, 4000, 21), 21, b=512)
     tp, rows = 4, table.n_buckets // 4
@@ -651,6 +764,29 @@ def test_vote_reads_kernel_matches_twin(card, fmt):
             torch.cuda.synchronize()
             assert _build.LAUNCHES["vote_reads"] == launches + 1
             assert torch.equal(got.cpu(), want), (packed, row_lo, tp)
+
+
+def _vote_edges_on_card(card, fmt: str, k: int):
+    table = port_table(k, k, fmt)
+    words = marker_words(k, 4000, k)
+    for lp in CARD_EDGE_STRIDES:
+        seqs, packed_np, lengths = edge_reads(k, lp, words)
+        lens = torch.from_numpy(lengths)
+        for packed, reads in ((False, torch.from_numpy(seqs)),
+                              (True, torch.from_numpy(packed_np))):
+            for tp in (1, 2, 4):
+                rows = table.n_buckets // tp
+                for j in range(tp):
+                    sl = table if tp == 1 else H.KmerTable(
+                        table.data[j * rows:(j + 1) * rows], table.n_buckets,
+                        table.max_probe, k, 0, (), fmt)
+                    want = C.vote_reads(sl, reads, lens, packed, j * rows)
+                    launches = _build.LAUNCHES["vote_reads"]
+                    got = C.vote_reads(sl.to(card), reads.to(card),
+                                       lens.to(card), packed, j * rows)
+                    assert _build.LAUNCHES["vote_reads"] == launches + 1
+                    assert torch.equal(got.cpu(), want), (k, lp, packed, tp,
+                                                          j)
 
 
 @pytest.mark.cuda
