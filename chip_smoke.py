@@ -5,11 +5,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It exits non-zero, printing no result, when torch sees no CUDA device or
 when the package is not beside it.  ``python3 chip_smoke.py
 --across-cards`` on a machine with two or more cards runs only the paths
-that cross cards (phase_across_cards) instead; ``python3 chip_smoke.py
---read-votes [DIR]`` only times K3 and K13 (time_read_votes) with the
-hast_tpu_torch package under DIR (default: beside this file), so that
-two trees' kernels can be timed in turns on one card.  Phases, each
-fatal on failure:
+that cross cards (phase_across_cards) instead.  Phases, each fatal on
+failure:
 
 1. toolchain: card, power limit, torch, CUDA, nvcc; the kernels' build.
 2. kernels vs their plain PyTorch twins on the card, bit-exact, with
@@ -106,13 +103,14 @@ fatal on failure:
    stLFR's barcode runs of 20-60 reads, into a fresh tally and with out=
    over two calls (call and device times; index_add_'s beside them).
    Then K3 and K13, which share csrc/reads.cuh, on
-   utils/synthetic.py read_tile_edge_batches (strides of 1, 25, 26, 28,
-   30, 256, 2,048 and 16,384 bytes; k = 15, 17, 21, 31; both table
-   formats; tp shards 2 and 4), one C call a wrapper call and one kernel a
-   call in the short and the long form; their device times on the three
-   tables (random and barcode-sorted ids for K3, packed and ASCII for
-   K13; the 2^24-row table also with 256 MB written before each call)
-   and K3's long form on 8,192 reads of len_cap 8,192.
+   utils/synthetic.py read_tile_edge_batches (READ_EDGE_STRIDES: 1 to
+   16,384 bytes; k = 15, 17, 21, 31; both table formats; tp shards 2 and
+   4), the library's tile geometry against synthetic's, one C call a
+   wrapper call and one kernel a call in the short and the long form;
+   their device times on the three tables (random and barcode-sorted ids
+   for K3, packed and ASCII for K13; the 2^24-row table also with 256 MB
+   written before each call) and in the long form on 8,192 reads of
+   len_cap 8,192.
    Then the launch path: K10 against F.pad and K12 against narrow(0, 0,
    m).clone(), in turns (kernel, library, library, kernel; 200 calls
    each; the kernels line takes K10's and K12's call and library times
@@ -233,12 +231,10 @@ N_TALLY_BARCODES = 100_000    # K15 check
 MESH_BATCH = 1 << 14          # the mesh stage-00 batch (FQ.DEFAULT_BATCH)
 FOLD_KERNELS = ("fold_tiles_kernel", "fold_tail_kernel")   # K6's two
 # K3's and K13's kernels; each call runs one of them, in the short form
-# (<false>, a tile of whole reads) or the long (<true>, a block a read)
+# (<false>, a tile of whole reads) or the long (<true>, eight reads a
+# block)
 READ_VOTE_KERNELS = {"classify_tally": "classify_tally_kernel",
                      "vote_reads": "vote_reads_kernel"}
-# read_tile_edge_batches' strides in packed bytes: under k bases, 100-104,
-# 112 and 120 bases, 1,024 bases, and the native paths' 8,192 and 65,536
-EDGE_STRIDES = (1, 25, 26, 28, 30, 256, 2048, 16384)
 FLUSH_BYTES = 1 << 28         # written before a call to empty the 50 MB L2
 MARKER_KERNELS = ("marker_tiles_kernel", "marker_tail_kernel")   # K8's two
 STAGE03_FILES = (
@@ -1658,9 +1654,11 @@ def time_read_votes(tables: dict, words, bwords) -> dict:
     K3 on 32,768 reads (_planted_batch's random ids, and barcode-sorted
     ids), K13 on 65,536 packed and ASCII reads (_vote_reads_input), on the
     2^20-row quot, 2^21-row full and 2^24-row quot tables, the last also
-    with FLUSH_BYTES written before each call.  Uses only the wrappers'
-    public calls, so it also times an earlier tree's kernels
-    (``--read-votes DIR``)."""
+    with FLUSH_BYTES written before each call; and both in the long form
+    (K13 packed) on the 2^20-row table: 8,192 reads of a batch the native
+    paths redo at len_cap 8,192, 100 bp but for 1 % of 1,000-8,192 bases.
+    Calls only the wrappers, whose contracts earlier trees share, so that
+    a script can time another tree's package with it."""
     import numpy as np
     import torch
     from hast_tpu_torch.ops import encode as E
@@ -1709,7 +1707,41 @@ def time_read_votes(tables: dict, words, bwords) -> dict:
             both(("vote_reads", name, form),
                  lambda: C.vote_reads(table, reads, lengths, packed),
                  READ_VOTE_KERNELS["vote_reads"])
+
+    table = tables["quot"]
+    args = len_cap_batch(words, acc.shape[0])
+    both(("classify_tally", "quot", "len_cap 8192"),
+         lambda: C.tally_step(table, acc, *args),
+         READ_VOTE_KERNELS["classify_tally"])
+    both(("vote_reads", "quot", "len_cap 8192"),
+         lambda: C.vote_reads(table, args[0], args[1], True),
+         READ_VOTE_KERNELS["vote_reads"])
     return out
+
+
+def len_cap_batch(words, cap: int) -> list:
+    """(packed, lengths, ids, has_n) on the card: 8,192 reads of a batch
+    the native paths redo at len_cap 8,192 (2,048-byte rows, the long
+    form), 100 bp but for 1 % of 1,000-8,192 bases, each with a key of
+    words at base 10, in barcode runs of ids below cap."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import encode as E
+    from hast_tpu_torch.utils import synthetic as S
+
+    rng = np.random.default_rng(2032)
+    n, lp = 8192, 2048
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, 4 * lp))]
+    lens = np.full(n, 100, np.int32)
+    longer = rng.random(n) < 0.01
+    lens[longer] = rng.integers(1000, 4 * lp + 1, int(longer.sum()))
+    seqs[:, 10:10 + K] = E.words_to_bytes(words[rng.integers(
+        0, words.size, n)], K)
+    log(f"len_cap batch: {n} reads of len_cap {4 * lp}, "
+        f"{int(longer.sum())} past 1,000 bases")
+    return [torch.from_numpy(x).to("cuda") for x in (
+        E.pack_codes_np(seqs), lens, S.barcode_sorted_ids(2032, n, cap),
+        (rng.random(n) < 0.02).astype(np.uint8))]
 
 
 def _one_kernel(fn, what: str, form: str) -> str:
@@ -1737,22 +1769,28 @@ def phase_read_votes(tables: dict, words, bwords) -> dict:
     """K3 and K13, which share csrc/reads.cuh: bit-exact against their
     twins on utils/synthetic.py read_tile_edge_batches (k = 15, 17, 21 in
     both table formats and 31 in the full one, every stride of
-    EDGE_STRIDES, the long-row form included; K3 into a tally that
-    already holds counts, random and barcode-sorted ids; K13 packed and
-    ASCII on the whole table and its 2- and 4-way shards, the shards'
-    votes summing to the whole table's), one C call a wrapper call and
+    READ_EDGE_STRIDES there, the long-row form included; K3 into a tally
+    that already holds counts, random and barcode-sorted ids; K13 packed
+    and ASCII on the whole table and its 2- and 4-way shards, the shards'
+    votes summing to the whole table's), after checking that the
+    library's tile geometry is synthetic's; one C call a wrapper call and
     one kernel a call, of the form the stride names; then the device
-    times of time_read_votes and of K3's long form on 8,192 reads of
-    len_cap 8,192."""
+    times of time_read_votes, and both in the long form against their
+    twins on len_cap_batch."""
     import numpy as np
     import torch
     from hast_tpu_torch.ops import encode as E
     from hast_tpu_torch.ops import hashtable as H
+    from hast_tpu_torch.ops import _build
     from hast_tpu_torch.pipeline import classify as C
     from hast_tpu_torch.utils import synthetic as S
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2030)
+    if _build.read_tile_geometry() != S.READ_TILE_GEOMETRY:
+        fail(f"csrc/reads.cuh's tiles {_build.read_tile_geometry()} are not "
+             f"utils/synthetic.py's {S.READ_TILE_GEOMETRY}: the edge batches "
+             "miss the tile edges")
     err = {"classify_tally": 0.0, "vote_reads": 0.0}
     calls = 0
     for k in (15, 17, 21, 31):
@@ -1760,7 +1798,7 @@ def phase_read_votes(tables: dict, words, bwords) -> dict:
             kw, hi, lo = random_keys(rng, 5000, k)
             table = H.build_table(hi, lo, rng.integers(1, 4, kw.size).astype(
                 np.uint32), k, load=0.7, fmt=fmt).to(dev)
-            for lp in EDGE_STRIDES:
+            for lp in S.READ_EDGE_STRIDES:
                 batches = S.read_tile_edge_batches(k * lp, k, lp, kw)
                 seqs, lens = batches[0][1], batches[0][2]
                 lengths = torch.from_numpy(lens).to(dev)
@@ -1811,7 +1849,7 @@ def phase_read_votes(tables: dict, words, bwords) -> dict:
                                  f"{tp} shards' votes do not sum to the "
                                  "whole table's")
     log(f"K3 and K13 on read_tile_edge_batches: {calls} calls bit-exact "
-        f"(strides {EDGE_STRIDES} bytes, k = 15, 17, 21, 31)")
+        f"(strides {S.READ_EDGE_STRIDES} bytes, k = 15, 17, 21, 31)")
 
     # one kernel a call, of the form the stride names
     table = tables["quot"]
@@ -1836,29 +1874,16 @@ def phase_read_votes(tables: dict, words, bwords) -> dict:
         log(f"stride {lp} bytes: one kernel a call: {names}")
 
     times = time_read_votes(tables, words, bwords)
-    # K3's long form on a batch the native paths redo at len_cap 8,192:
-    # 100-bp reads but for 1 % of 1,000-8,192 bases
-    n, lp = 8192, 2048
-    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, 4 * lp))]
-    lens = np.full(n, 100, np.int32)
-    longer = rng.random(n) < 0.01
-    lens[longer] = rng.integers(1000, 4 * lp + 1, int(longer.sum()))
-    kmers = E.words_to_bytes(words[rng.integers(0, words.size, n)], K)
-    seqs[:, 10:10 + K] = kmers
-    args = [torch.from_numpy(x).to(dev) for x in (
-        E.pack_codes_np(seqs), lens,
-        S.barcode_sorted_ids(2032, n, 4096),
-        (rng.random(n) < 0.02).astype(np.uint8))]
     acc = torch.zeros((4096, 3), dtype=torch.int32, device=dev)
+    args = len_cap_batch(words, acc.shape[0])
     want = C.tally_step_ref(table, acc.clone(), *args)
     err["classify_tally"] = max(err["classify_tally"], _check_same(
         "K3 classify_tally long form, len_cap 8192",
         [C.tally_step(table, acc, *args)], [want]))
-    long_ms = device_ms(lambda: C.tally_step(table, acc, *args), 10,
-                        READ_VOTE_KERNELS["classify_tally"])
-    log(f"K3 classify_tally long form: {n} reads of len_cap {4 * lp}, "
-        f"{int(longer.sum())} past 1,000 bases: device {long_ms:.4f} ms, "
-        "bit-exact")
+    err["vote_reads"] = max(err["vote_reads"], _check_same(
+        "K13 vote_reads long form, len_cap 8192",
+        [C.vote_reads(table, args[0], args[1], True)],
+        [C.vote_reads_ref(table, args[0], args[1], True)]))
     return {
         "classify_tally": dict(
             max_abs_err=err["classify_tally"],
@@ -1871,7 +1896,8 @@ def phase_read_votes(tables: dict, words, bwords) -> dict:
                 "classify_tally/big/random ids"]["device_ms"],
             device_ms_2_24_l2_flushed=times[
                 "classify_tally/big/random ids"]["device_ms_l2_flushed"],
-            device_ms_long_form=long_ms),
+            device_ms_long_form=times[
+                "classify_tally/quot/len_cap 8192"]["device_ms"]),
         "vote_reads": dict(
             max_abs_err=err["vote_reads"],
             device_ms=times["vote_reads/quot/packed"]["device_ms"],
@@ -1879,7 +1905,9 @@ def phase_read_votes(tables: dict, words, bwords) -> dict:
             device_ms_full=times["vote_reads/full/packed"]["device_ms"],
             device_ms_2_24=times["vote_reads/big/packed"]["device_ms"],
             device_ms_2_24_l2_flushed=times[
-                "vote_reads/big/packed"]["device_ms_l2_flushed"])}
+                "vote_reads/big/packed"]["device_ms_l2_flushed"],
+            device_ms_long_form=times[
+                "vote_reads/quot/len_cap 8192"]["device_ms"])}
 
 
 def phase_kernels_mesh(tables: dict, words, bwords) -> dict:
@@ -2868,31 +2896,18 @@ def main() -> None:
         fail(f"torch is not installed: {e}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
-    args = sys.argv[1:]
-    across = args == ["--across-cards"]
-    votes_only = args[:1] == ["--read-votes"] and len(args) <= 2
-    if args and not (across or votes_only):
-        fail(f"unknown arguments {args} (only --across-cards, or "
-             "--read-votes [DIR])")
-    # --read-votes DIR times the kernels of the hast_tpu_torch under DIR
-    root = os.path.abspath(args[1]) if votes_only and len(args) == 2 \
-        else ROOT
-    if not os.path.isdir(os.path.join(root, "hast_tpu_torch")):
-        fail(f"the hast_tpu_torch package is not in {root}")
-    sys.path.insert(0, root)
+    if not os.path.isdir(os.path.join(ROOT, "hast_tpu_torch")):
+        fail(f"the hast_tpu_torch package is not beside {__file__}")
+    sys.path.insert(0, ROOT)
+
+    across = sys.argv[1:] == ["--across-cards"]
+    if sys.argv[1:] and not across:
+        fail(f"unknown arguments {sys.argv[1:]} (only --across-cards)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
     phase_toolchain()
-    if votes_only:
-        import numpy as np
-        tables, words, _, bwords = vote_tables(np.random.default_rng(2024))
-        print(json.dumps({"read_votes": time_read_votes(tables, words,
-                                                        bwords),
-                          "root": root}))
-        print(smi)
-        return
     if across:
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
         try:

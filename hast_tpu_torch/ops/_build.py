@@ -68,6 +68,7 @@ _SIGNATURES = {
     "hast_tally_votes": [_P, _P, _P, _I64, _P, _I64, _P],
     "hast_route_kmers": [_P, _P, _I64, _I, _I, _I, _I, _I64, _P, _P, _P],
     "hast_broadcast_probe": [_P, _P, _I64, _P, _P, _I64, _I, _P, _P],
+    "hast_read_tile_geometry": [_P],
 }
 
 _lib = None
@@ -157,6 +158,15 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
     return _lib
+
+
+def read_tile_geometry() -> tuple[int, int, int, int]:
+    """K3's and K13's read tiles as the library has them (csrc/reads.cuh):
+    windows a tile, rows a tile, the most windows a long-form warp votes
+    alone, and reads a long-form block takes."""
+    out = (ctypes.c_int * 4)()
+    load_library().hast_read_tile_geometry(out)
+    return tuple(out)
 
 
 def check(rc: int, name: str) -> None:

@@ -19,7 +19,8 @@
 // each distinct id's three sums into acc.  A warp whose neighbouring
 // reads all differ in id skips the match, which cost about a tenth of
 // the kernel's time on random ids.  Rows past a tile's windows take the
-// long form: a block a read.
+// long form: a block takes eight reads, a warp each for the short ones and
+// the whole block for each longer one in turn (reads.cuh).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -29,10 +30,12 @@
 namespace {
 
 using hast::reads::kBlocksPerSm;
+using hast::reads::kLongBlocksPerSm;
 using hast::reads::kThreads;
 
 template <bool kLong>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+__global__ void __launch_bounds__(kThreads,
+                                  kLong ? kLongBlocksPerSm : kBlocksPerSm)
 classify_tally_kernel(hast::Table table, const uint8_t* __restrict__ packed,
                       const int32_t* __restrict__ lengths,
                       const int32_t* __restrict__ ids,
@@ -51,7 +54,7 @@ classify_tally_kernel(hast::Table table, const uint8_t* __restrict__ packed,
     sm.cnt[i] = 0;
   }
   __syncthreads();
-  hast::reads::vote_tile<false, kLong>(table, 0u, table.n_buckets,
+  hast::reads::vote_rows<false, kLong>(table, 0u, table.n_buckets,
                                        packed + row0 * lp, lp, n_win, rows,
                                        sm);
   __syncthreads();
@@ -95,7 +98,8 @@ classify_tally_kernel(hast::Table table, const uint8_t* __restrict__ packed,
 
 // acc (cap, 3) int32 updated in place; packed (n, lp) uint8; lengths and
 // ids (n,) int32; has_n (n,) uint8.  One launch: the short form where a
-// tile holds a whole row's windows, else the long form, a block a read.
+// tile holds a whole row's windows, else the long form, eight reads a
+// block.
 extern "C" int hast_classify_tally(const void* table, int64_t n_buckets,
                                    int bbits, int fmt, int k, int max_probe,
                                    const void* packed, const void* lengths,
@@ -113,8 +117,10 @@ extern "C" int hast_classify_tally(const void* table, int64_t n_buckets,
   auto* out = static_cast<int32_t*>(acc);
   const int n_win = 4 * lp - k + 1;
   if (n_win > hast::reads::kTile) {
-    classify_tally_kernel<true><<<static_cast<unsigned>(n), kThreads, 0, s>>>(
-        t, pk, len, id, hn, n, lp, 1, out, cap);
+    constexpr int rows = hast::reads::kWarps;
+    classify_tally_kernel<true>
+        <<<static_cast<unsigned>((n + rows - 1) / rows), kThreads, 0, s>>>(
+            t, pk, len, id, hn, n, lp, rows, out, cap);
   } else {
     const int rows = hast::reads::tile_rows(n_win);
     classify_tally_kernel<false>

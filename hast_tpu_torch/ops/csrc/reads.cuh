@@ -33,9 +33,16 @@
 //  - a hit adds its two payload bits into its read's 64-bit (v0, v1)
 //    counter in shared memory; integer sums are exact in any order.
 // A row with more than kTile windows (the native paths' len_cap 8,192
-// and 65,536 redo) takes the long form: a block a read, which walks the
-// read's windows in successive tiles through two staging buffers (one
-// barrier a tile) and keeps its sums in registers until the read ends.
+// and 65,536 redo, whose stride is the batch's longest read) takes the
+// long form: a block takes kWarps consecutive reads.  A read of at most
+// kWarpTile windows (most of such a batch: its short reads) is voted by
+// one warp alone, staged and rolled as a tile of its own; the block then
+// walks each longer read's windows in successive tiles through two
+// staging buffers (one barrier a tile), keeping the sums in registers
+// until the read ends.  The longest read's walk, one tile after another,
+// bounds it: on a batch of 8,192 reads in 2,048-byte rows, 1 % of them
+// 1,000-8,192 bases, those long reads alone took 0.042 ms of the whole
+// batch's 0.051-0.053 on an H100.
 // The constants are the fastest of the variants timed on an H100 (K3 and
 // K13 on 2^20-, 2^21- and 2^24-row tables): 2,048-window tiles, two keys
 // a lane and 48 registers, five blocks an SM.  4,096-window tiles with
@@ -55,15 +62,22 @@ namespace reads {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 5;          // resident blocks (48 registers)
+// the long form's: both walks inlined spill at 48 registers, and at 64
+// (four blocks an SM) its device time on a len_cap 8,192 batch fell
+// from 0.060 to 0.051-0.053 ms on an H100
+constexpr int kLongBlocksPerSm = 4;
 constexpr int kPer = 8;                  // windows a thread rolls a tile
 constexpr int kTile = kThreads * kPer;   // windows a tile holds
 constexpr int kBatch = 2;                // keys a lane probes at a time
 constexpr int kMaxRows = 128;            // rows a tile holds (fit a byte)
+constexpr int kWarpTile = 32 * kPer;     // the long form's warp a read
 // Words of a tile's staged codes: at most kTile + kMaxRows * (kMaxK - 1)
 // bases (5,888 bases: 1,472 packed bytes in 95 16-byte chunks with the
 // alignment and the two zero chunks; 369 ASCII chunks of one word each
-// and three zero words), or a long row's kTile + kMaxK - 1 bases.
+// and three zero words), or a long row's kTile + kMaxK - 1 bases; a
+// warp's read in the long form, kWarpTile + kMaxK - 1 bases.
 constexpr int kCodeWords = 384;
+constexpr int kWarpCodeWords = 32;
 
 // Rows of a tile for n_win windows a row (the short form): whole rows, at
 // most kTile windows and kMaxRows rows.
@@ -72,14 +86,16 @@ __host__ __device__ inline int tile_rows(int n_win) {
 }
 
 // Shared memory of a block.  len[i] and cnt[i] belong to the tile's row
-// i: the length to vote it by (0: not voted) and its sums (v0 in the low
-// 32 bits, v1 in the high); the long form holds one row.  The packed
-// form stages 16-byte chunks into codes.
+// i (the long form's read i): the length to vote it by (0: not voted) and
+// its sums (v0 in the low 32 bits, v1 in the high).  The packed form
+// stages 16-byte chunks into codes (the long form's block walks) and
+// wcodes (its warps' reads).
 template <bool kLong>
 struct alignas(16) Smem {
   uint32_t codes[kLong ? 2 : 1][kCodeWords];
-  int32_t len[kLong ? 1 : kMaxRows];
-  unsigned long long cnt[kLong ? 1 : kMaxRows];
+  uint32_t wcodes[kLong ? kWarps : 1][kLong ? kWarpCodeWords : 4];
+  int32_t len[kLong ? kWarps : kMaxRows];
+  unsigned long long cnt[kLong ? kWarps : kMaxRows];
   uint64_t keys[kWarps][32 * kPer];           // a warp's compacted keys
   uint8_t row[kLong ? 1 : kWarps][kLong ? 1 : 32 * kPer];   // and rows
 };
@@ -95,16 +111,17 @@ __device__ __forceinline__ uint32_t ascii_codes4(uint32_t w) {
 // Stage bytes [src, src + n_bytes) as codes from the 16-byte aligned
 // address at or below src (an aligned chunk holding a byte of the input
 // lies in its page), zeros after for packed_bases' reads past the last
-// base; returns the base index of src's first base in codes.
-template <bool kAscii>
+// base; returns the base index of src's first base in codes.  The
+// kGroup threads of a group (a block or a warp) call it, tid their index.
+template <bool kAscii, int kGroup>
 __device__ __forceinline__ int stage(const uint8_t* src, int n_bytes,
-                                     uint32_t* codes) {
+                                     uint32_t* codes, int tid) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(src);
   const uint4* chunk = reinterpret_cast<const uint4*>(a & ~uintptr_t{15});
   const int off = static_cast<int>(a & 15);
   const int chunks = (off + n_bytes + 15) >> 4;
   if constexpr (kAscii) {
-    for (int c = threadIdx.x; c < chunks + 3; c += kThreads) {
+    for (int c = tid; c < chunks + 3; c += kGroup) {
       uint32_t cw = 0;
       if (c < chunks) {
         const uint4 v = __ldg(chunk + c);
@@ -116,25 +133,40 @@ __device__ __forceinline__ int stage(const uint8_t* src, int n_bytes,
     return off;
   } else {
     uint4* dst = reinterpret_cast<uint4*>(codes);
-    for (int c = threadIdx.x; c < chunks + 2; c += kThreads)
+    for (int c = tid; c < chunks + 2; c += kGroup)
       dst[c] = c < chunks ? __ldg(chunk + c) : make_uint4(0u, 0u, 0u, 0u);
     return 4 * off;
   }
 }
 
+// Barrier of a group: the block, or one warp.
+template <int kGroup>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (kGroup == 32)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
 // Vote the rows of a tile into sm.cnt.  src: the tile's first row, of
-// stride bytes; rows rows in the short form, one in the long form; n_win
-// = bases a row - k + 1 windows a row.  sm.len and sm.cnt are set, and a
-// barrier passed, before the call; the caller passes a barrier after it
-// before it reads sm.cnt.  Every thread of the block calls it.
-template <bool kAscii, bool kLong>
+// stride bytes; rows rows in the short form, one in the long form (the
+// block's read `slot`, walked by the whole block or, kGroup 32, by this
+// warp alone in one tile: at most kWarpTile windows); n_win = bases a row
+// - k + 1 windows a row; it: the long form's block walks' tile count,
+// whose parity picks the staging buffer.  sm.len and sm.cnt are set, and
+// a barrier passed, before the call; the caller passes a barrier after it
+// before it reads sm.cnt.  Every thread of the group calls it.
+template <bool kAscii, bool kLong, int kGroup = kThreads>
 __device__ __forceinline__ void vote_tile(const Table& t, uint32_t row_lo,
                                           uint32_t n_rows, const uint8_t* src,
                                           int stride, int n_win, int rows,
+                                          int slot, int& it,
                                           Smem<kLong>& sm) {
+  constexpr int kT = kGroup * kPer;   // windows a tile of the group
   const int k = t.k;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int tid = kGroup == 32 ? lane : threadIdx.x;
   const unsigned lt = (1u << lane) - 1u;
   const int bases = kAscii ? stride : 4 * stride;
   // the second row is not loaded where the full format has one choice
@@ -142,23 +174,25 @@ __device__ __forceinline__ void vote_tile(const Table& t, uint32_t row_lo,
   const uint4 none = make_uint4(0u, 0u, 0u, 0u);
   uint64_t* wkeys = sm.keys[warp];
   uint8_t* wrows = sm.row[kLong ? 0 : warp];
-  // windows the block walks: the tile's rows, or the long row's valid ones
-  const int nw = kLong ? min(n_win, sm.len[0] - k + 1) : rows * n_win;
+  // windows the group walks: the tile's rows, or the long row's valid ones
+  const int nw = kLong ? min(n_win, sm.len[slot] - k + 1) : rows * n_win;
   unsigned long long mine = 0;   // the long form's sums of this thread
 
-  for (int p0 = 0, it = 0; p0 < nw; p0 += kTile, ++it) {
-    const int nt = min(kTile, nw - p0);
-    uint32_t* codes = sm.codes[kLong ? it & 1 : 0];
+  for (int p0 = 0; p0 < nw; p0 += kT, ++it) {
+    const int nt = min(kT, nw - p0);
+    uint32_t* codes = kGroup == 32 ? sm.wcodes[kLong ? warp : 0]
+                                   : sm.codes[kLong ? it & 1 : 0];
     const int base0 =
-        kLong ? stage<kAscii>(src + (kAscii ? p0 : p0 / 4),
-                              kAscii ? nt + k - 1 : (nt + k + 2) / 4, codes)
-              : stage<kAscii>(src, rows * stride, codes);
+        kLong ? stage<kAscii, kGroup>(
+                    src + (kAscii ? p0 : p0 / 4),
+                    kAscii ? nt + k - 1 : (nt + k + 2) / 4, codes, tid)
+              : stage<kAscii, kGroup>(src, rows * stride, codes, tid);
     // the long form's other buffer was last read before this barrier
-    __syncthreads();
+    group_sync<kGroup>();
 
     // windows [first, first + per) of the tile: window (r, p) starts at
     // base r * bases + p - p0 of the staged codes
-    const int first = threadIdx.x * kPer;
+    const int first = tid * kPer;
     const int per = nt - first;
     int r = 0, p = p0 + first;
     if (!kLong && per > 0) {
@@ -172,7 +206,7 @@ __device__ __forceinline__ void vote_tile(const Table& t, uint32_t row_lo,
       const int bi = base0 + r * bases + p - p0;
       w = first_window(packed_bases(codes, bi), ~0ull, k);
       next = packed_bases(codes, bi + k);
-      len = sm.len[r];
+      len = sm.len[slot + r];
     };
     if (per > 0) cut();
     int cnt = 0;
@@ -233,17 +267,46 @@ __device__ __forceinline__ void vote_tile(const Table& t, uint32_t row_lo,
         }
       }
     }
-    __syncwarp();   // the warp's slots are refilled next tile
+    __syncwarp();   // the warp's slots (and a warp's codes) are refilled
   }
 
   if (kLong) {
-    // the block's sums into sm.cnt[0]: a warp sum, one atomic a warp
+    // the group's sums into sm.cnt[slot]: a warp sum, one atomic a warp
     const uint32_t v0 = __reduce_add_sync(0xFFFFFFFFu,
                                           static_cast<uint32_t>(mine));
     const uint32_t v1 = __reduce_add_sync(0xFFFFFFFFu,
                                           static_cast<uint32_t>(mine >> 32));
     if (lane == 0 && (v0 | v1))
-      atomicAdd(&sm.cnt[0], v0 | static_cast<unsigned long long>(v1) << 32);
+      atomicAdd(&sm.cnt[slot], v0 | static_cast<unsigned long long>(v1) << 32);
+  }
+}
+
+// Vote a block's rows into sm.cnt (sm.len and sm.cnt set, a barrier
+// passed; the caller passes a barrier after it).  The short form votes
+// its tile of rows; the long form's warp w votes read w where it holds at
+// most kWarpTile windows, and the block then walks each longer read in
+// turn (a uniform branch: sm.len is not written here).
+template <bool kAscii, bool kLong>
+__device__ __forceinline__ void vote_rows(const Table& t, uint32_t row_lo,
+                                          uint32_t n_rows, const uint8_t* src,
+                                          int stride, int n_win, int rows,
+                                          Smem<kLong>& sm) {
+  int it = 0;
+  if constexpr (!kLong) {
+    vote_tile<kAscii, false>(t, row_lo, n_rows, src, stride, n_win, rows, 0,
+                             it, sm);
+  } else {
+    auto walks = [&](int i) { return min(n_win, sm.len[i] - t.k + 1); };
+    const int warp = threadIdx.x >> 5;
+    int one = 0;   // a warp's read is one tile in its own buffer
+    if (warp < rows && walks(warp) <= kWarpTile)
+      vote_tile<kAscii, true, 32>(t, row_lo, n_rows, src + warp * stride,
+                                  stride, n_win, 1, warp, one, sm);
+    for (int i = 0; i < rows; ++i)
+      if (walks(i) > kWarpTile)
+        vote_tile<kAscii, true>(t, row_lo, n_rows,
+                                src + static_cast<int64_t>(i) * stride,
+                                stride, n_win, 1, i, it, sm);
   }
 }
 

@@ -19,7 +19,8 @@
 // rows packed into codes as they are staged; compacted keys, two a lane
 // in flight; a bucket another shard owns is not loaded), then one thread
 // a read stores its two votes, coalesced.  Rows past a tile's windows
-// take the long form: a block a read.
+// take the long form: a block takes eight reads, a warp each for the
+// short ones and the whole block for each longer one in turn.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -29,10 +30,12 @@
 namespace {
 
 using hast::reads::kBlocksPerSm;
+using hast::reads::kLongBlocksPerSm;
 using hast::reads::kThreads;
 
 template <bool kAscii, bool kLong, typename Vote>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+__global__ void __launch_bounds__(kThreads,
+                                  kLong ? kLongBlocksPerSm : kBlocksPerSm)
 vote_reads_kernel(hast::Table table, uint32_t row_lo, uint32_t n_rows,
                   const uint8_t* __restrict__ reads,
                   const int32_t* __restrict__ lengths, int64_t n, int stride,
@@ -47,7 +50,7 @@ vote_reads_kernel(hast::Table table, uint32_t row_lo, uint32_t n_rows,
     sm.cnt[i] = 0;
   }
   __syncthreads();
-  hast::reads::vote_tile<kAscii, kLong>(table, row_lo, n_rows,
+  hast::reads::vote_rows<kAscii, kLong>(table, row_lo, n_rows,
                                         reads + row0 * stride, stride, n_win,
                                         rows, sm);
   __syncthreads();
@@ -69,9 +72,10 @@ cudaError_t launch(const hast::Table& t, uint32_t row_lo, uint32_t n_rows,
                    int stride, Vote* votes, cudaStream_t s) {
   const int n_win = (kAscii ? stride : 4 * stride) - t.k + 1;
   if (n_win > hast::reads::kTile) {
+    constexpr int rows = hast::reads::kWarps;
     vote_reads_kernel<kAscii, true, Vote>
-        <<<static_cast<unsigned>(n), kThreads, 0, s>>>(
-            t, row_lo, n_rows, reads, lengths, n, stride, 1, votes);
+        <<<static_cast<unsigned>((n + rows - 1) / rows), kThreads, 0, s>>>(
+            t, row_lo, n_rows, reads, lengths, n, stride, rows, votes);
   } else {
     const int rows = hast::reads::tile_rows(n_win);
     vote_reads_kernel<kAscii, false, Vote>
@@ -87,7 +91,7 @@ cudaError_t launch(const hast::Table& t, uint32_t row_lo, uint32_t n_rows,
 // uint8, packed (ascii = 0, 4 bases a byte) or ASCII (ascii = 1); lengths
 // (n,) int32 -> votes (n, 2), uint16 for packed reads, int32 for ASCII.
 // One launch: the short form where a tile holds a whole row's windows,
-// else the long form, a block a read.
+// else the long form, eight reads a block.
 extern "C" int hast_vote_reads(const void* table, int64_t n_buckets,
                                int bbits, int fmt, int k, int max_probe,
                                int64_t row_lo, int64_t n_rows,
@@ -108,4 +112,15 @@ extern "C" int hast_vote_reads(const void* table, int64_t n_buckets,
             : launch<false>(t, lo, rows, r, len, n, stride,
                             static_cast<uint16_t*>(votes), s);
   return static_cast<int>(e);
+}
+
+// The read tiles' geometry (reads.cuh), for the edge batches of
+// utils/synthetic.py: windows a tile, rows a tile, the most windows a
+// long-form warp votes alone, and reads a long-form block takes.
+extern "C" int hast_read_tile_geometry(int* out) {
+  out[0] = hast::reads::kTile;
+  out[1] = hast::reads::kMaxRows;
+  out[2] = hast::reads::kWarpTile;
+  out[3] = hast::reads::kWarps;
+  return 0;
 }

@@ -516,28 +516,42 @@ def barcode_sorted_ids(seed: int, n: int, num_barcodes: int) -> np.ndarray:
     return ids
 
 
-# the read tiles of K3 and K13 (csrc/reads.cuh): kTile windows, at most
-# kMaxRows whole rows a tile
-READ_TILE = 2048
-READ_TILE_ROWS = 128
+# the read tiles of K3 and K13 (csrc/reads.cuh; ops/_build.py
+# read_tile_geometry reads them from the library): windows a tile, whole
+# rows a tile at most, the most windows a long-form warp votes alone, and
+# reads a long-form block takes
+READ_TILE_GEOMETRY = (2048, 128, 256, 8)
+READ_TILE, READ_TILE_ROWS, READ_WARP_TILE, READ_GROUP = READ_TILE_GEOMETRY
+# read_tile_edge_batches' strides in packed bytes: under k bases, 100-104,
+# 112 and 120 bases, 1,024 bases, just past one tile's windows (2,080
+# bases), and the native paths' len_cap 8,192 and 65,536
+READ_EDGE_STRIDES = (1, 25, 26, 28, 30, 256, 520, 2048, 16384)
+# those the CPU tests take against JAX, whose compile grows with the row:
+# under k bases, rows off 4-byte alignment, the main path's 28 bytes, and
+# the long form
+READ_EDGE_STRIDES_CPU = (1, 25, 28, 520)
 EDGE_BYTES = np.frombuffer(b"ACGTACGTACGTACGTaNRU", np.uint8)
 
 
 def read_tile_edge_batches(seed: int, k: int, lp: int, key_words,
                            cap: int = 512, tile: int = READ_TILE,
-                           max_rows: int = READ_TILE_ROWS) -> list:
+                           max_rows: int = READ_TILE_ROWS,
+                           warp_tile: int = READ_WARP_TILE) -> list:
     """[(name, seqs (n, 4*lp) uint8 ASCII, lengths (n,) int32, ids (n,)
     int32, has_n (n,) uint8)] whose votes a read-tile kernel could get
     wrong, for rows of lp packed bytes (4*lp ASCII bytes).
 
     The reads mix A, C, G, T with a, N, R and U bytes and carry table
     keys (key_words) at their first and last window and at random
-    places.  Lengths 0, 1, k - 1, k, k + 1, 4*lp and past 4*lp come
-    first; where a tile holds whole rows (4*lp - k + 1 windows a row, at
-    most `tile` windows and `max_rows` rows a tile) there are three tiles
-    and five rows more, the rows about each tile edge full; a row of more
-    than `tile` windows gets lengths whose last window falls just before,
-    on and just past the first, second and last multiple of `tile`.
+    places.  Where a tile holds whole rows (4*lp - k + 1 windows a row, at
+    most `tile` windows and `max_rows` rows a tile), lengths 0, 1, k - 1,
+    k, k + 1, 4*lp and past 4*lp come first, then three tiles and five
+    rows more, the rows about each tile edge full.  A row of more than
+    `tile` windows gets, in a shuffled order, lengths 0, k - 1, k, 4*lp,
+    past 4*lp, lengths whose last window falls just before, on and just
+    past the first, second and last multiple of `tile`, lengths of one
+    window under, at and past `warp_tile` windows, and 12 short reads of
+    at most 160 bases, 100 among them.
     About 10 % of the reads have has_n set.  Two batches, the same
     reads: "sorted", barcode runs of one id (barcode_sorted_ids), and
     "distinct", a different id a read (cap at least the rows); both hold
@@ -552,6 +566,9 @@ def read_tile_edge_batches(seed: int, k: int, lp: int, key_words,
                 for d in (-1, 0, 1)]     # index of the last window
         lengths = [0, k - 1, k, L, L + 7] + [e + k for e in ends
                                              if e + k <= L]
+        lengths += [warp_tile + d + k - 1 for d in (-1, 0, 1)]
+        lengths += [100, *rng.integers(0, 161, 11)]
+        lengths = rng.permutation(lengths)
     else:
         n = 3 * rows + 5
         lengths = rng.integers(0, L + 1, n)

@@ -79,11 +79,6 @@ def super_batch(seed: int, key_words: np.ndarray, k: int, s: int = 2,
 
 
 TALLY_CASES = [("quot", 15), ("quot", 21), ("full", 21), ("full", 31)]
-# read_tile_edge_batches' strides in packed bytes on the CPU: under k
-# bases, 100-120 bases, 1,024 and 8,192 (past one tile of windows).  JAX
-# takes minutes to compile the 65,536-base stride; the card tests take it.
-EDGE_STRIDES = (1, 25, 26, 28, 30, 256, 2048)
-CARD_EDGE_STRIDES = (*EDGE_STRIDES, 16384)
 EDGE_CAP = 512
 
 
@@ -92,7 +87,7 @@ EDGE_CAP = 512
     *(pytest.param(f, k, True, id=f"{f}-{k}-edges") for f, k in TALLY_CASES)])
 def test_tally_step_twin_matches_jax(fmt, k, edges):
     """The id -1 rows are reads that hit markers; with edges, the reads of
-    read_tile_edge_batches at every stride of EDGE_STRIDES."""
+    read_tile_edge_batches at every stride of READ_EDGE_STRIDES_CPU."""
     if edges:
         _tally_edges_vs_jax(fmt, k)
     else:
@@ -136,7 +131,7 @@ def _tally_edges_vs_jax(fmt: str, k: int):
 
     ref, table, words = jax_and_port_tables(fmt, k)
     hits = 0
-    for lp in EDGE_STRIDES:
+    for lp in S.READ_EDGE_STRIDES_CPU:
         for name, *batch in S.read_tile_edge_batches(k + lp, k, lp, words,
                                                      EDGE_CAP):
             args, acc = edge_tally_inputs(lp, *batch)
@@ -480,8 +475,10 @@ def test_slice_matches_jax_on_synthetic_inputs(tmp_path):
         ("quot", 15), ("quot", 17), ("quot", 21), ("full", 21),
         ("full", 31)))])
 def test_tally_kernel_matches_twin(card, fmt, k, edges):
-    """With edges: read_tile_edge_batches at every stride (the long-row
-    form at 2,048 and 16,384 bytes), into a tally that holds counts."""
+    """With edges: read_tile_edge_batches at every stride of
+    READ_EDGE_STRIDES (the long-row form from 520 bytes), into a tally
+    that holds counts, after checking that the library's tiles are the
+    ones the batches were made for."""
     if edges:
         _tally_edges_on_card(card, fmt, k)
         return
@@ -513,7 +510,8 @@ def _tally_edges_on_card(card, fmt: str, k: int):
     table = H.build_table(hi, lo, rng.integers(1, 4, 5000).astype(np.uint32),
                           k, load=0.7, fmt=fmt).to(card)
     words = (hi.astype(np.int64) << 32) | lo
-    for lp in CARD_EDGE_STRIDES:
+    assert _build.read_tile_geometry() == S.READ_TILE_GEOMETRY
+    for lp in S.READ_EDGE_STRIDES:
         for name, *batch in S.read_tile_edge_batches(k + lp, k, lp, words,
                                                      EDGE_CAP):
             args, acc = edge_tally_inputs(lp, *batch)

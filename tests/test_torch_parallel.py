@@ -38,6 +38,7 @@ from hast_tpu_torch.parallel import mesh as PM
 from hast_tpu_torch.parallel import merge as PMerge
 from hast_tpu_torch.pipeline import classify as C
 from hast_tpu_torch.pipeline import markers as M
+from hast_tpu_torch.utils import synthetic as S
 
 ROOT = pathlib.Path(__file__).parent
 GOLD = ROOT / "golden" / "stage01"
@@ -131,17 +132,8 @@ def planted_reads(seed: int, words: np.ndarray, k: int, b: int = 64,
 # ---------------------------------------------------------------------------
 
 
-# read_tile_edge_batches' strides in packed bytes (4x as many ASCII
-# bytes) on the CPU: under k bases, 100-120 bases, 1,024 and 8,192 (past
-# one tile of windows).  JAX takes minutes to compile the 65,536-base
-# stride; the card tests take it.
-EDGE_STRIDES = (1, 25, 26, 28, 30, 256, 2048)
-CARD_EDGE_STRIDES = (*EDGE_STRIDES, 16384)
-
-
 def edge_reads(k: int, lp: int, words: np.ndarray):
     """The reads of read_tile_edge_batches: (ASCII seqs, packed, lengths)."""
-    from hast_tpu_torch.utils import synthetic as S
     _, seqs, lengths, _, _ = S.read_tile_edge_batches(k + lp, k, lp,
                                                       words)[0]
     return seqs, E.pack_codes_np(seqs), lengths
@@ -172,7 +164,7 @@ def jax_votes(fn: str, ref, seqs, packed, lengths, k: int) -> np.ndarray:
 
 def _vote_edges_vs_jax(fn: str, k: int):
     """fn's port on read_tile_edge_batches' reads at every stride of
-    EDGE_STRIDES, both table formats, against JAX's (a stride under k
+    READ_EDGE_STRIDES_CPU, both table formats, against JAX's (a stride under k
     bases, which JAX refuses, votes nothing)."""
     pytest.importorskip("jax")
     votes = 0
@@ -181,7 +173,7 @@ def _vote_edges_vs_jax(fn: str, k: int):
         ref, table = tables(k, k, fmt, n=600)
         data = torch.from_numpy(np.asarray(ref.data).view(np.int32))
         args = (k, ref.max_probe, ref.fmt)
-        for lp in EDGE_STRIDES:
+        for lp in S.READ_EDGE_STRIDES_CPU:
             seqs, packed, lengths = edge_reads(k, lp, words)
             lens = torch.from_numpy(lengths)
             if fn == "vote_kernel":
@@ -266,7 +258,7 @@ def test_owned_ranges_sum_to_the_whole_table(tp, fmt, edges):
     words = marker_words(5, 4000, 21)
     rows = table.n_buckets // tp
     inputs = [planted_reads(6, words, 21)] if not edges else [
-        edge_reads(21, lp, words)[::2] for lp in EDGE_STRIDES]
+        edge_reads(21, lp, words)[::2] for lp in S.READ_EDGE_STRIDES_CPU]
     for seqs, lengths in inputs:
         for packed, reads in ((False, seqs), (True, E.pack_codes_np(seqs))):
             reads, lens = torch.from_numpy(reads), torch.from_numpy(lengths)
@@ -336,7 +328,6 @@ def test_tally_votes_matches_segment_sum():
 def tally_inputs(seed: int, n: int, nb: int, sorted_ids: bool):
     """K15's inputs as tensors: votes, N flags and barcode ids, random or
     in stLFR's barcode runs (utils/synthetic.py barcode_sorted_ids)."""
-    from hast_tpu_torch.utils import synthetic as S
     rng = np.random.default_rng(seed)
     votes = rng.integers(0, 9, (n, 2)).astype(np.int32)
     votes[rng.random(n) < 0.3] = 0
@@ -769,7 +760,8 @@ def test_vote_reads_kernel_matches_twin(card, fmt, edges):
 def _vote_edges_on_card(card, fmt: str, k: int):
     table = port_table(k, k, fmt)
     words = marker_words(k, 4000, k)
-    for lp in CARD_EDGE_STRIDES:
+    assert _build.read_tile_geometry() == S.READ_TILE_GEOMETRY
+    for lp in S.READ_EDGE_STRIDES:
         seqs, packed_np, lengths = edge_reads(k, lp, words)
         lens = torch.from_numpy(lengths)
         for packed, reads in ((False, torch.from_numpy(seqs)),
