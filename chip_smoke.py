@@ -11,8 +11,13 @@ failure:
 1. toolchain: card, power limit, torch, CUDA, nvcc; the kernels' build.
 2. kernels vs their plain PyTorch twins on the card, bit-exact, with
    both times: K1 canonical_windows on 65,536 packed 100-bp reads at
-   k = 15, 21, 31; K2 probe on a 2M-key quot table (2^20 rows), the same
-   keys in a forced full table (2^21 rows) and a 4e7-key quot table
+   k = 15, 21, 31, one C call a call, then on utils/synthetic.py
+   window_edge_reads at strides 25, 26, 28, 30 and 520 bytes and k = 15,
+   17, 21, 31, and at one and two windows a row over 8,193 reads
+   (partial last tiles) (its times and its one kernel a call, K4's
+   template keeping every key, after phase 3: phase_k1_times); K2 probe
+   on a 2M-key quot table (2^20 rows), the same keys in a forced full
+   table (2^21 rows) and a 4e7-key quot table
    (2^24 rows, 268 MB, past the 50 MB L2); K3 classify_tally against
    tally_step_ref with N reads, id -1 rows and reads shorter than k; K10
    grow_tally from 2^19 to 2^20 rows (its int4 path back to back and
@@ -31,7 +36,13 @@ failure:
    fold_runs on a 2^26-element duplicate-heavy sorted run (its two
    kernels once a call, nothing else on the card) and K12
    shrink_run on its distinct rows; K7
-   count_stats on 2^26 counts, high = 10000; K8 marker_filter on two
+   count_stats on the 2^26 counts of stats_inputs at high = 10000
+   (uniform, synthetic.peaked_counts, all 1, all 5,000) and peaked past
+   the shared form's limit, one C call, one zero fill and one kernel of
+   the form high names a call, then on synthetic.count_stats_edge_cases
+   on both sides of that limit, each also as views off a 16-byte
+   boundary (call and device times from time_count_stats); K8
+   marker_filter on two
    2^25-row runs sharing half their keys, bounds (9, 33) and
    (0, 2^31 - 1) (its two kernels once a call, nothing else on the card;
    the device time of each), then on marker_edge_cases (shared keys at
@@ -211,6 +222,11 @@ COUNT_RANGE_OPS = 4   # K4: the key-range test and the sentinel select
 SORT_PASS_OPS = 8     # K5 per key and 8-bit pass: digit, count, rank, place
 FOLD_OPS = 8          # K6 per key: neighbour compare, flag, scan, sum
 STATS_OPS = 4         # K7 per count: clamp, bin, total
+K7_PAST_SHARED = 41_727   # kmer_count.COUNT_STATS_SHARED_HIGH + 1
+# K1's kernel: K4's template with every key kept, and its first form's own
+# (time_canonical_windows may time an earlier tree)
+K1_KERNELS = ("count_windows_kernel<false, false, true>",
+              "canonical_windows_kernel")
 MERGE_OPS = 12        # K8 per row, as a merge of two sorted runs
 GROW_OPS = 1          # K10 per element of the new tally: copy or zero
 PACK_OPS = 8          # K11 per entry: two masks, two shifts, two tests, sums
@@ -236,6 +252,9 @@ FOLD_KERNELS = ("fold_tiles_kernel", "fold_tail_kernel")   # K6's two
 READ_VOTE_KERNELS = {"classify_tally": "classify_tally_kernel",
                      "vote_reads": "vote_reads_kernel"}
 FLUSH_BYTES = 1 << 28         # written before a call to empty the 50 MB L2
+PAD_KERNEL = "spin_kernel"    # torch.cuda._sleep's, around a profiled call
+PAD_CYCLES = 100_000          # some 50 us at the H100's clocks
+PAD_WAIT_S = 0.05             # host wait after a session's first record
 MARKER_KERNELS = ("marker_tiles_kernel", "marker_tail_kernel")   # K8's two
 STAGE03_FILES = (
     "output.phb.1.fa", "output.phb.2.fa", "output.homo.fa", "phasing.out",
@@ -283,6 +302,27 @@ def cuda_ms_once(fn):
     return out, start.elapsed_time(end)
 
 
+def _profiled(fn):
+    """key_averages() of a torch.profiler session (CUDA activity) around
+    fn() and a synchronize, without PAD_KERNEL's records.  The session's
+    first kernel is a spin, waited for on the host, fn comes PAD_WAIT_S
+    later, and a spin follows it: the run that first profiled this way
+    (with phase_k1_times after phase 3) lost no record, where the
+    parent tree's lost two and was profiled again.  A session that now
+    and then records nothing is profiled again by the callers."""
+    import torch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(PAD_WAIT_S)
+        fn()
+        torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if PAD_KERNEL not in e.key]
+
+
 def device_ms(fn, reps: int, kernel) -> float:
     """Mean device time of the kernels whose name holds `kernel` (or one
     of a tuple of names) over reps calls of fn, from torch.profiler: the
@@ -292,13 +332,13 @@ def device_ms(fn, reps: int, kernel) -> float:
     fn()
     torch.cuda.synchronize()
     names = (kernel,) if isinstance(kernel, str) else kernel
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
     for _ in range(3):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        seen = [e for e in prof.key_averages()
+        seen = [e for e in _profiled(calls)
                 if any(name in e.key for name in names)]
         # each matched kernel runs at least once a call: fewer records
         # mean the profiler dropped some, so the sum would read short
@@ -351,6 +391,101 @@ def phase_toolchain() -> None:
         f"({_build.library_path()})")
 
 
+def stats_inputs() -> dict:
+    """{name: (counts, high)}: 2^26 int32 counts on the card at high
+    10,000, uniform in [0, 60) with every 997th in [0, 40,000), a count
+    table's shape (utils/synthetic.py peaked_counts), all 1 and all 5,000;
+    and the peaked counts at K7_PAST_SHARED, the global form."""
+    import torch
+    from hast_tpu_torch.utils import synthetic as S
+
+    dev = torch.device("cuda")
+    n = 1 << 26
+    g = torch.Generator(device=dev)
+    g.manual_seed(2034)
+    uniform = torch.randint(0, 60, (n,), device=dev, generator=g,
+                            dtype=torch.int32)
+    uniform[::997] = torch.randint(0, 40000, (uniform[::997].numel(),),
+                                   device=dev, generator=g,
+                                   dtype=torch.int32)
+    return {
+        "uniform": (uniform, 10000),
+        "peaked": (torch.from_numpy(S.peaked_counts(2034, n, 10000)).to(dev),
+                   10000),
+        "all 1": (torch.ones(n, dtype=torch.int32, device=dev), 10000),
+        "all 5000": (torch.full((n,), 5000, dtype=torch.int32, device=dev),
+                     10000),
+        f"peaked, high {K7_PAST_SHARED}": (torch.from_numpy(
+            S.peaked_counts(2035, n, K7_PAST_SHARED)).to(dev),
+            K7_PAST_SHARED)}
+
+
+def _call_and_device(fn, kernel) -> dict:
+    return dict(ms=cuda_ms(fn, 20), device_ms=device_ms(fn, 20, kernel))
+
+
+def time_count_stats(inputs=None) -> dict:
+    """Call and device times (ms) of K7 on each of stats_inputs().  Calls
+    only the wrapper, whose contract earlier trees share, so that a script
+    can time another tree's package with it."""
+    from hast_tpu_torch.ops import kmer_count as KC
+
+    out = {}
+    for name, (counts, high) in (inputs or stats_inputs()).items():
+        out[name] = _call_and_device(lambda: KC.count_stats(counts, high),
+                                     "count_stats_kernel")
+        log(f"K7 count_stats {name}: call {out[name]['ms']:.4f} ms, device "
+            f"{out[name]['device_ms']:.4f} ms")
+    return out
+
+
+def k1_input():
+    """65,536 random packed reads of 112 bases, lengths 100, on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2033)
+    packed = torch.from_numpy(rng.integers(0, 256, (65536, 28),
+                                           np.uint8)).to("cuda")
+    return packed, torch.full((65536,), 100, dtype=torch.int32,
+                              device="cuda")
+
+
+def time_canonical_windows() -> dict:
+    """Call and device times (ms) of K1 on 65,536 packed reads of 112
+    bases (lengths 100), at k = 15, 21 and 31.  Calls only the wrapper, as
+    time_count_stats does."""
+    import numpy as np
+    import torch
+    from hast_tpu_torch.ops import encode as E
+
+    packed, lengths = k1_input()
+    out = {}
+    for k in (15, 21, 31):
+        out[f"k={k}"] = t = _call_and_device(
+            lambda: E.canonical_windows(packed, lengths, k), K1_KERNELS)
+        log(f"K1 canonical_windows k={k}: call {t['ms']:.4f} ms, device "
+            f"{t['device_ms']:.4f} ms")
+    return out
+
+
+def phase_k1_times() -> dict:
+    """K1's call and device times (time_canonical_windows) and the one
+    kernel of one call at k = 15, 21 and 31; the k = 21 times.  Not in
+    phase 2: runs whose first profiler sessions came before phase 2's
+    tables were built lost kernels' records in sessions after them (K6's
+    and K8's one-call checks failed), and runs whose first came after
+    them lost none."""
+    from hast_tpu_torch.ops import encode as E
+
+    times = time_canonical_windows()
+    packed, lengths = k1_input()
+    for k in (15, 21, 31):
+        name = _one_kernel(lambda: E.canonical_windows(packed, lengths, k),
+                           f"K1 canonical_windows k={k}", K1_KERNELS[0])
+        log(f"K1 canonical_windows k={k}: one call's device work: {name}")
+    return times[f"k={K}"]
+
+
 def phase_kernels() -> dict:
     """Each kernel against its twin on the same card tensors."""
     import numpy as np
@@ -358,6 +493,7 @@ def phase_kernels() -> dict:
     from hast_tpu_torch.ops import encode as E
     from hast_tpu_torch.ops import hashtable as H
     from hast_tpu_torch.pipeline import classify as C
+    from hast_tpu_torch.utils import synthetic as S
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
@@ -372,23 +508,41 @@ def phase_kernels() -> dict:
     lengths = torch.from_numpy(lens).to(dev)
     err = 0.0
     for k in (15, 21, 31):
-        keys, valid = E.canonical_windows(packed, lengths, k)
+        keys, valid = _launched("canonical_windows", lambda: (
+            E.canonical_windows(packed, lengths, k)))
         rkeys, rvalid = E.canonical_windows_ref(packed, lengths, k)
         torch.cuda.synchronize()
         if not (torch.equal(keys, rkeys) and torch.equal(valid, rvalid)):
             fail(f"K1 canonical_windows != twin at k={k}")
         err = max(err, max_abs_err(keys, rkeys))
-        ms = cuda_ms(lambda: E.canonical_windows(packed, lengths, k), 20)
         plain = cuda_ms(lambda: E.canonical_windows_ref(packed, lengths, k),
                         3)
         log(f"K1 canonical_windows k={k} {n} reads x {keys.shape[1]} "
-            f"windows: kernel {ms:.4f} ms, twin {plain:.4f} ms, bit-exact")
+            f"windows: twin {plain:.4f} ms, bit-exact")
         if k == K:
-            # packed reads and lengths in, 8-byte keys and a valid byte out
+            # packed reads and lengths in, 8-byte keys and a valid byte
+            # out; the times come from phase_k1_times
             res["canonical_windows"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                max_abs_err=err, plain_ms=plain, library_ms=None,
                 **bound("K1", n * lp + 4 * n + 9 * keys.numel(),
                         WINDOW_OPS * keys.numel()))
+    # the tile edges: window_edge_reads packed at the edge strides (tiles
+    # that begin and end inside a read, a partial last tile), and one and
+    # two windows a row over 8,193 reads (the last tile one window, two)
+    cases = [(k, lp, 203) for k in (15, 17, 21, 31)
+             for lp in (25, 26, 28, 30, 520)]
+    cases += [(16, 4, 8193), (15, 4, 8193), (31, 8, 8193)]
+    for k, lp, rows in cases:
+        seqs, elens = S.window_edge_reads(k + lp, k, lp, n=rows)
+        ep = torch.from_numpy(E.pack_codes_np(seqs)).to(dev)
+        el = torch.from_numpy(elens).to(dev)
+        keys, valid = E.canonical_windows(ep, el, k)
+        rkeys, rvalid = E.canonical_windows_ref(ep, el, k)
+        if not (torch.equal(keys, rkeys) and torch.equal(valid, rvalid)):
+            fail(f"K1 canonical_windows != twin on window_edge_reads at "
+                 f"k={k}, stride {lp} bytes, {rows} reads")
+        err = max(err, max_abs_err(keys, rkeys))
+    log(f"K1 canonical_windows: {len(cases)} edge batches bit-exact")
     res["canonical_windows"]["max_abs_err"] = err
 
     # K2 on the bench-scale key count, quot and forced full
@@ -747,26 +901,61 @@ def phase_kernels00() -> dict:
                              library_ms=lib, **bound("K12", 24 * m, 0))
     del keys, counts, got
 
-    # K7: 2^26 counts, mostly low, some above high, pads of 0
-    counts = torch.randint(0, 60, (n,), device=dev, generator=g,
-                           dtype=torch.int32)
-    counts[::997] = torch.randint(0, 40000, (counts[::997].numel(),),
-                                  device=dev, generator=g,
-                                  dtype=torch.int32)
-    err = _check_same("K7 count_stats", KC.count_stats(counts, 10000),
-                      KC.count_stats_ref(counts, 10000))
-    ms = cuda_ms(lambda: KC.count_stats(counts, 10000), 20)
-    plain = cuda_ms(lambda: KC.count_stats_ref(counts, 10000), 3)
-    log(f"K7 count_stats: {n} counts, high 10000: kernel {ms:.4f} ms, twin "
-        f"{plain:.4f} ms, bit-exact")
-    clamped = counts.clamp(0, 10001)
-    lib = cuda_ms(lambda: torch.bincount(clamped, minlength=10002), 20)
-    log(f"K7 count_stats: torch.bincount of the clamped counts {lib:.4f} ms")
-    res["count_stats"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                              library_ms=lib,
-                              **bound("K7", 4 * n + 8 * 10002 + 8,
-                                      STATS_OPS * n))
-    del counts, clamped
+    # K7: stats_inputs' 2^26 counts, each against the twin, one C call,
+    # and one zero fill and one kernel of the form its high names a call
+    if KC.COUNT_STATS_SHARED_HIGH + 1 != K7_PAST_SHARED:
+        fail(f"K7: the shared form ends at high "
+             f"{KC.COUNT_STATS_SHARED_HIGH}, K7_PAST_SHARED is "
+             f"{K7_PAST_SHARED}")
+    inputs = stats_inputs()
+    err = 0.0
+    for name, (counts, high) in inputs.items():
+        fn = lambda: KC.count_stats(counts, high)  # noqa: E731
+        err = max(err, _check_same(f"K7 count_stats {name}",
+                                   _launched("count_stats", fn),
+                                   KC.count_stats_ref(counts, high)))
+        form = "count_stats_kernel<%s>" % (
+            "true" if high <= KC.COUNT_STATS_SHARED_HIGH else "false")
+        kernels = _kernels_of_one_call(fn, 2)
+        if sorted(kernels.values()) != [1, 1] or not (
+                any(form in key for key in kernels)
+                and any("FillFunctor" in key or "Memset" in key
+                        for key in kernels)):
+            fail(f"K7 count_stats {name}: one call ran {kernels} on the "
+                 f"card, not one zero fill and one {form}")
+        log(f"K7 count_stats {name}: one call's device work: {kernels}")
+    # the edge cases on both sides of the shared form's limit, each also
+    # as views that start off a 16-byte boundary
+    cases = 0
+    for high in (10000, KC.COUNT_STATS_SHARED_HIGH, K7_PAST_SHARED):
+        for case, counts in S.count_stats_edge_cases(
+                high, high, n=(1 << 22) + 3).items():
+            counts = torch.from_numpy(counts).to(dev)
+            for view in (counts, counts[1:], counts[2:], counts[3:]):
+                err = max(err, _check_same(
+                    f"K7 count_stats {case}, high {high}, {view.numel()} "
+                    "counts", KC.count_stats(view, high),
+                    KC.count_stats_ref(view, high)))
+                cases += 1
+    log(f"K7 count_stats: {cases} edge calls bit-exact")
+    times = time_count_stats(inputs)
+    counts, high = inputs["uniform"]
+    plain = cuda_ms(lambda: KC.count_stats_ref(counts, high), 3)
+    clamped = counts.clamp(0, high + 1)
+    lib = cuda_ms(lambda: torch.bincount(clamped, minlength=high + 2), 20)
+    for name, t in times.items():
+        # the counts read once; the bins and the total written once
+        b = bound(f"K7 {name}", 4 * n + 8 * (inputs[name][1] + 3),
+                  STATS_OPS * n)
+        log(f"K7 count_stats {name}: {n} counts, high {inputs[name][1]}: "
+            f"{b['bound_ms'] / t['device_ms']:.2f} of its bound on the "
+            "device")
+    log(f"K7 count_stats uniform: twin {plain:.4f} ms, torch.bincount of "
+        f"the clamped counts {lib:.4f} ms")
+    res["count_stats"] = dict(
+        max_abs_err=err, plain_ms=plain, library_ms=lib, **times["uniform"],
+        **bound("K7", 4 * n + 8 * (high + 3), STATS_OPS * n))
+    del inputs, counts, clamped
 
     # K8: two 2^25-row runs sharing half their keys, 2^16 pads each
     rows, pads = 1 << 25, 1 << 16
@@ -1140,15 +1329,9 @@ def _kernels_of_one_call(fn, want: int) -> dict:
     call of fn, after a warm-up call, from torch.profiler; profiled again
     (up to three times) while it shows fewer than `want` launches, since
     the profiler now and then drops a record."""
-    import torch
     fn()
     for _ in range(3):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        seen = {e.key: e.count for e in prof.key_averages() if _device_us(e)}
+        seen = {e.key: e.count for e in _profiled(fn) if _device_us(e)}
         if sum(seen.values()) >= want:
             break
         log(f"the profiler recorded {seen} for one call; profiling again")
@@ -2921,6 +3104,7 @@ def main() -> None:
         return
     kernels, tables, words, bwords = phase_kernels()
     kernels.update(phase_kernels00())
+    kernels["canonical_windows"].update(phase_k1_times())
     kernels.update(phase_kernels03(tables, words, bwords))
     kernels.update(phase_kernels_mesh(tables, words, bwords))
     for name, extra in phase_read_votes(tables, words, bwords).items():
@@ -2957,7 +3141,8 @@ def main() -> None:
     phase_scale()
 
     csrc = "hast_tpu_torch/ops/csrc/"
-    sources = {"canonical_windows": ("kmer.cu", "hast_tpu/ops/encode.py:53"),
+    sources = {"canonical_windows": ("count.cu",
+                                     "hast_tpu/ops/encode.py:53"),
                "probe": ("probe.cu", "hast_tpu/ops/hashtable.py:444"),
                "classify_tally": ("classify.cu",
                                   "hast_tpu/pipeline/classify.py:217"),

@@ -1,5 +1,7 @@
 // K4 `count_windows`: every canonical k-mer window of a packed batch as
-// one int64 key, invalid or out-of-range windows as the sentinel.
+// one int64 key, invalid or out-of-range windows as the sentinel; and K1
+// `canonical_windows`, the same tiles with every key kept and a valid
+// byte beside each.
 //
 // Replaces hast_tpu/ops/kmer_count.py `count_kernel_multi` (masked
 // batches), `count_kernel_multi_clean` (good = null: validity from the
@@ -13,10 +15,20 @@
 // be negative.  Keys are below 2^62 (k <= 31), so the sentinel
 // INT64_MAX sorts after every real key.
 //
-// What bounds it on an H100: the 8-byte key written per window; the
-// packed read (28 bytes for 100 bp) and its 14-byte mask are read once.
-// A window cut from its k single bases costs some 200 instructions, ten
-// times the store's share of the card, so:
+// K1 replaces hast_tpu/ops/encode.py `canonical_kmers` + `window_valid`
+// (and the unpack of hast_tpu/pipeline/classify.py `tally_step`): the
+// clean form's windows, each key kept (a window past the read's length
+// too, rolled from the row's bytes as the twin computes it) and valid =
+// p + k <= length; a packed read has no mask.  It has no pipeline caller:
+// K3, K9, K13 and K14 roll the same windows inline.
+//
+// What bounds it on an H100 (80GB HBM3, 700 W; chip_smoke.py): the
+// 8-byte key written per window (K1: and its valid byte); the packed read
+// (28 bytes for 100 bp) and its 14-byte mask are read once.  On 65,536
+// 100-bp reads at k = 21, K4 takes 0.0273 ms masked and 0.0216 clean on
+// the device against a 0.0153 ms bound, K1 0.0241 against 0.0168 (a
+// thread a window cut from its k single bases, K1's first form, took
+// 0.1260).  So:
 //  - a block takes kTile consecutive windows of the output (a tile may
 //    begin and end inside a read), stages the packed bytes and mask bytes
 //    of the reads they touch into shared memory with 16-byte loads from
@@ -81,13 +93,16 @@ __device__ __forceinline__ int stage(const uint8_t* src, int bytes,
   return off;
 }
 
-template <bool kMasked, bool kRanged>
+// kEvery (K1): every key kept, and valid[w] = (p + k <= length) beside
+// it, each thread's 16 flags one 16-byte store.
+template <bool kMasked, bool kRanged, bool kEvery>
 __global__ void __launch_bounds__(kThreads)
 count_windows_kernel(const uint8_t* __restrict__ packed,
                      const int32_t* __restrict__ lengths,
                      const uint8_t* __restrict__ good, int lg, int64_t n,
                      int lp, int k, int n_win, unsigned long long lo,
-                     unsigned long long hi, int64_t* __restrict__ keys) {
+                     unsigned long long hi, int64_t* __restrict__ keys,
+                     uint8_t* __restrict__ valid) {
   // keys of the tile, the reads' lengths, their codes, their flags
   extern __shared__ __align__(16) unsigned char s_mem[];
   int64_t* s_keys = reinterpret_cast<int64_t*>(s_mem);
@@ -131,6 +146,7 @@ count_windows_kernel(const uint8_t* __restrict__ packed,
       len = s_len[r];
     };
     cut();
+    uint32_t flags4[kPer / 4] = {};   // kEvery: window j's flag, byte j
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       if (j >= cnt) break;
@@ -150,7 +166,20 @@ count_windows_kernel(const uint8_t* __restrict__ packed,
       bool ok = p + k <= len;
       if (kMasked) ok = ok && w.run >= k;
       if (kRanged) ok = ok && key >= lo && key < hi;
-      s_keys[oslot(first + j)] = ok ? static_cast<int64_t>(key) : kSent;
+      if (kEvery) flags4[j >> 2] |= static_cast<uint32_t>(ok) << 8 * (j & 3);
+      s_keys[oslot(first + j)] =
+          ok || kEvery ? static_cast<int64_t>(key) : kSent;
+    }
+    if (kEvery) {
+      uint8_t* v = valid + w0 + first;   // 16-byte aligned
+      if (cnt >= kPer) {
+        *reinterpret_cast<uint4*>(v) =
+            make_uint4(flags4[0], flags4[1], flags4[2], flags4[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          if (j < cnt) v[j] = (flags4[j >> 2] >> 8 * (j & 3)) & 1u;
+      }
     }
   }
   __syncthreads();
@@ -167,13 +196,21 @@ count_windows_kernel(const uint8_t* __restrict__ packed,
   if ((nt & 1) && threadIdx.x == 0) out[nt - 1] = s_keys[oslot(nt - 1)];
 }
 
-template <bool kMasked, bool kRanged>
-cudaError_t launch(int64_t blocks, size_t smem, cudaStream_t s,
-                   const uint8_t* packed, const int32_t* lengths,
+// One launch of count_windows_kernel over the n * (4*lp - k + 1) windows
+// of the batch, kTile a block.
+template <bool kMasked, bool kRanged, bool kEvery = false>
+cudaError_t launch(const uint8_t* packed, const int32_t* lengths,
                    const uint8_t* good, int lg, int64_t n, int lp, int k,
-                   int n_win, unsigned long long lo, unsigned long long hi,
-                   int64_t* keys) {
-  auto* kernel = count_windows_kernel<kMasked, kRanged>;
+                   unsigned long long lo, unsigned long long hi,
+                   int64_t* keys, uint8_t* valid, cudaStream_t s) {
+  const int n_win = 4 * lp - k + 1;
+  const int64_t blocks = (n * n_win + kTile - 1) / kTile;
+  const int rows = tile_rows(n_win);
+  const size_t smem =
+      kTile * sizeof(int64_t) + ((rows + 3) & ~3) * sizeof(int32_t) +
+      16 * (staged_chunks(rows * lp) + (kMasked ? staged_chunks(rows * lg)
+                                                : 0));
+  auto* kernel = count_windows_kernel<kMasked, kRanged, kEvery>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -181,8 +218,12 @@ cudaError_t launch(int64_t blocks, size_t smem, cudaStream_t s,
     if (e != cudaSuccess) return e;
   }
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-      packed, lengths, good, lg, n, lp, k, n_win, lo, hi, keys);
+      packed, lengths, good, lg, n, lp, k, n_win, lo, hi, keys, valid);
   return cudaGetLastError();
+}
+
+bool misaligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) & 15;
 }
 
 }  // namespace
@@ -195,15 +236,8 @@ extern "C" int hast_count_windows(const void* packed, const void* lengths,
                                   unsigned long long lo,
                                   unsigned long long hi, void* keys,
                                   void* stream) {
-  const int n_win = 4 * lp - k + 1;
-  if (n <= 0 || n_win <= 0) return 0;
-  if (reinterpret_cast<uintptr_t>(keys) & 15)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  const int64_t blocks = (n * n_win + kTile - 1) / kTile;
-  const int rows = tile_rows(n_win);
-  const size_t smem =
-      kTile * sizeof(int64_t) + ((rows + 3) & ~3) * sizeof(int32_t) +
-      16 * (staged_chunks(rows * lp) + (good ? staged_chunks(rows * lg) : 0));
+  if (n <= 0 || 4 * lp - k + 1 <= 0) return 0;
+  if (misaligned(keys)) return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* pk = static_cast<const uint8_t*>(packed);
   const auto* ln = static_cast<const int32_t*>(lengths);
@@ -211,14 +245,29 @@ extern "C" int hast_count_windows(const void* packed, const void* lengths,
   auto* out = static_cast<int64_t*>(keys);
   cudaError_t e;
   if (gd)
-    e = ranged ? launch<true, true>(blocks, smem, s, pk, ln, gd, lg, n, lp,
-                                    k, n_win, lo, hi, out)
-               : launch<true, false>(blocks, smem, s, pk, ln, gd, lg, n, lp,
-                                     k, n_win, lo, hi, out);
+    e = ranged ? launch<true, true>(pk, ln, gd, lg, n, lp, k, lo, hi, out,
+                                    nullptr, s)
+               : launch<true, false>(pk, ln, gd, lg, n, lp, k, lo, hi, out,
+                                     nullptr, s);
   else
-    e = ranged ? launch<false, true>(blocks, smem, s, pk, ln, gd, lg, n, lp,
-                                     k, n_win, lo, hi, out)
-               : launch<false, false>(blocks, smem, s, pk, ln, gd, lg, n,
-                                      lp, k, n_win, lo, hi, out);
+    e = ranged ? launch<false, true>(pk, ln, gd, lg, n, lp, k, lo, hi, out,
+                                     nullptr, s)
+               : launch<false, false>(pk, ln, gd, lg, n, lp, k, lo, hi,
+                                      out, nullptr, s);
   return static_cast<int>(e);
+}
+
+// K1: packed (n, lp) uint8, lengths (n,) int32 -> keys (n, 4*lp - k + 1)
+// int64 and valid (same shape) uint8, both 16-byte aligned.  One launch.
+extern "C" int hast_canonical_windows(const void* packed, const void* lengths,
+                                      int64_t n, int lp, int k, void* keys,
+                                      void* valid, void* stream) {
+  if (n <= 0 || 4 * lp - k + 1 <= 0) return 0;
+  if (misaligned(keys) || misaligned(valid))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return static_cast<int>(launch<false, false, true>(
+      static_cast<const uint8_t*>(packed),
+      static_cast<const int32_t*>(lengths), nullptr, 0, n, lp, k, 0, 0,
+      static_cast<int64_t*>(keys), static_cast<uint8_t*>(valid),
+      static_cast<cudaStream_t>(stream)));
 }

@@ -10,14 +10,13 @@
 // key) all fit below 2^62 in one uint64 -- the (hi, lo) uint32 pair of
 // the JAX package is (key >> 32, key & 0xFFFFFFFF).
 //
-// What bounds it on an H100: nothing here touches device memory except
-// the row's bytes.  K1 writes every window of a read, so it recomputes
-// each from the packed bytes (canonical_window), one thread a window with
-// no shared memory and no ordering.  The kernels that probe or write the
-// windows of staged rows roll consecutive windows instead (the rolled
-// windows below, a step a window instead of k): K9 and K14 from ASCII
-// bytes they pack in shared memory, K4 and K3/K13 (reads.cuh) from the
-// packed rows as the native reader lays them out, K13 from ASCII rows too.
+// What bounds it on an H100: a window cut from its k single bases costs
+// some 200 instructions, so no kernel here does that.  Every kernel that
+// reads windows (K1 and K4 in count.cu, K3/K13 through reads.cuh, K9,
+// K14) rolls them instead (below: a step a window instead of k): K9 and
+// K14 from ASCII bytes they pack in shared memory, K1, K4 and K3/K13 from
+// the packed rows as the native reader lays them out, K13 from ASCII rows
+// too.
 #pragma once
 
 #include <cstdint>
@@ -25,22 +24,6 @@
 namespace hast {
 
 constexpr int kMaxK = 31;
-
-__device__ __forceinline__ uint32_t base_at(const uint8_t* row, int i) {
-  return (static_cast<uint32_t>(row[i >> 2]) >> ((i & 3) * 2)) & 3u;
-}
-
-// min(forward, reverse complement) of the k bases starting at p.
-__device__ __forceinline__ uint64_t canonical_window(const uint8_t* row,
-                                                     int p, int k) {
-  uint64_t fwd = 0, rc = 0;
-  for (int j = 0; j < k; ++j) {
-    const uint64_t c = base_at(row, p + j);
-    fwd = (fwd << 2) | c;             // base j lands at bit 2*(k-1-j)
-    rc |= (c ^ 2ull) << (2 * j);      // its complement at bit 2*j
-  }
-  return fwd < rc ? fwd : rc;
-}
 
 // Which ASCII bytes make a base good, where a window must hold k good
 // bases.  The repository has two such rules, and bytes such as a, N, R
@@ -62,12 +45,12 @@ __device__ __forceinline__ bool byte_ok(uint32_t b) {
   return is_acgt(b & ~0x20u);
 }
 
-// Rolled windows over packed words (K3, K4, K9, K13, K14).  Codes lie
+// Rolled windows over packed words (K1, K3, K4, K9, K13, K14).  Codes lie
 // base i at bits 2 * (i & 15) of codes32[i >> 4] and flags bit i & 15 of
 // good16[i >> 4], set iff base i is good: K9, K13 and K14 pack ASCII
 // bytes so (codes (c >> 1) & 3, flags from the byte rule); the native
 // reader's packed rows and ACGT masks, read as little-endian words, are
-// already so (K3, K4, K13).  A thread cuts its first window's words and
+// already so (K1, K3, K4, K13).  A thread cuts its first window's words and
 // run of good bases from the packed words in a few shifts, then rolls one
 // base a window: a step a window instead of k.
 

@@ -5,8 +5,9 @@ Host side: numpy copies of the JAX package's codec (``encode_np``,
 ``pack_codes_np``); they live in a module that imports jax there, so the
 port carries its own.
 
-Device side: K1 :func:`canonical_windows` (``csrc/kmer.cu``) turns 2-bit
-packed reads into canonical keys and a validity mask.  A key is the
+Device side: K1 :func:`canonical_windows` (``csrc/count.cu``, an instance
+of K4's tile kernel that keeps every key) turns 2-bit packed reads into
+canonical keys and a validity mask.  A key is the
 canonical k-mer as one int64 word, ``(hi << 32) | lo`` of the JAX
 package's uint32 pair; k <= 31 keeps it below 2^62, so signed order is
 the reference's (hi, lo) order.  :func:`canonical_windows_ref` is the

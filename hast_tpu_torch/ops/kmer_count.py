@@ -507,6 +507,11 @@ def shrink_run(keys: torch.Tensor, counts: torch.Tensor, n: int):
 # ---------------------------------------------------------------------------
 
 
+# stats.cu kSharedHigh: the most high whose bins, beside each lane's
+# copies of the low bins, fit in one block's shared memory
+COUNT_STATS_SHARED_HIGH = 41726
+
+
 def count_stats_ref(counts: torch.Tensor, high: int):
     """Plain PyTorch twin of :func:`count_stats`."""
     _build.TWIN_CALLS["count_stats_ref"] += 1
@@ -521,7 +526,9 @@ def count_stats(counts: torch.Tensor, high: int):
 
     Returns bins, (high+2,) int64 with bins[v] = #counts equal to v for
     1 <= v <= high, bins[high+1] = #counts above high and bins[0] = 0,
-    and the 0-d int64 total of the counts, both on counts' device.
+    and the 0-d int64 total of the counts, both on counts' device (on
+    the card, views of one buffer).  Up to COUNT_STATS_SHARED_HIGH the
+    kernel bins in shared memory, past it with global atomics.
     """
     if counts.dtype != torch.int32 or counts.dim() != 1:
         raise ValueError(f"count_stats: counts must be 1-D int32, got "
@@ -532,11 +539,11 @@ def count_stats(counts: torch.Tensor, high: int):
     if counts.device.type == "cpu":
         return count_stats_ref(counts, high)
     _build.require_cuda("count_stats", counts)
-    bins = torch.zeros(high + 2, dtype=torch.int64, device=counts.device)
-    total = torch.zeros((), dtype=torch.int64, device=counts.device)
+    # bins and total in one zeroed buffer: one fill, then the kernel
+    out = torch.zeros(high + 3, dtype=torch.int64, device=counts.device)
     _build.launch("count_stats", counts.device, counts.data_ptr(),
-                  counts.numel(), high, bins.data_ptr(), total.data_ptr())
-    return bins, total
+                  counts.numel(), high, out.data_ptr())
+    return out[:high + 2], out[high + 2]
 
 
 # ---------------------------------------------------------------------------

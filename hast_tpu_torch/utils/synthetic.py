@@ -503,6 +503,41 @@ def window_edge_reads(seed: int, k: int, lp: int, n: int = 64):
     return seqs, lengths
 
 
+def peaked_counts(seed: int, n: int, high: int) -> np.ndarray:
+    """(n,) int32 counts shaped as a k-mer count table's: about 30 % count
+    1 (sequencing errors), Poisson(26) for the rest (the coverage peak of
+    a 33x sample), 1 % above high, and the table's last tenth pads of 0."""
+    rng = np.random.default_rng(seed)
+    c = np.where(rng.random(n) < 0.3, 1, rng.poisson(26, n))
+    above = rng.random(n) < 0.01
+    c[above] = rng.integers(high + 1, 4 * high + 2, int(above.sum()))
+    c[n - n // 10:] = 0
+    return c.astype(np.int32)
+
+
+def count_stats_edge_cases(seed: int, high: int, n: int = 4099) -> dict:
+    """{name: (m,) int32 counts}, the same names for any arguments, that a
+    histogram over 16-byte loads, lane-private low bins and a shared
+    histogram of the rest could get wrong: no count, one count, 4,099 (a
+    partial int4 and a scalar tail), the values -1, 0, 1, high, high + 1
+    and 2^31 - 1 among peaked ones, every count equal (in bin 1, at the
+    peak, 26, and in the middle, high / 2), and n peaked counts
+    (peaked_counts)."""
+    rng = np.random.default_rng(seed)
+    edge = np.array([-1, 0, 1, high, high + 1, 2**31 - 1], np.int64)
+    mixed = peaked_counts(seed + 1, n, high)
+    at = rng.random(n) < 0.2
+    mixed[at] = edge[rng.integers(0, edge.size, int(at.sum()))]
+    return {"n0": np.zeros(0, np.int32),
+            "n1": np.array([high], np.int32),
+            "n4099": peaked_counts(seed + 2, 4099, high),
+            "edge_values": mixed,
+            "all_equal_1": np.ones(n, np.int32),
+            "all_equal_peak": np.full(n, min(26, high + 1), np.int32),
+            "all_equal_mid": np.full(n, max(high // 2, 1), np.int32),
+            "peaked": peaked_counts(seed + 3, n, high)}
+
+
 def barcode_sorted_ids(seed: int, n: int, num_barcodes: int) -> np.ndarray:
     """(n,) int32 barcode ids in runs of 20-60 reads a barcode, as stLFR
     fastqs hold them, ascending (mod num_barcodes), with about 1 % of ids

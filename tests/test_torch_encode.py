@@ -40,13 +40,18 @@ def unpack_np(packed: np.ndarray) -> np.ndarray:
             ).reshape(*packed.shape[:-1], -1).astype(np.int32)
 
 
-@pytest.mark.parametrize("k", [15, 21, 31])
-def test_canonical_windows_twin_matches_jax(k):
+@pytest.mark.parametrize("k, lp", [
+    pytest.param(15, 28, id="15"), pytest.param(21, 28, id="21"),
+    pytest.param(31, 28, id="31"),
+    # one and two windows a row, and a stride off 4-byte alignment
+    pytest.param(16, 4, id="16-lp4"), pytest.param(31, 8, id="31-lp8"),
+    pytest.param(21, 25, id="21-lp25")])
+def test_canonical_windows_twin_matches_jax(k, lp):
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from hast_tpu.ops import encode as JE
 
-    packed, lengths = packed_batch(k, k=k)
+    packed, lengths = packed_batch(k, lp=lp, k=k)
     before = dict(_build.TWIN_CALLS), dict(_build.LAUNCHES)
     keys, valid = E.canonical_windows(torch.from_numpy(packed),
                                       torch.from_numpy(lengths), k)
@@ -144,10 +149,30 @@ def test_host_codec_matches_jax():
                 == row.tobytes().decode()
 
 
+def edge_batch(k: int, lp: int, n: int):
+    """synthetic.window_edge_reads (lengths 0, k - 1, k, the stride, an N
+    at a window's first and last base) packed at lp bytes a row."""
+    from hast_tpu_torch.utils import synthetic as S
+    seqs, lengths = S.window_edge_reads(k + lp, k, lp, n=n)
+    return E.pack_codes_np(seqs), lengths
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [15, 21, 31])
-def test_canonical_windows_kernel_matches_twin(card, k):
-    packed, lengths = packed_batch(100 + k, n=4096, k=k)
+@pytest.mark.parametrize("k, lp", [
+    pytest.param(k, None, id=str(k)) for k in (15, 17, 21, 31)] + [
+    # window_edge_reads at the edge strides, 203 reads: tiles that begin
+    # and end inside a read, the last one partial
+    pytest.param(k, lp, id=f"{k}-lp{lp}") for k in (15, 17, 21, 31)
+    for lp in (25, 26, 28, 30, 520)] + [
+    # one window a row on 8,193 reads (the last tile one window, an odd
+    # count), two a row (the last tile two windows)
+    pytest.param(16, 4, id="16-nwin1"), pytest.param(31, 8, id="31-nwin2"),
+    pytest.param(15, 4, id="15-nwin2")])
+def test_canonical_windows_kernel_matches_twin(card, k, lp):
+    if lp is None:
+        packed, lengths = packed_batch(100 + k, n=4096, k=k)
+    else:
+        packed, lengths = edge_batch(k, lp, 8193 if 4 * lp - k < 2 else 203)
     p = torch.from_numpy(packed).to(card)
     n = torch.from_numpy(lengths).to(card)
     launches = _build.LAUNCHES["canonical_windows"]

@@ -299,13 +299,26 @@ def test_fold_runs_edges():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("high", [100, 10000])
-def test_count_stats_twin_matches_histo_and_total(high):
+def count_stats_params(highs, fixed) -> list:
+    """(high, case) parameters: the random draw (case None, id "<high>")
+    at each high in `fixed`, then every synthetic.count_stats_edge_cases
+    case at each high in `highs` (id "<high>-<case>")."""
+    return ([pytest.param(h, None, id=str(h)) for h in fixed]
+            + [pytest.param(h, c, id=f"{h}-{c}") for h in highs
+               for c in S.count_stats_edge_cases(0, 100, n=8)])
+
+
+@pytest.mark.parametrize("high, case", count_stats_params((100, 10000),
+                                                          (100, 10000)))
+def test_count_stats_twin_matches_histo_and_total(high, case):
     _, jnp, JKC = jax_modules()
-    rng = np.random.default_rng(high)
-    counts = rng.integers(1, 3 * high, 5000).astype(np.int32)
-    counts[rng.random(counts.size) < 0.3] = 0           # pads
-    counts[:3] = (high, high + 1, 2**31 - 1)
+    if case is None:
+        rng = np.random.default_rng(high)
+        counts = rng.integers(1, 3 * high, 5000).astype(np.int32)
+        counts[rng.random(counts.size) < 0.3] = 0           # pads
+        counts[:3] = (high, high + 1, 2**31 - 1)
+    else:
+        counts = S.count_stats_edge_cases(high, high)[case]
     bins, total = KC.count_stats(torch.from_numpy(counts), high)
     want = np.asarray(JKC._histo_kernel(jnp.asarray(counts), high))
     lo, hi = JKC._total_kernel(jnp.asarray(counts))
@@ -867,14 +880,26 @@ def test_counting_on_card_matches_cpu(card, n_parts):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("high", [100, 10000, 20000])
-def test_count_stats_kernel_matches_twin(card, high):
-    rng = np.random.default_rng(high)
-    counts = torch.from_numpy(
-        rng.integers(0, 3 * high, 1_000_000).astype(np.int32)).to(card)
-    for g, w in zip(KC.count_stats(counts, high),
-                    KC.count_stats_ref(counts, high)):
-        assert torch.equal(g, w)
+@pytest.mark.parametrize("high, case", count_stats_params(
+    (100, 10000, KC.COUNT_STATS_SHARED_HIGH, KC.COUNT_STATS_SHARED_HIGH + 1),
+    (100, 10000, 20000)))
+def test_count_stats_kernel_matches_twin(card, high, case):
+    """The random draw, and the edge cases at 2^20 + 3 counts on both sides
+    of the shared form's limit; each also as the views [1:], [2:] and
+    [3:], which start off a 16-byte boundary; one C call a call."""
+    if case is None:
+        rng = np.random.default_rng(high)
+        counts = rng.integers(0, 3 * high, 1_000_000).astype(np.int32)
+    else:
+        counts = S.count_stats_edge_cases(high, high, n=(1 << 20) + 3)[case]
+    counts = torch.from_numpy(counts).to(card)
+    for view in (counts, counts[1:], counts[2:], counts[3:]):
+        launches = _build.LAUNCHES["count_stats"]
+        got = KC.count_stats(view, high)
+        assert _build.LAUNCHES["count_stats"] == launches + 1
+        for g, w in zip(got, KC.count_stats_ref(view, high)):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
