@@ -38,10 +38,13 @@ failure:
    shrink_run on its distinct rows; K7
    count_stats on the 2^26 counts of stats_inputs at high = 10000
    (uniform, synthetic.peaked_counts, all 1, all 5,000) and peaked past
-   the shared form's limit, one C call, one zero fill and one kernel of
-   the form high names a call, then on synthetic.count_stats_edge_cases
-   on both sides of that limit, each also as views off a 16-byte
-   boundary (call and device times from time_count_stats); K8
+   the shared form's limit (the library's), and the uniform counts at
+   high 0, as DeviceCountTable.total bins them, one C call, one zero fill
+   and one kernel of the form high names a call, then on
+   synthetic.count_stats_edge_cases at high 0, 30, 62, 63 (every bin a
+   lane's own up to 62), 10,000 and on both sides of that limit, each
+   also as views off a 16-byte boundary (call and device times from
+   time_count_stats); K8
    marker_filter on two
    2^25-row runs sharing half their keys, bounds (9, 33) and
    (0, 2^31 - 1) (its two kernels once a call, nothing else on the card;
@@ -222,7 +225,6 @@ COUNT_RANGE_OPS = 4   # K4: the key-range test and the sentinel select
 SORT_PASS_OPS = 8     # K5 per key and 8-bit pass: digit, count, rank, place
 FOLD_OPS = 8          # K6 per key: neighbour compare, flag, scan, sum
 STATS_OPS = 4         # K7 per count: clamp, bin, total
-K7_PAST_SHARED = 41_727   # kmer_count.COUNT_STATS_SHARED_HIGH + 1
 # K1's kernel: K4's template with every key kept, and its first form's own
 # (time_canonical_windows may time an earlier tree)
 K1_KERNELS = ("count_windows_kernel<false, false, true>",
@@ -252,9 +254,8 @@ FOLD_KERNELS = ("fold_tiles_kernel", "fold_tail_kernel")   # K6's two
 READ_VOTE_KERNELS = {"classify_tally": "classify_tally_kernel",
                      "vote_reads": "vote_reads_kernel"}
 FLUSH_BYTES = 1 << 28         # written before a call to empty the 50 MB L2
-PAD_KERNEL = "spin_kernel"    # torch.cuda._sleep's, around a profiled call
-PAD_CYCLES = 100_000          # some 50 us at the H100's clocks
-PAD_WAIT_S = 0.05             # host wait after a session's first record
+LEAD_KERNEL = "spin_kernel"   # torch.cuda._sleep's, which starts a session
+LEAD_KERNELS = 16             # of them a profiler session starts with
 MARKER_KERNELS = ("marker_tiles_kernel", "marker_tail_kernel")   # K8's two
 STAGE03_FILES = (
     "output.phb.1.fa", "output.phb.2.fa", "output.homo.fa", "phasing.out",
@@ -304,23 +305,29 @@ def cuda_ms_once(fn):
 
 def _profiled(fn):
     """key_averages() of a torch.profiler session (CUDA activity) around
-    fn() and a synchronize, without PAD_KERNEL's records.  The session's
-    first kernel is a spin, waited for on the host, fn comes PAD_WAIT_S
-    later, and a spin follows it: the run that first profiled this way
-    (with phase_k1_times after phase 3) lost no record, where the
-    parent tree's lost two and was profiled again.  A session that now
-    and then records nothing is profiled again by the callers."""
+    fn() and a synchronize, without LEAD_KERNELS' records.  The profiler
+    drops the first few kernel records of a session, more of them as a
+    run goes on (none or one in a fresh process, three after phase 2 on
+    an H100), so a session starts with LEAD_KERNELS one-cycle spins,
+    waited for; where none of theirs is left, fn's first records may be
+    gone too, and the session is taken again with four times the spins.
+    The callers profile again while a session shows too few records."""
     import torch
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(PAD_CYCLES)
+    lead = LEAD_KERNELS
+    for _ in range(3):
         torch.cuda.synchronize()
-        time.sleep(PAD_WAIT_S)
-        fn()
-        torch.cuda._sleep(PAD_CYCLES)
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if PAD_KERNEL not in e.key]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(LEAD_KERNEL in e.key for e in events):
+            break
+        lead *= 4
+    return [e for e in events if LEAD_KERNEL not in e.key]
 
 
 def device_ms(fn, reps: int, kernel) -> float:
@@ -391,16 +398,20 @@ def phase_toolchain() -> None:
         f"({_build.library_path()})")
 
 
-def stats_inputs() -> dict:
+def stats_inputs(past=None) -> dict:
     """{name: (counts, high)}: 2^26 int32 counts on the card at high
     10,000, uniform in [0, 60) with every 997th in [0, 40,000), a count
     table's shape (utils/synthetic.py peaked_counts), all 1 and all 5,000;
-    and the peaked counts at K7_PAST_SHARED, the global form."""
+    and the peaked counts at high `past`, by default the first past the
+    library's shared form (the global form)."""
     import torch
+    from hast_tpu_torch.ops import _build
     from hast_tpu_torch.utils import synthetic as S
 
     dev = torch.device("cuda")
     n = 1 << 26
+    if past is None:
+        past = _build.count_stats_shared_high() + 1
     g = torch.Generator(device=dev)
     g.manual_seed(2034)
     uniform = torch.randint(0, 60, (n,), device=dev, generator=g,
@@ -415,9 +426,8 @@ def stats_inputs() -> dict:
         "all 1": (torch.ones(n, dtype=torch.int32, device=dev), 10000),
         "all 5000": (torch.full((n,), 5000, dtype=torch.int32, device=dev),
                      10000),
-        f"peaked, high {K7_PAST_SHARED}": (torch.from_numpy(
-            S.peaked_counts(2035, n, K7_PAST_SHARED)).to(dev),
-            K7_PAST_SHARED)}
+        f"peaked, high {past}": (torch.from_numpy(
+            S.peaked_counts(2035, n, past)).to(dev), past)}
 
 
 def _call_and_device(fn, kernel) -> dict:
@@ -719,6 +729,7 @@ def phase_kernels00() -> dict:
     """K4-K8 against their twins on the same card tensors."""
     import numpy as np
     import torch
+    from hast_tpu_torch.ops import _build
     from hast_tpu_torch.ops import encode as E
     from hast_tpu_torch.ops import kmer_count as KC
     from hast_tpu_torch.utils import synthetic as S
@@ -902,20 +913,20 @@ def phase_kernels00() -> dict:
     del keys, counts, got
 
     # K7: stats_inputs' 2^26 counts, each against the twin, one C call,
-    # and one zero fill and one kernel of the form its high names a call
-    if KC.COUNT_STATS_SHARED_HIGH + 1 != K7_PAST_SHARED:
-        fail(f"K7: the shared form ends at high "
-             f"{KC.COUNT_STATS_SHARED_HIGH}, K7_PAST_SHARED is "
-             f"{K7_PAST_SHARED}")
-    inputs = stats_inputs()
+    # and one zero fill and one kernel of the form its high names a call;
+    # the uniform counts also at high 0, as DeviceCountTable.total bins
+    # them (every bin a lane's own)
+    limit = _build.count_stats_shared_high()
+    inputs = stats_inputs(limit + 1)
     err = 0.0
-    for name, (counts, high) in inputs.items():
+    checks = dict(inputs, **{"uniform, high 0": (inputs["uniform"][0], 0)})
+    for name, (counts, high) in checks.items():
         fn = lambda: KC.count_stats(counts, high)  # noqa: E731
         err = max(err, _check_same(f"K7 count_stats {name}",
                                    _launched("count_stats", fn),
                                    KC.count_stats_ref(counts, high)))
         form = "count_stats_kernel<%s>" % (
-            "true" if high <= KC.COUNT_STATS_SHARED_HIGH else "false")
+            "true" if high <= limit else "false")
         kernels = _kernels_of_one_call(fn, 2)
         if sorted(kernels.values()) != [1, 1] or not (
                 any(form in key for key in kernels)
@@ -924,10 +935,12 @@ def phase_kernels00() -> dict:
             fail(f"K7 count_stats {name}: one call ran {kernels} on the "
                  f"card, not one zero fill and one {form}")
         log(f"K7 count_stats {name}: one call's device work: {kernels}")
-    # the edge cases on both sides of the shared form's limit, each also
-    # as views that start off a 16-byte boundary
+    # the edge cases at high 0 and 30 (every bin a lane's own), on both
+    # sides of the last such high (62, 63), at 10,000 and on both sides of
+    # the shared form's limit, each also as views that start off a 16-byte
+    # boundary
     cases = 0
-    for high in (10000, KC.COUNT_STATS_SHARED_HIGH, K7_PAST_SHARED):
+    for high in (0, 30, 62, 63, 10000, limit, limit + 1):
         for case, counts in S.count_stats_edge_cases(
                 high, high, n=(1 << 22) + 3).items():
             counts = torch.from_numpy(counts).to(dev)
@@ -955,7 +968,7 @@ def phase_kernels00() -> dict:
     res["count_stats"] = dict(
         max_abs_err=err, plain_ms=plain, library_ms=lib, **times["uniform"],
         **bound("K7", 4 * n + 8 * (high + 3), STATS_OPS * n))
-    del inputs, counts, clamped
+    del inputs, checks, counts, clamped
 
     # K8: two 2^25-row runs sharing half their keys, 2^16 pads each
     rows, pads = 1 << 25, 1 << 16

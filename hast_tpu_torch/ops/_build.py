@@ -69,6 +69,7 @@ _SIGNATURES = {
     "hast_route_kmers": [_P, _P, _I64, _I, _I, _I, _I, _I64, _P, _P, _P],
     "hast_broadcast_probe": [_P, _P, _I64, _P, _P, _I64, _I, _P, _P],
     "hast_read_tile_geometry": [_P],
+    "hast_count_stats_shared_high": [],
 }
 
 _lib = None
@@ -167,6 +168,12 @@ def read_tile_geometry() -> tuple[int, int, int, int]:
     out = (ctypes.c_int * 4)()
     load_library().hast_read_tile_geometry(out)
     return tuple(out)
+
+
+def count_stats_shared_high() -> int:
+    """The most high whose bins K7 keeps in shared memory, as the library
+    has it (csrc/stats.cu kSharedHigh); past it, global atomics."""
+    return load_library().hast_count_stats_shared_high()
 
 
 def check(rc: int, name: str) -> None:

@@ -25,10 +25,10 @@
 // What bounds it on an H100 (80GB HBM3, 700 W; chip_smoke.py): the
 // 8-byte key written per window (K1: and its valid byte); the packed read
 // (28 bytes for 100 bp) and its 14-byte mask are read once.  On 65,536
-// 100-bp reads at k = 21, K4 takes 0.0273 ms masked and 0.0216 clean on
-// the device against a 0.0153 ms bound, K1 0.0241 against 0.0168 (a
+// 100-bp reads at k = 21, K4 takes 0.0286 ms masked and 0.0226 clean on
+// the device against a 0.0153 ms bound, K1 0.0239 against 0.0168 (a
 // thread a window cut from its k single bases, K1's first form, took
-// 0.1260).  So:
+// 0.1259).  So:
 //  - a block takes kTile consecutive windows of the output (a tile may
 //    begin and end inside a read), stages the packed bytes and mask bytes
 //    of the reads they touch into shared memory with 16-byte loads from

@@ -10,9 +10,10 @@
 //
 // What bounds it on an H100 (80GB HBM3, 700 W; chip_smoke.py
 // time_count_stats): reading 4 bytes a count.  2^26 counts at high
-// 10,000 take 0.1004 ms on the device, 0.80 of the 0.0802 ms that their
-// 268 MB take at 3.35 TB/s, and within 3 % of that on peaked, all-equal
-// and past-the-limit counts.  The design:
+// 10,000 take 0.1003-0.1006 ms on the device, 0.80 of the 0.0802 ms that
+// their 268 MB take at 3.35 TB/s (the first form, a thread a count a
+// step, 0.2233-0.2234), and within 3 % of that on peaked, all-equal and
+// past-the-limit counts.  The design:
 //  - a persistent grid (the blocks the card holds at once) walks the
 //    counts as int4, a scalar head up to the first 16-byte boundary and a
 //    scalar tail; each thread has the next kVecs loads in flight while it
@@ -21,13 +22,15 @@
 //  - bins [0, kLaneBins) are private to each lane (32-bit, lane l's bin b
 //    at word 32 b + l of its warp's copy, so every lane has a bank of its
 //    own): no atomic, however the counts pile up; bin 0 takes the pads
-//    and is never flushed.  Bin high + 1, where repeats pile up, is a
-//    per-thread register (as a global atomic on one word, past the
-//    shared limit, it took 0.53 ms);
+//    and is never flushed; below high 62 every bin is a lane's, high + 1
+//    too (DeviceCountTable.total bins at high 0).  Else bin high + 1,
+//    where repeats pile up, is a per-thread register (as a global atomic
+//    on one word, past the shared limit, it took 0.53 ms);
 //  - the other bins are the block's shared histogram of high + 2 words
 //    (shared atomics), in opt-in shared memory above 48 KB, while lane
 //    copies and histogram fit in one block's 227 KB (high <= kSharedHigh,
-//    41,726); past that, global 64-bit atomics;
+//    41,726, hast_count_stats_shared_high); past that, global 64-bit
+//    atomics;
 //  - at the end a warp sums its lanes' copies bin by bin into the block's
 //    bins, and the block adds its non-zero bins to the int64 output,
 //    zeroed by the caller (one fill kernel: a scratch kept zero that the
@@ -37,7 +40,6 @@
 //    atomic a warp.  Integer atomics make bins and total exact.
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -48,7 +50,6 @@ constexpr int kLaneBins = 64;               // bins private to each lane
 constexpr int kVecs = 4;                    // int4 loads in flight a thread
 constexpr int kGroup = kThreads * kVecs;    // int4 a block bins a step
 constexpr int64_t kMaxSmem = 232448;        // opt-in shared memory a block
-constexpr int kMaxDevices = 64;
 // the most high whose shared form fits: the lane copies, then high + 2
 // bins in whole chunks
 constexpr int kSharedHigh =
@@ -159,30 +160,6 @@ count_stats_kernel(const int32_t* __restrict__ counts, int64_t n, int head,
       atomicAdd(out + b, static_cast<unsigned long long>(s_blk[b]));
 }
 
-// The blocks of count_stats_kernel<kShared> the current card holds at
-// once with `words` words of shared memory a block (the opt-in limit is
-// raised once a card).
-template <bool kShared>
-int resident_grid(int64_t words) {
-  static std::atomic<int> sms[kMaxDevices];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= kMaxDevices) return 132;
-  int s = sms[dev].load();
-  if (s == 0) {
-    cudaFuncSetAttribute(count_stats_kernel<kShared>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(kMaxSmem));
-    cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
-    sms[dev].store(s);
-  }
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, count_stats_kernel<kShared>, kThreads,
-      static_cast<size_t>(4 * words));
-  return s * (per_sm > 0 ? per_sm : 1);
-}
-
 template <bool kShared>
 cudaError_t launch(const int32_t* counts, int64_t n, int high,
                    unsigned long long* out, cudaStream_t s) {
@@ -191,8 +168,22 @@ cudaError_t launch(const int32_t* counts, int64_t n, int high,
   const int64_t skip =
       ((16 - (reinterpret_cast<uintptr_t>(counts) & 15)) & 15) / 4;
   const int head = static_cast<int>(skip < n ? skip : n);
+  // a persistent grid: the blocks the card holds at once, at most one
+  // for each kGroup int4
+  cudaError_t e = cudaFuncSetAttribute(
+      count_stats_kernel<kShared>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kMaxSmem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, count_stats_kernel<kShared>, kThreads,
+        static_cast<size_t>(4 * words));
+  if (e != cudaSuccess) return e;
   const int64_t want = ((n - head) / 4 + kGroup - 1) / kGroup;
-  const int64_t cap = resident_grid<kShared>(words);
+  const int64_t cap = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const int blocks = static_cast<int>(want < 1 ? 1 : (want < cap ? want
                                                                  : cap));
   count_stats_kernel<kShared><<<blocks, kThreads,
@@ -217,3 +208,7 @@ extern "C" int hast_count_stats(const void* counts, int64_t n, int high,
                           : launch<false>(c, n, high, o, s);
   return static_cast<int>(e);
 }
+
+// The most high whose bins count_stats keeps in shared memory; past it
+// they are global atomics.
+extern "C" int hast_count_stats_shared_high() { return kSharedHigh; }

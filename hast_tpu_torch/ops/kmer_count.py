@@ -507,11 +507,6 @@ def shrink_run(keys: torch.Tensor, counts: torch.Tensor, n: int):
 # ---------------------------------------------------------------------------
 
 
-# stats.cu kSharedHigh: the most high whose bins, beside each lane's
-# copies of the low bins, fit in one block's shared memory
-COUNT_STATS_SHARED_HIGH = 41726
-
-
 def count_stats_ref(counts: torch.Tensor, high: int):
     """Plain PyTorch twin of :func:`count_stats`."""
     _build.TWIN_CALLS["count_stats_ref"] += 1
@@ -527,8 +522,9 @@ def count_stats(counts: torch.Tensor, high: int):
     Returns bins, (high+2,) int64 with bins[v] = #counts equal to v for
     1 <= v <= high, bins[high+1] = #counts above high and bins[0] = 0,
     and the 0-d int64 total of the counts, both on counts' device (on
-    the card, views of one buffer).  Up to COUNT_STATS_SHARED_HIGH the
-    kernel bins in shared memory, past it with global atomics.
+    the card, views of one buffer).  Up to
+    _build.count_stats_shared_high() the kernel bins in shared memory,
+    past it with global atomics.
     """
     if counts.dtype != torch.int32 or counts.dim() != 1:
         raise ValueError(f"count_stats: counts must be 1-D int32, got "

@@ -308,7 +308,7 @@ def count_stats_params(highs, fixed) -> list:
                for c in S.count_stats_edge_cases(0, 100, n=8)])
 
 
-@pytest.mark.parametrize("high, case", count_stats_params((100, 10000),
+@pytest.mark.parametrize("high, case", count_stats_params((0, 100, 10000),
                                                           (100, 10000)))
 def test_count_stats_twin_matches_histo_and_total(high, case):
     _, jnp, JKC = jax_modules()
@@ -881,12 +881,16 @@ def test_counting_on_card_matches_cpu(card, n_parts):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("high, case", count_stats_params(
-    (100, 10000, KC.COUNT_STATS_SHARED_HIGH, KC.COUNT_STATS_SHARED_HIGH + 1),
-    (100, 10000, 20000)))
+    (0, 30, 62, 63, 100, 10000, "limit", "limit+1"), (100, 10000, 20000)))
 def test_count_stats_kernel_matches_twin(card, high, case):
-    """The random draw, and the edge cases at 2^20 + 3 counts on both sides
-    of the shared form's limit; each also as the views [1:], [2:] and
-    [3:], which start off a 16-byte boundary; one C call a call."""
+    """The random draw, and the edge cases at 2^20 + 3 counts: at high 0
+    (the main path's .total) and 30, where every bin is a lane's own, on
+    both sides of the last such high (62, 63), and on both sides of the
+    shared form's limit as the library has it ("limit", "limit+1"); each
+    also as the views [1:], [2:] and [3:], which start off a 16-byte
+    boundary; one C call a call."""
+    if isinstance(high, str):
+        high = _build.count_stats_shared_high() + (high == "limit+1")
     if case is None:
         rng = np.random.default_rng(high)
         counts = rng.integers(0, 3 * high, 1_000_000).astype(np.int32)
