@@ -30,9 +30,15 @@ failure:
    window_edge_reads at strides 25, 26 and 30 and k = 15, 17, 21, 31;
    K5 sort_pairs on the edge cases of
    utils/synthetic.py sort_edge_cases (lengths 1, tile - 1, tile, tile +
-   1, all keys equal, all sentinels, sorted, reversed) at k = 15, 17, 21,
-   31 in one portion and in portions of two tiles, then on 2^26 pairs at
-   k = 21 and 31 beside torch.sort(stable=True); K6
+   1, all keys equal, all sentinels, sorted, reversed, a sentinel tail
+   longer than a tile, three keys drawn many times, one 8-bit field
+   varying so that the other passes are skipped) at k = 15, 17, 21, 31
+   in one portion and in portions of two tiles, the library's tile and
+   digit equal to kmer_count's, with counts below 2^30 and below 100,
+   then on 2^26 pairs at k = 21 and 31, counts below 2^30 and below 60
+   (a fold's, packed above the keys from the second pass to the last at
+   k = 21), beside torch.sort(stable=True) (time_sort_pairs: each
+   device operation of a call, every pass's launch recorded); K6
    fold_runs on a 2^26-element duplicate-heavy sorted run (its two
    kernels once a call, nothing else on the card) and K12
    shrink_run on its distinct rows; K7
@@ -73,14 +79,17 @@ failure:
    parent go through the card and the CPU twins, and the outputs must be
    equal bytes.  Then where the time goes: the native reader alone, and
    a torch.profiler run of the device engine (device time by kernel,
-   device idle share).
+   device idle share; every K5 kernel launched recorded), and the share
+   of the fold sorts whose counts K5 packed above the keys.
 7. device-resident state at scale: two parents of 6x10^8 windows each,
    drawn on the card from key pools of 1.6x10^8 that overlap by a
    quarter, fed to the DeviceCounter in 2^25-key chunks; finalize,
    histogram and marker algebra through the kernels and again through
    the twins on the card must agree; fold counts, peak device memory,
-   times, K8's share of the marker algebra and K5's share of the
-   paternal count's device time (torch.profiler) are printed.
+   times, K8's share of the marker algebra, K5's share of the
+   paternal count's device time (torch.profiler, every K5 kernel
+   launched recorded) and the share of the fold sorts whose counts K5
+   packed are printed.
 8. K9 segment_votes against its twin on the card, bit-exact, with both
    times: 4,096 random records of 0-20 kb (2 % soft-masked, 1 % N, a few
    IUPAC bytes, planted table keys) plus records of k - 1, k, 4096 + k - 1,
@@ -172,6 +181,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -222,7 +232,7 @@ PROBE_OPS = {"quot": 136, "full": 50}
 VOTE_OPS = 4          # payload bits into the two vote sums
 READ_OPS = 10         # K3 per read: id and N tests, unknown flag, 3 adds
 COUNT_RANGE_OPS = 4   # K4: the key-range test and the sentinel select
-SORT_PASS_OPS = 8     # K5 per key and 8-bit pass: digit, count, rank, place
+SORT_PASS_OPS = 8     # K5 per key and pass: digit, count, rank, place
 FOLD_OPS = 8          # K6 per key: neighbour compare, flag, scan, sum
 STATS_OPS = 4         # K7 per count: clamp, bin, total
 # K1's kernel: K4's template with every key kept, and its first form's own
@@ -447,6 +457,128 @@ def time_count_stats(inputs=None) -> dict:
         log(f"K7 count_stats {name}: call {out[name]['ms']:.4f} ms, device "
             f"{out[name]['device_ms']:.4f} ms")
     return out
+
+
+def sort_inputs(k: int, high: int, n: int = 1 << 26, seed: int = 2025):
+    """n K5 pairs on the card: keys uniform below 2^(2k), 10 % of them the
+    sentinel, counts uniform below high."""
+    import torch
+    from hast_tpu_torch.ops import kmer_count as KC
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    keys = torch.randint(0, 1 << (2 * k), (n,), device=dev, generator=g)
+    keys[torch.rand(n, device=dev, generator=g) < 0.1] = KC.SENT
+    pay = torch.randint(0, high, (n,), device=dev, generator=g,
+                        dtype=torch.int32)
+    return keys, pay
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler record's name without namespace, template and
+    arguments."""
+    name = re.sub(r"\(.*$", "", key.replace("(anonymous namespace)::", ""))
+    return name.split("::")[-1].split("<")[0]
+
+
+def time_sort_pairs(keys, pay, k: int, reps: int = 3) -> dict:
+    """K5 on (keys, pay): the call (CUDA events over 10 calls), each
+    device operation of a call (kernels and zero fills: launches and ms a
+    call, from _profiled over reps calls, taken again while the pass
+    kernel shows fewer records than its passes in reps calls) and
+    torch.sort(stable=True) of the keys.  Calls only the wrapper and
+    KC.sort_passes, so that a script can time another tree's package
+    with it (given that tree's pass count as KC.sort_passes)."""
+    import torch
+    from hast_tpu_torch.ops import kmer_count as KC
+
+    def calls():
+        for _ in range(reps):
+            KC.sort_pairs(keys, pay, k)
+
+    ms = cuda_ms(lambda: KC.sort_pairs(keys, pay, k), 10)
+    passes = KC.sort_passes(k)
+    for _ in range(3):
+        ops = {}
+        for e in _profiled(calls):
+            if _device_us(e):
+                name = _kernel_name(e.key)
+                n, us = ops.get(name, (0, 0.0))
+                ops[name] = (n + e.count, us + _device_us(e))
+        if ops.get("onesweep_pass_kernel", (0,))[0] >= reps * passes:
+            break
+        log(f"K5: the profiler recorded {ops} in {reps} calls of "
+            f"{passes} passes; profiling again")
+    ops = {name: dict(launches=n / reps, ms=us / reps / 1e3)
+           for name, (n, us) in ops.items()}
+    return dict(ms=ms, device_ms=sum(o["ms"] for o in ops.values()),
+                ops=ops, library_ms=cuda_ms(
+                    lambda: torch.sort(keys, stable=True), 10))
+
+
+def _k5_packs(payload, k: int) -> bool:
+    """Whether K5 moves these counts packed above the keys' 2k + 1 bits
+    from its second pass (sort.cu's test: 16 free bits or more, and the
+    OR of the counts below 2^(63 - 2k) where fewer than 32 are free)."""
+    free = 63 - 2 * k
+    if free < 16:
+        return False
+    if free >= 32:
+        return True
+    lo, hi = (int(x) for x in payload.aminmax())
+    return lo >= 0 and hi >> free == 0
+
+
+@contextlib.contextmanager
+def k5_calls(packing: bool = False):
+    """K5's calls within the block, through the wrapper's module global:
+    yields a tally of its 'calls' and the 'kernels' they launch (a
+    histogram, a plan and one pass kernel a pass and portion), and with
+    packing, the 'sorts' with counts (a fold's) and how many of them
+    'packed' (_k5_packs, read on the host: a sync a call)."""
+    import threading
+    from hast_tpu_torch.ops import kmer_count as KC
+
+    real = KC.sort_pairs
+    lock = threading.Lock()
+    tally = dict(calls=0, kernels=0, sorts=0, packed=0)
+
+    def counted(keys, payload, k, *args, **kwargs):
+        n = keys.numel()
+        packs = (packing and payload is not None and n > 0
+                 and keys.is_cuda and _k5_packs(payload, k))
+        with lock:
+            if n and keys.is_cuda:
+                tally["calls"] += 1
+                tally["kernels"] += 2 + KC.sort_passes(k) * -(
+                    -n // KC._SORT_PORTION)
+                if packing and payload is not None:
+                    tally["sorts"] += 1
+                    tally["packed"] += packs
+        return real(keys, payload, k, *args, **kwargs)
+
+    KC.sort_pairs = counted
+    try:
+        yield tally
+    finally:
+        KC.sort_pairs = real
+
+
+def _profiled_k5(fn):
+    """_profiled(fn) and k5_calls' tally of that session, taken again (up
+    to three times) while the profiler shows fewer of K5's kernels than
+    fn's K5 calls launched: a session that drops records reads short."""
+    for _ in range(3):
+        with k5_calls() as tally:
+            events = _profiled(fn)
+        tally["recorded"] = sum(e.count for e in events
+                                if "onesweep_" in e.key)
+        if tally["recorded"] >= tally["kernels"]:
+            break
+        log(f"K5: the profiler recorded {tally['recorded']} of "
+            f"{tally['kernels']} kernels; profiling again")
+    return events, tally
 
 
 def k1_input():
@@ -805,20 +937,28 @@ def phase_kernels00() -> dict:
     res["count_windows"]["max_abs_err"] = err
 
     # K5: the inputs a one-sweep sort gets wrong (lengths around a tile,
-    # one hot digit, all sentinels, sorted and reversed runs) at k = 15,
-    # 17, 21, 31, with and without payload, in one portion and in
-    # portions of two tiles; then 2^26 random keys, 10 % sentinels
+    # one hot digit, all sentinels, sorted and reversed runs, a sentinel
+    # tail, three keys drawn many times, one digit varying so that the
+    # other passes are skipped) at k = 15, 17, 21, 31, with and without
+    # payload, in one portion and in portions of two tiles; then 2^26
+    # random keys, 10 % sentinels
+    if _build.sort_geometry() != (KC.SORT_TILE, KC.SORT_DIGIT_BITS):
+        fail(f"K5: the library's tile and digit {_build.sort_geometry()} "
+             f"!= kmer_count's {(KC.SORT_TILE, KC.SORT_DIGIT_BITS)}")
     err = 0.0
     cases = 0
     for k in (15, 17, 21, 31):
-        for portion in (KC._SORT_PORTION, 2 * KC.SORT_TILE):
+        for portion, high in itertools.product(
+                (KC._SORT_PORTION, 2 * KC.SORT_TILE), (1 << 30, 100)):
             saved, KC._SORT_PORTION = KC._SORT_PORTION, portion
             try:
-                for name, keys_np in S.sort_edge_cases(k, k, KC.SORT_TILE):
+                for name, keys_np in S.sort_edge_cases(
+                        k, k, KC.SORT_TILE, KC.SORT_DIGIT_BITS):
                     keys = torch.from_numpy(keys_np).to(dev)
-                    pay = torch.randint(0, 1 << 30, keys.shape, device=dev,
+                    pay = torch.randint(0, high, keys.shape, device=dev,
                                         generator=g, dtype=torch.int32)
-                    what = f"K5 sort_pairs k={k} {name} portion {portion}"
+                    what = (f"K5 sort_pairs k={k} {name} portion {portion} "
+                            f"counts < {high}")
                     err = max(err, _check_same(
                         what, KC.sort_pairs(keys, pay, k),
                         KC.sort_pairs_ref(keys, pay, k)))
@@ -830,38 +970,38 @@ def phase_kernels00() -> dict:
             finally:
                 KC._SORT_PORTION = saved
     log(f"K5 sort_pairs: {cases} edge cases (n = 1, tile - 1, tile, tile + "
-        "1; all equal, all sentinels, sorted, reversed; k = 15, 17, 21, "
-        "31; one portion and portions of two tiles) bit-exact")
+        "1; all equal, all sentinels, sorted, reversed, a sentinel tail, "
+        "three keys, one digit varying; k = 15, 17, 21, 31; one portion "
+        "and portions of two tiles; counts below 2^30 and below 100) "
+        "bit-exact")
+    # counts below 2^30 (the pairs move as keys and payloads in every
+    # pass) and below 60, as a stage-00 fold's (packed into one word from
+    # the second pass to the last at k = 21)
     n = 1 << 26
-    for k in (21, 31):
-        keys = torch.randint(0, 1 << (2 * k), (n,), device=dev, generator=g)
-        keys[torch.rand(n, device=dev, generator=g) < 0.1] = KC.SENT
-        pay = torch.randint(0, 1 << 30, (n,), device=dev, generator=g,
-                            dtype=torch.int32)
-        err = max(err, _check_same(f"K5 sort_pairs k={k}",
-                                   KC.sort_pairs(keys, pay, k),
+    for k, high in itertools.product((21, 31), (1 << 30, 60)):
+        keys, pay = sort_inputs(k, high, n)
+        what = f"K5 sort_pairs k={k} counts < {high}"
+        err = max(err, _check_same(what, KC.sort_pairs(keys, pay, k),
                                    KC.sort_pairs_ref(keys, pay, k)))
-        ms = cuda_ms(lambda: KC.sort_pairs(keys, pay, k), 5)
+        t = time_sort_pairs(keys, pay, k)
         plain = cuda_ms(lambda: KC.sort_pairs_ref(keys, pay, k), 3)
-        lib = cuda_ms(lambda: torch.sort(keys, stable=True), 5)
-        log(f"K5 sort_pairs k={k}: {n} pairs, {-(-(2 * k + 1) // 8)} "
-            f"passes: kernel {ms:.4f} ms, twin {plain:.4f} ms, "
-            f"torch.sort(stable=True) of the keys {lib:.4f} ms, bit-exact")
-        passes = -(-(2 * k + 1) // 8)
-        sweep = device_ms(lambda: KC.sort_pairs(keys, pay, k), 3,
-                          "onesweep_pass_kernel")
-        hist = device_ms(lambda: KC.sort_pairs(keys, pay, k), 3,
-                         "onesweep_hist_kernel")
-        log(f"K5 sort_pairs k={k} on the device: {passes} sweeps "
-            f"{sweep:.4f} ms ({sweep / passes:.4f} a pass, bytes bound "
-            f"{24 * n / HBM_BYTES_PER_S * 1e3:.4f} a pass), the histogram "
-            f"of every pass {hist:.4f} ms")
-        if k == K:
+        passes = KC.sort_passes(k)
+        log(f"{what}: {n} pairs, {passes} passes: kernel {t['ms']:.4f} ms, "
+            f"twin {plain:.4f} ms, torch.sort(stable=True) of the keys "
+            f"{t['library_ms']:.4f} ms, bit-exact; on the device "
+            f"{t['device_ms']:.4f} ms a call (bytes bound "
+            f"{24 * n / HBM_BYTES_PER_S * 1e3:.4f} a pass): " + ", ".join(
+                f"{name} {o['launches']:g} x {o['ms'] / o['launches']:.4f}"
+                for name, o in t["ops"].items()))
+        if k == K and high == 1 << 30:
             # 8-byte keys and 4-byte payloads read once and written once
             res["sort_pairs"] = dict(
-                ms=ms, plain_ms=plain, library_ms=lib,
-                **bound("K5", 24 * n,
-                        SORT_PASS_OPS * n * -(-(2 * k + 1) // 8)))
+                ms=t["ms"], device_ms=t["device_ms"], plain_ms=plain,
+                library_ms=t["library_ms"],
+                **bound("K5", 24 * n, SORT_PASS_OPS * n * passes))
+        elif k == K:
+            res["sort_pairs"].update(ms_small_counts=t["ms"],
+                                     device_ms_small_counts=t["device_ms"])
     res["sort_pairs"]["max_abs_err"] = err
     del keys, pay
 
@@ -1381,12 +1521,11 @@ def phase_stage00_breakdown(tmp: str, reads: dict) -> None:
               ("K8 marker_filter", MARKER_KERNELS),
               ("copies and memsets (K5's status words)",
                ("Memcpy", "Memset")))
-    out = os.path.join(tmp, "stage00_profiled")
-    os.makedirs(out)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    walls = []
+
+    def build():
+        out = os.path.join(tmp, f"stage00_profiled{len(walls)}")
+        os.makedirs(out)
         t0 = time.perf_counter()
         with open(os.devnull, "w") as devnull:
             M.build_unshared_markers([reads["paternal"]],
@@ -1394,10 +1533,13 @@ def phase_stage00_breakdown(tmp: str, reads: dict) -> None:
                                      auto_bounds=True, device="cuda",
                                      log=devnull)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        walls.append(time.perf_counter() - t0)
+
+    events, k5 = _profiled_k5(build)
+    wall = walls[-1]
     sums = {name: 0.0 for name, _ in groups}
     sums["other (torch glue)"] = 0.0
-    for e in prof.key_averages():
+    for e in events:
         us = _device_us(e)
         if not us:
             continue
@@ -1406,10 +1548,15 @@ def phase_stage00_breakdown(tmp: str, reads: dict) -> None:
         sums[name] += us
     busy = sum(sums.values()) / 1e6
     idle = f"{1 - busy / wall:.4f}" if busy else "not measured"
+    with k5_calls(packing=True) as packed:
+        build()
     log(f"stage-00 device engine under torch.profiler: wall {wall:.3f} s, "
         f"device busy {busy:.4f} s, idle share {idle}; "
         "device s by kernel: " + ", ".join(
-            f"{k} {v / 1e6:.4f}" for k, v in sums.items()))
+            f"{k} {v / 1e6:.4f}" for k, v in sums.items()) +
+        f"; K5: {k5['calls']} calls, {k5['recorded']} of their "
+        f"{k5['kernels']} kernels recorded; {packed['packed']} of "
+        f"{packed['sorts']} fold sorts packed their counts")
 
 
 def _segment_records(rng, k: int, key_sets):
@@ -1758,25 +1905,34 @@ def phase_scale() -> None:
                 f"{mat.n_valid} rows: {k8:.4f} ms")
             # K5's share of the count's device time: the paternal count
             # again, under torch.profiler
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                again, _ = count("paternal", 1)
-                torch.cuda.synchronize()
-            busy = k5 = 0.0
-            for e in prof.key_averages():
+            again = [None]
+
+            def paternal():
+                again[0] = None
+                again[0] = count("paternal", 1)[0]
+
+            events, k5 = _profiled_k5(paternal)
+            busy = k5_us = 0.0
+            for e in events:
                 us = _device_us(e)
                 busy += us
                 if "onesweep_" in e.key:
-                    k5 += us
-            if not torch.equal(again.keys, pat.keys):
+                    k5_us += us
+            if not torch.equal(again[0].keys, pat.keys):
                 fail("scale: the profiled paternal count differs")
             del again
+            with k5_calls(packing=True) as packed:
+                count("paternal", 1)
+                count("maternal", 2)
             log(f"scale: the paternal count's device time {busy / 1e6:.4f} "
-                f"s, K5 sort_pairs {k5 / 1e6:.4f} s of it "
-                f"({k5 / busy:.4f})" if busy else
+                f"s, K5 sort_pairs {k5_us / 1e6:.4f} s of it "
+                f"({k5_us / busy:.4f})" if busy else
                 "scale: K5's share of the count: not measured (the "
                 "profiler saw no device time)")
+            log(f"scale: K5 {k5['calls']} calls in the paternal count, "
+                f"{k5['recorded']} of their {k5['kernels']} kernels "
+                f"recorded; {packed['packed']} of {packed['sorts']} fold "
+                "sorts of both parents packed their counts")
         results[mode] = (pat, mat, hists, markers)
         log(f"scale ({mode}): 2 x {SCALE_WINDOWS} windows in "
             f"{SCALE_CHUNK}-key chunks; distinct {pat.n_distinct} + "

@@ -14,8 +14,8 @@ another one is (the ctypes entries have no device guard of their own),
 hands the entry that card's current stream, raises when the entry
 returns an error and counts the launch.  The launch counters
 ``LAUNCHES`` count the wrappers' calls of their C entries, one each (an
-entry may launch several kernels: K5 launches a histogram, an offset
-scan and one sweep a radix pass), the twin counters calls of the plain
+entry may launch several kernels: K5 launches a histogram, a plan and
+one sweep a radix pass), the twin counters calls of the plain
 PyTorch twins; ``chip_smoke.py`` reads both to show which of the two ran
 the main path.
 """
@@ -49,6 +49,7 @@ _SIGNATURES = {
     "hast_canonical_windows": [_P, _P, _I64, _I, _I, _P, _P, _P],
     "hast_count_windows": [_P, _P, _P, _I, _I64, _I, _I, _I, _U64, _U64, _P,
                            _P],
+    "hast_sort_geometry": [_P],
     "hast_sort_scratch_bytes": [_I64, _I, _I64],
     "hast_sort_pairs": [_P, _P, _P, _P, _P, _P, _I64, _I, _I64, _P, _P],
     "hast_fold_runs": [_P, _P, _I64, _P, _P, _P, _P, _P],
@@ -167,6 +168,14 @@ def read_tile_geometry() -> tuple[int, int, int, int]:
     alone, and reads a long-form block takes."""
     out = (ctypes.c_int * 4)()
     load_library().hast_read_tile_geometry(out)
+    return tuple(out)
+
+
+def sort_geometry() -> tuple[int, int]:
+    """K5's tile (the keys a pass block ranks together) and digit bits as
+    the library has them (csrc/sort.cu kTile, kBits)."""
+    out = (ctypes.c_int * 2)()
+    load_library().hast_sort_geometry(out)
     return tuple(out)
 
 

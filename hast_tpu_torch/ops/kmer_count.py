@@ -301,9 +301,16 @@ def count_windows(packed: torch.Tensor, lengths: torch.Tensor, k: int,
 # ---------------------------------------------------------------------------
 
 SORT_TILE = 4096      # sort.cu kTile: the keys a block ranks together
+SORT_DIGIT_BITS = 8   # sort.cu kBits: the widest digit of a radix pass
 # sort.cu sweeps the input in portions of this many keys (a multiple of
-# SORT_TILE, at most 2^28), each with its own look-back
-_SORT_PORTION = 1 << 28
+# SORT_TILE, at most 2^27), each with its own look-back
+_SORT_PORTION = 1 << 27
+
+
+def sort_passes(k: int) -> int:
+    """K5's radix passes at k: the low 2k + 1 bits, at most
+    SORT_DIGIT_BITS a pass (4 at k = 15, 6 at k = 21, 8 at k = 31)."""
+    return -(-(2 * k + 1) // SORT_DIGIT_BITS)
 
 
 def _check_keys(name: str, keys: torch.Tensor, *int32s) -> None:
@@ -339,7 +346,8 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor | None, k: int,
     input as it was.  With it the passes alternate between scratch and
     the input itself, which is overwritten: the result is returned as
     one of the two pairs (``result[0] is keys`` after an even number of
-    passes) and the other is free.  The twin ignores it.
+    passes, :func:`sort_passes`) and the other is free.  The twin
+    ignores it.
     """
     E._check_k(k)
     _check_keys("sort_pairs", keys, payload)
@@ -367,7 +375,8 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor | None, k: int,
     else:
         (ka, pa), (kb, pb) = scratch, (keys, payload)
     lib = _build.load_library()
-    # the look-back's status words, the digit bins and the tile counters
+    # the look-back's status words, the digit bins, the tile counters and
+    # the plan of the passes
     scratch_bytes = lib.hast_sort_scratch_bytes(n, 2 * k + 1, _SORT_PORTION)
     if scratch_bytes < 0:
         raise ValueError(f"sort_pairs: refused n = {n}, portion "
@@ -377,7 +386,7 @@ def sort_pairs(keys: torch.Tensor, payload: torch.Tensor | None, k: int,
     _build.launch("sort_pairs", keys.device, keys.data_ptr(), ptr(payload),
                   ka.data_ptr(), ptr(pa), kb.data_ptr(), ptr(pb), n, 2 * k + 1,
                   _SORT_PORTION, work.data_ptr())
-    if -(-(2 * k + 1) // 8) % 2:
+    if sort_passes(k) % 2:
         return ka, pa
     return kb, pb
 

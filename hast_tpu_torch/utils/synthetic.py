@@ -381,12 +381,18 @@ def write_fake_supernova(root: str, assembly: str, whitelist: str) -> str:
     return sn
 
 
-def sort_edge_cases(seed: int, k: int, tile: int) -> list:
-    """(name, int64 keys) that a radix sort with decoupled look-back and
-    a tile-local shuffle could get wrong: lengths around one tile (1,
-    tile - 1, tile, tile + 1), every key equal (one hot digit in every
-    pass), every key the INT64_MAX sentinel, ascending and descending
-    runs; canonical k-mer words with 10 % sentinels elsewhere."""
+def sort_edge_cases(seed: int, k: int, tile: int, digit_bits: int = 8
+                    ) -> list:
+    """(name, int64 keys) that a radix sort with decoupled look-back, a
+    tile-local shuffle and skipped constant digits could get wrong:
+    lengths around one tile (1, tile - 1, tile, tile + 1), every key
+    equal (one hot digit in every pass), every key the INT64_MAX
+    sentinel, ascending and descending runs, real keys before a tail of
+    more than a tile of sentinels, three distinct keys drawn many times
+    (stability of equal keys), and keys that differ in one field of
+    digit_bits bits only (the lowest, the second, the top one below 2k),
+    so that the passes it does not reach are skipped; canonical k-mer
+    words with 10 % sentinels elsewhere."""
     rng = np.random.default_rng(seed)
     sent = np.iinfo(np.int64).max
     top = 1 << (2 * k)
@@ -403,6 +409,18 @@ def sort_edge_cases(seed: int, k: int, tile: int) -> list:
               ("all sentinels", np.full(n, sent, np.int64)),
               ("sorted", np.sort(words(n))),
               ("reverse sorted", np.sort(words(n))[::-1].copy())]
+    real = rng.integers(0, top, n - tile - 5, dtype=np.int64)
+    cases.append(("sentinel tail",
+                  np.concatenate([real, np.full(tile + 5, sent, np.int64)])))
+    cases.append(("three keys", rng.choice(
+        rng.integers(0, top, 3, dtype=np.int64), n)))
+    base = int(rng.integers(0, top))
+    for shift in sorted({0, digit_bits, (2 * k - 1) // digit_bits
+                         * digit_bits}):
+        width = min(digit_bits, 2 * k - shift)
+        mask = ((1 << width) - 1) << shift
+        cases.append((f"one digit at bit {shift}", (base & ~mask) | (
+            rng.integers(0, 1 << width, n, dtype=np.int64) << shift)))
     return cases
 
 

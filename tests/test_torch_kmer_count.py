@@ -14,6 +14,8 @@ atomics, so the tolerance is exact equality throughout; the kernels are
 held against the twins on the card (marked cuda).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -754,7 +756,7 @@ def test_sort_and_fold_kernels_match_twins(card, k):
     inp = (keys.clone(), counts.clone())
     scratch = (torch.empty_like(keys), torch.empty_like(counts))
     got = KC.sort_pairs(*inp, k, scratch=scratch)
-    even = -(-(2 * k + 1) // 8) % 2 == 0
+    even = KC.sort_passes(k) % 2 == 0
     assert got[0] is (inp[0] if even else scratch[0])
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     free = scratch if even else inp
@@ -823,33 +825,68 @@ def test_fold_kernel_on_edge_cases(card, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [15, 17, 21, 31])
 def test_sort_kernel_on_edge_cases(card, k, monkeypatch):
-    """The inputs a one-sweep sort gets wrong, bit-exact against the twin,
-    with and without payload and with the scratch pair; once with the
-    default portion and once in portions of two tiles, so that every
-    portion past the first takes its digits' offsets from the earlier
-    ones."""
+    """The inputs a one-sweep sort gets wrong (synthetic.sort_edge_cases:
+    sizes off the tile, all equal, sorted, a sentinel tail, three keys
+    drawn many times with counts that differ, one digit varying so that
+    the other passes are skipped), bit-exact against the twin, with and
+    without payload and with the scratch pair, with counts below 2^30
+    and below 100 (which ride packed above the keys' bits from the second
+    pass to the last at k <= 23); once with the default portion
+    and once in portions of two tiles, so that every portion past the
+    first takes its digits' offsets from the earlier ones."""
     from hast_tpu_torch.utils import synthetic as S
-    even = -(-(2 * k + 1) // 8) % 2 == 0
-    for portion in (KC._SORT_PORTION, 2 * KC.SORT_TILE):
+    even = KC.sort_passes(k) % 2 == 0
+    for portion, high in itertools.product(
+            (KC._SORT_PORTION, 2 * KC.SORT_TILE), (1 << 30, 100)):
         monkeypatch.setattr(KC, "_SORT_PORTION", portion)
-        for name, keys in S.sort_edge_cases(k, k, KC.SORT_TILE):
+        for name, keys in S.sort_edge_cases(k, k, KC.SORT_TILE,
+                                            KC.SORT_DIGIT_BITS):
             rng = np.random.default_rng(keys.size)
             keys = torch.from_numpy(keys).to(card)
             counts = torch.from_numpy(rng.integers(
-                0, 1 << 30, keys.numel()).astype(np.int32)).to(card)
+                0, high, keys.numel()).astype(np.int32)).to(card)
             want = KC.sort_pairs_ref(keys, counts, k)
             launches = _build.LAUNCHES["sort_pairs"]
             got = KC.sort_pairs(keys, counts, k)
             assert _build.LAUNCHES["sort_pairs"] == launches + 1
-            assert torch.equal(got[0], want[0]), (name, portion)
-            assert torch.equal(got[1], want[1]), (name, portion)
+            assert torch.equal(got[0], want[0]), (name, portion, high)
+            assert torch.equal(got[1], want[1]), (name, portion, high)
             assert torch.equal(KC.sort_pairs(keys, None, k)[0], want[0])
             inp = (keys.clone(), counts.clone())
             scratch = (torch.empty_like(keys), torch.empty_like(counts))
             got = KC.sort_pairs(*inp, k, scratch=scratch)
             assert got[0] is (inp[0] if even else scratch[0])
-            assert torch.equal(got[0], want[0]), (name, portion)
-            assert torch.equal(got[1], want[1]), (name, portion)
+            assert torch.equal(got[0], want[0]), (name, portion, high)
+            assert torch.equal(got[1], want[1]), (name, portion, high)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", ["int32", "small"])
+@pytest.mark.parametrize("k", [15, 21, 31])
+def test_sort_kernel_across_portions(card, k, counts, monkeypatch):
+    """The library's tile and digit are kmer_count's.  3 x 2^20 + 5 pairs
+    (off the tile) of keys drawn from n / 4 values, so that equal keys
+    carry different counts, in portions of 2^20 keys: each pass's
+    look-back spans 256 tiles a portion, and the next portion reads the
+    same status words under a later epoch.  Counts over all of int32
+    (packed above the keys only at k = 15, negative ones included) or
+    below 60 (packed at k = 15 and 21).  Bit-exact against the twin,
+    with and without payload."""
+    assert _build.sort_geometry() == (KC.SORT_TILE, KC.SORT_DIGIT_BITS)
+    monkeypatch.setattr(KC, "_SORT_PORTION", 1 << 20)
+    rng = np.random.default_rng(k)
+    n = 3 * (1 << 20) + 5
+    pool = rng.integers(0, 1 << (2 * k), n // 4, dtype=np.int64)
+    keys = pool[rng.integers(0, pool.size, n)]
+    keys[rng.random(n) < 0.1] = SENT
+    keys = torch.from_numpy(keys).to(card)
+    low, high = (-1 << 31, 1 << 31) if counts == "int32" else (0, 60)
+    counts = torch.from_numpy(rng.integers(low, high, n).astype(
+        np.int32)).to(card)
+    want = KC.sort_pairs_ref(keys, counts, k)
+    got = KC.sort_pairs(keys, counts, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(KC.sort_pairs(keys, None, k)[0], want[0])
 
 
 @pytest.mark.cuda
