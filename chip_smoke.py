@@ -143,7 +143,8 @@ failure:
 13. the mesh classify main path: phase 5's workload through
    run_classify(mesh=make_mesh(4, devices=[cuda:0] * 4)) and a 2x2
    mesh, phased.barcodes byte-identical to phase 5's; K13 launched, no
-   twin called; the classify time and its host fold's share.  With two
+   twin called; the call's time under a CPU profiler session and its
+   host fold's share (its ``classify.host_fold`` spans).  With two
    or more cards, the 4x1 mesh again over distinct cards.
 14. the mesh stage-00 main path: phase 6's trio through
    build_unshared_markers_mesh on a 4-shard mesh of cuda:0, histos,
@@ -1346,10 +1347,18 @@ def phase_main_path(tmp: str) -> dict:
     log(f"phased.barcodes: {len(rows)} barcodes, paternal {haps[b'0']}, "
         f"maternal {haps[b'1']}, homozygous/unknown {haps[b'-1']}")
 
-    # warm repeat (snapshot present) for the per-phase breakdown
-    timings = {}
-    C.run_classify(hap0, hap1, [reads], io.BytesIO(), w0=1.04,
-                   batch_size=1 << 15, device="cuda", timings=timings)
+    # warm repeat (snapshot present), run_classify's three steps timed
+    t0 = time.perf_counter()
+    table = C.load_marker_table(hap0, hap1)
+    C.erase_adaptors(table)
+    table = table.to("cuda")
+    t1 = time.perf_counter()
+    tally = C.classify_fastqs(table, [reads], 1 << 15)
+    t2 = time.perf_counter()
+    C.write_phased_barcodes(tally, table, io.BytesIO(), 1.04)
+    timings = dict(load_markers=t1 - t0, classify=t2 - t1,
+                   decide_write=time.perf_counter() - t2)
+    del table, tally
     log("run_classify warm (snapshot): " + ", ".join(
         f"{k} {v:.3f} s" for k, v in timings.items())
         + f"; classify phase {N_READS / timings['classify']:.0f} reads/s")
@@ -2798,6 +2807,20 @@ def phase_broadcast() -> tuple[dict, int]:
     return row, launches["broadcast_probe"]
 
 
+def _host_fold_seconds(call) -> tuple:
+    """call() under a CPU-side torch.profiler session: its wall seconds
+    and the seconds of its ``classify.host_fold`` spans."""
+    import torch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        call()
+        wall = time.perf_counter() - t0
+    fold = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.name == "classify.host_fold") / 1e6
+    return wall, fold
+
+
 def phase_mesh_classify(tmp: str) -> int:
     """Phase 5's workload through run_classify on meshes of cuda:0 (and of
     distinct cards when there are two or more); returns K13's launches
@@ -2829,12 +2852,11 @@ def phase_mesh_classify(tmp: str) -> int:
         for name, mesh in meshes:
             _build.LAUNCHES.clear()
             _build.TWIN_CALLS.clear()
-            timings = {}
             out = io.BytesIO()
             with contextlib.redirect_stderr(devnull):
-                C.run_classify(hap0, hap1, reads, out, w0=1.04,
-                               batch_size=1 << 15, mesh=mesh,
-                               timings=timings)
+                wall, fold = _host_fold_seconds(
+                    lambda: C.run_classify(hap0, hap1, reads, out, w0=1.04,
+                                           batch_size=1 << 15, mesh=mesh))
             counts, twins = dict(_build.LAUNCHES), dict(_build.TWIN_CALLS)
             if k13 is None:
                 k13 = counts.get("vote_reads", 0)
@@ -2844,11 +2866,10 @@ def phase_mesh_classify(tmp: str) -> int:
             if counts.get("vote_reads", 0) <= 0 or any(twins.values()):
                 fail(f"mesh classify {name}: launches {counts}, twins "
                      f"{twins}")
-            share = timings["host_fold"] / timings["classify"]
             log(f"mesh classify {name}: {N_READS} reads, phased.barcodes "
-                f"byte-identical to the single-device run; "
-                + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
-                + f"; host fold {share:.4f} of classify; launches {counts}")
+                f"byte-identical to the single-device run; run_classify "
+                f"{wall:.3f} s under a CPU profiler session, host fold "
+                f"{fold:.3f} s ({fold / wall:.4f} of it); launches {counts}")
     return k13
 
 
@@ -3193,18 +3214,19 @@ def phase_across_cards(tmp: str) -> None:
     with open(os.devnull, "w") as devnull:
         for name, mesh in runs * 2:       # the second round is warm
             _build.LAUNCHES.clear()
-            timings, out = {}, io.BytesIO()
+            out = io.BytesIO()
+            t0 = time.perf_counter()
             with contextlib.redirect_stderr(devnull):
                 C.run_classify(h0, h1, [son], out, w0=1.04,
                                batch_size=1 << 15, device="cuda:0",
-                               mesh=mesh, timings=timings)
+                               mesh=mesh)
+            wall = time.perf_counter() - t0
             want = want or out.getvalue()
             if out.getvalue() != want:
                 fail(f"classify on the {name} differs from cuda:0 alone")
             log(f"across {n} cards: classify of {N_READS} reads on the "
-                f"{name}: " + ", ".join(f"{k} {v:.3f} s"
-                                        for k, v in timings.items())
-                + f"; launches {dict(_build.LAUNCHES)}")
+                f"{name}: run_classify {wall:.3f} s; launches "
+                f"{dict(_build.LAUNCHES)}")
 
     t = os.path.join(tmp, "trio")
     os.makedirs(t)

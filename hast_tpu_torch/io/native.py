@@ -26,7 +26,7 @@ from typing import Iterator
 
 import numpy as np
 
-from hast_tpu_torch.utils.profiling import notice_fallback
+from hast_tpu_torch.utils.profiling import count, notice_fallback, span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(os.path.dirname(_PKG), "native", "hastio.cpp")
@@ -267,6 +267,7 @@ class NativeFastqReader:
                                          1 if packed else 0)
         if not self._h:
             raise FileNotFoundError(path)
+        count("io.reader_opens")
         self._bs = batch_size
         # scratch covers the staging stride (round-128 of len_cap);
         # emitted batch strides are rounded to 16 bases
@@ -280,22 +281,27 @@ class NativeFastqReader:
         scratch = np.empty(bs * self._cap, np.uint8)
         div = 4 if self._packed else 1
         while True:
-            lengths = np.empty(bs, np.int32)
-            has_n = np.empty(bs, np.uint8)
-            bids = np.empty(bs, np.int32)
-            max_len = ctypes.c_int32()
-            n = lib.hastio_next_batch(h, scratch, lengths, has_n, bids,
-                                      ctypes.byref(max_len))
-            if n <= 0:
-                return
-            if lib.hastio_truncated(h):
-                raise ReadTooLong(
-                    "reads longer than len_cap encountered; rerun with a "
-                    "larger len_cap or engine='python'")
-            stride = max_len.value // div
-            yield NativeBatch(
-                scratch[:bs * stride].reshape(bs, stride).copy(),
-                lengths, has_n.astype(bool), bids, int(n))
+            # the wait for the parse thread's next batch, and its copy
+            with span("io.read_wait"):
+                lengths = np.empty(bs, np.int32)
+                has_n = np.empty(bs, np.uint8)
+                bids = np.empty(bs, np.int32)
+                max_len = ctypes.c_int32()
+                n = lib.hastio_next_batch(h, scratch, lengths, has_n, bids,
+                                          ctypes.byref(max_len))
+                if n <= 0:
+                    return
+                if lib.hastio_truncated(h):
+                    raise ReadTooLong(
+                        "reads longer than len_cap encountered; rerun with "
+                        "a larger len_cap or engine='python'")
+                stride = max_len.value // div
+                batch = NativeBatch(
+                    scratch[:bs * stride].reshape(bs, stride).copy(),
+                    lengths, has_n.astype(bool), bids, int(n))
+            count("io.reads", batch.n)
+            count("io.batches")
+            yield batch
 
     def barcodes_array(self) -> np.ndarray:
         """Barcodes in id order as a numpy S-array (no python objects)."""
@@ -364,6 +370,7 @@ class NativeCountReader:
                                         len_cap, 1 if fastq else 0)
         if not self._h:
             raise FileNotFoundError(path)
+        count("io.reader_opens")
         self._bs = batch_size
         self._cap = ((len_cap + 127) // 128) * 128
 
@@ -372,24 +379,29 @@ class NativeCountReader:
         scratch = np.empty(bs * (self._cap // 4), np.uint8)
         gscratch = np.empty(bs * (self._cap // 8), np.uint8)
         while True:
-            lengths = np.empty(bs, np.int32)
-            has_n = np.empty(bs, np.uint8)
-            bids = np.empty(bs, np.int32)
-            max_len = ctypes.c_int32()
-            n = lib.hastio_next_batch_count(h, scratch, lengths, has_n,
-                                            bids, gscratch,
-                                            ctypes.byref(max_len))
-            if n <= 0:
-                return
-            if lib.hastio_truncated(h) or lib.hastio_bad_fasta(h):
-                raise RuntimeError("input needs the python reader "
-                                   "(long read or multi-line fasta)")
-            sp = max_len.value // 4
-            sg = max_len.value // 8
-            yield NativeCountBatch(
-                scratch[:bs * sp].reshape(bs, sp).copy(),
-                gscratch[:bs * sg].reshape(bs, sg).copy(),
-                lengths, int(n))
+            # the wait for the parse thread's next batch, and its copy
+            with span("io.read_wait"):
+                lengths = np.empty(bs, np.int32)
+                has_n = np.empty(bs, np.uint8)
+                bids = np.empty(bs, np.int32)
+                max_len = ctypes.c_int32()
+                n = lib.hastio_next_batch_count(h, scratch, lengths, has_n,
+                                                bids, gscratch,
+                                                ctypes.byref(max_len))
+                if n <= 0:
+                    return
+                if lib.hastio_truncated(h) or lib.hastio_bad_fasta(h):
+                    raise RuntimeError("input needs the python reader "
+                                       "(long read or multi-line fasta)")
+                sp = max_len.value // 4
+                sg = max_len.value // 8
+                batch = NativeCountBatch(
+                    scratch[:bs * sp].reshape(bs, sp).copy(),
+                    gscratch[:bs * sg].reshape(bs, sg).copy(),
+                    lengths, int(n))
+            count("io.reads", batch.n)
+            count("io.batches")
+            yield batch
 
     def close(self):
         if self._h:

@@ -43,6 +43,7 @@ from hast_tpu_torch.io import fastq as FQ
 from hast_tpu_torch.io import native as N
 from hast_tpu_torch.ops import _build
 from hast_tpu_torch.ops import encode as E
+from hast_tpu_torch.utils.profiling import span
 
 SENT = torch.iinfo(torch.int64).max
 FOLD_ABOVE = 48_000_000   # DeviceCounter's smallest fold, in keys
@@ -176,10 +177,11 @@ def words_to_strings(words: np.ndarray, k: int) -> np.ndarray:
 
 def dump_words(words: np.ndarray, k: int, path: str) -> int:
     """One jellyfish-style k-mer a line, in the order of words."""
-    s = words_to_strings(words, k)
-    with open(path, "wb") as f:
-        if s.size:
-            f.write(b"\n".join(s.tolist()) + b"\n")
+    with span("markers.dump_words"):
+        s = words_to_strings(words, k)
+        with open(path, "wb") as f:
+            if s.size:
+                f.write(b"\n".join(s.tolist()) + b"\n")
     return int(s.size)
 
 
@@ -682,7 +684,8 @@ class DeviceCountTable:
 
     def histo(self, low: int = 1, high: int = 10000) -> np.ndarray:
         """:meth:`CountTable.histo` computed on the device, int64 bins."""
-        return count_stats(self.counts, high)[0].cpu().numpy()
+        with span("markers.histo"):
+            return count_stats(self.counts, high)[0].cpu().numpy()
 
     def fetch(self) -> CountTable:
         """Full device->host copy (tests and the host engine)."""
@@ -704,10 +707,11 @@ def device_marker_algebra(pat: DeviceCountTable, mat: DeviceCountTable,
     kept words come to the host.  Returns (paternal_words,
     maternal_words), ascending uint64.
     """
-    p_out, p_n, m_out, m_n = marker_filter(
-        pat.keys, pat.counts, pat.n_valid, mat.keys, mat.counts,
-        mat.n_valid, (p_lower, p_upper, m_lower, m_upper))
-    return _words_np(p_out[:int(p_n)]), _words_np(m_out[:int(m_n)])
+    with span("markers.algebra"):
+        p_out, p_n, m_out, m_n = marker_filter(
+            pat.keys, pat.counts, pat.n_valid, mat.keys, mat.counts,
+            mat.n_valid, (p_lower, p_upper, m_lower, m_upper))
+        return _words_np(p_out[:int(p_n)]), _words_np(m_out[:int(m_n)])
 
 
 class DeviceCounter:
@@ -774,29 +778,31 @@ class DeviceCounter:
         with self._FOLD_LOCK:
             if not self._chunks:
                 return
-            parts = self._chunks
-            if self._run is not None:
-                parts.append(self._run)
-            self._chunks = []
-            self._chunk_elems = 0
-            keys = torch.cat([c for c, _ in parts])
-            counts = torch.cat([
-                n if n is not None else
-                torch.ones(c.numel(), dtype=torch.int32, device=c.device)
-                for c, n in parts])
-            del parts
-            self._run = None
-            spare = (torch.empty_like(keys), torch.empty_like(counts))
-            sorted_ = sort_pairs(keys, counts, self.k, scratch=spare)
-            free = spare if sorted_[0] is keys else (keys, counts)
-            del keys, counts, spare
-            keys, counts, n_unique = fold_runs(*sorted_, out=free)
-            del sorted_, free
-            n = int(n_unique)
-            # a copy: the slice alone would keep the whole fold buffer alive
-            self._run = shrink_run(keys, counts, n) if n else None
-            self._run_valid = n
-            self.n_folds += 1
+            with span("kmer_count.fold"):
+                parts = self._chunks
+                if self._run is not None:
+                    parts.append(self._run)
+                self._chunks = []
+                self._chunk_elems = 0
+                keys = torch.cat([c for c, _ in parts])
+                counts = torch.cat([
+                    n if n is not None else
+                    torch.ones(c.numel(), dtype=torch.int32, device=c.device)
+                    for c, n in parts])
+                del parts
+                self._run = None
+                spare = (torch.empty_like(keys), torch.empty_like(counts))
+                sorted_ = sort_pairs(keys, counts, self.k, scratch=spare)
+                free = spare if sorted_[0] is keys else (keys, counts)
+                del keys, counts, spare
+                keys, counts, n_unique = fold_runs(*sorted_, out=free)
+                del sorted_, free
+                n = int(n_unique)
+                # a copy: the slice alone would keep the whole fold
+                # buffer alive
+                self._run = shrink_run(keys, counts, n) if n else None
+                self._run_valid = n
+                self.n_folds += 1
 
     def finalize_device(self) -> DeviceCountTable:
         """Finish folding and keep the table on the device."""
@@ -904,12 +910,13 @@ def sample_boundaries(batch_source: Callable, k: int, n_parts: int,
     genomic input is locally correlated."""
     stride = max(1, scan_cap // n_sample)
     sample = []
-    for i, b in enumerate(batch_source()):
-        if i >= scan_cap:
-            break
-        if i % stride == 0:
-            sample.append(b)
-    return estimate_boundaries(sample, k, n_parts, device)
+    with span("markers.sample_boundaries"):
+        for i, b in enumerate(batch_source()):
+            if i >= scan_cap:
+                break
+            if i % stride == 0:
+                sample.append(b)
+        return estimate_boundaries(sample, k, n_parts, device)
 
 
 def count_pass_device(batch_source: Callable, k: int, lo_bound, hi_bound,
@@ -985,25 +992,28 @@ def count_file_native(path: str, k: int, batch_size: int = 1 << 14,
     clean: list = []
 
     def flush():
-        sp = max(b.packed.shape[1] for b in buf)
-        rows = sum(b.packed.shape[0] for b in buf)
-        packed = np.zeros((rows, sp), np.uint8)
-        lengths = np.zeros(rows, np.int32)
-        good = None if all(clean) else np.zeros((rows, sp // 2), np.uint8)
-        r = 0
-        for b in buf:
-            n = b.packed.shape[0]
-            packed[r:r + n, :b.packed.shape[1]] = b.packed
-            lengths[r:r + n] = b.lengths
-            if good is not None:
-                good[r:r + n, :b.good.shape[1]] = b.good
-            r += n
-        buf.clear()
-        clean.clear()
-        packed_t, lengths_t = _on(dcounter.device, packed, lengths)
-        good_t = None if good is None else _on(dcounter.device, good)[0]
-        dcounter.add_sorted_chunk(count_windows(packed_t, lengths_t, k,
-                                                good_t, key_range))
+        # the host assembly, the copies to the device and K4
+        with span("kmer_count.stage"):
+            sp = max(b.packed.shape[1] for b in buf)
+            rows = sum(b.packed.shape[0] for b in buf)
+            packed = np.zeros((rows, sp), np.uint8)
+            lengths = np.zeros(rows, np.int32)
+            good = None if all(clean) else np.zeros((rows, sp // 2), np.uint8)
+            r = 0
+            for b in buf:
+                n = b.packed.shape[0]
+                packed[r:r + n, :b.packed.shape[1]] = b.packed
+                lengths[r:r + n] = b.lengths
+                if good is not None:
+                    good[r:r + n, :b.good.shape[1]] = b.good
+                r += n
+            buf.clear()
+            clean.clear()
+            packed_t, lengths_t = _on(dcounter.device, packed, lengths)
+            good_t = None if good is None else _on(dcounter.device, good)[0]
+            keys = count_windows(packed_t, lengths_t, k, good_t,
+                                 key_range)
+        dcounter.add_sorted_chunk(keys)
 
     # only reader errors (truncation, multi-line fasta) may trigger the
     # python fallback; a device error from flush() propagates

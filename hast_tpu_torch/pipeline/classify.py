@@ -23,7 +23,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-import time
 from typing import Iterable
 
 import numpy as np
@@ -34,6 +33,7 @@ from hast_tpu_torch.io import native as N
 from hast_tpu_torch.ops import _build
 from hast_tpu_torch.ops import encode as E
 from hast_tpu_torch.ops import hashtable as H
+from hast_tpu_torch.utils.profiling import span
 
 ADAPTOR_F = "CTGTCTCTTATACACATCTTAGGAAGACAAGCACTGACGACATGA"
 ADAPTOR_R = "TCTGCTGAGTCGAGAACGTCTCTGTGAGCCAAGGAGTTGCTCTGG"
@@ -312,26 +312,29 @@ def write_phased_barcodes(tally: BarcodeTally, table: H.KmerTable, out,
                           w0: float = 1.0, w1: float = 1.0) -> None:
     """Write "barcode\\thap\\tcount0\\tcount1" rows sorted bytewise."""
     size0, size1 = table.set_sizes
-    bcs, counts = tally.finalize()
-    if bcs.size == 0:
-        return
-    order = N.argsort_fixed(bcs)
-    buf = None
-    if order is not None:
-        buf = N.decide_format_phased(
-            bcs, order, np.ascontiguousarray(counts[:, 0]),
-            np.ascontiguousarray(counts[:, 1]), size0, size1, w0, w1)
-    if buf is None:  # libhastio absent: the numpy decision, same bytes
-        if order is None:
-            order = np.argsort(bcs, kind="stable")
-        bcs = bcs[order]
-        c0 = counts[order, 0]
-        c1 = counts[order, 1]
-        hap = decide_haps(bcs, c0, c1, size0, size1, w0, w1)
-        buf = b"".join(b"%s\t%d\t%d\t%d\n" % t for t in
-                       zip(bcs.tolist(), hap.tolist(), c0.tolist(),
-                           c1.tolist()))
-    out.write(buf)
+    with span("classify.sort_barcodes"):
+        bcs, counts = tally.finalize()
+        if bcs.size == 0:
+            return
+        order = N.argsort_fixed(bcs)
+    with span("classify.decide_format"):
+        buf = None
+        if order is not None:
+            buf = N.decide_format_phased(
+                bcs, order, np.ascontiguousarray(counts[:, 0]),
+                np.ascontiguousarray(counts[:, 1]), size0, size1, w0, w1)
+        if buf is None:  # libhastio absent: the numpy decision, same bytes
+            if order is None:
+                order = np.argsort(bcs, kind="stable")
+            bcs = bcs[order]
+            c0 = counts[order, 0]
+            c1 = counts[order, 1]
+            hap = decide_haps(bcs, c0, c1, size0, size1, w0, w1)
+            buf = b"".join(b"%s\t%d\t%d\t%d\n" % t for t in
+                           zip(bcs.tolist(), hap.tolist(), c0.tolist(),
+                               c1.tolist()))
+    with span("classify.write"):
+        out.write(buf)
 
 
 # ---------------------------------------------------------------------------
@@ -665,26 +668,29 @@ def _classify_native(table, path, batch_size, tally, device) -> None:
             acc = torch.zeros((TALLY_ROWS, 3), dtype=torch.int32,
                               device=device)
             for b in reader:
-                n = b.n
-                ids = b.barcode_ids[:n]
-                acc = grow_tally(acc, int(ids.max(initial=-1)))
-                tally_step(table, acc, _tensor(b.seqs[:n], device),
-                           _tensor(b.lengths[:n], device),
-                           _tensor(ids, device), _tensor(b.has_n[:n], device))
-            names = reader.barcodes_array()
-            return names, fetch_tally(acc[:names.size])
+                with span("classify.stage"):
+                    n = b.n
+                    ids = b.barcode_ids[:n]
+                    acc = grow_tally(acc, int(ids.max(initial=-1)))
+                    tally_step(table, acc, _tensor(b.seqs[:n], device),
+                               _tensor(b.lengths[:n], device),
+                               _tensor(ids, device),
+                               _tensor(b.has_n[:n], device))
+            # a read past len_cap raises above, before this file merges
+            with span("classify.fetch_tally"):
+                names = reader.barcodes_array()
+                tally.merge_names(names, fetch_tally(acc[:names.size]))
         finally:
             reader.close()
 
-    names, local = _with_len_caps(path, run)
-    tally.merge_names(names, local[:names.size])
+    with span("classify.file"):
+        _with_len_caps(path, run)
     _log("__process read done__")
 
 
 def _classify_fastqs_native(table: H.KmerTable, paths: Iterable[str],
                             batch_size: int, tally: BarcodeTally | None,
-                            super_batch: int, vote_fn=None,
-                            timings: dict | None = None) -> BarcodeTally:
+                            super_batch: int, vote_fn=None) -> BarcodeTally:
     """Native reader, per-read votes to the host, host tally (the JAX
     function of the same name, which its mesh classify runs).
 
@@ -693,12 +699,10 @@ def _classify_fastqs_native(table: H.KmerTable, paths: Iterable[str],
     uint16 bits) out; by default K13 on the table's device.  Votes come
     to the host six super-batches late; the per-read rows fold into the
     file's (barcodes, 3) int64 table by bincount every 2^22 reads, and
-    each file merges by barcode name.  timings, when given, gets the
-    fold's seconds added under "host_fold".
+    each file merges by barcode name.  Each fold is a span,
+    ``classify.host_fold``.
     """
     tally = tally or BarcodeTally()
-    timings = {} if timings is None else timings
-    timings.setdefault("host_fold", 0.0)
     if vote_fn is None:
         data, k, mp, fmt = table.data, table.k, table.max_probe, table.fmt
         vote_fn = lambda packed, lengths: vote_kernel_packed(  # noqa: E731
@@ -720,22 +724,22 @@ def _classify_fastqs_native(table: H.KmerTable, paths: Iterable[str],
             nonlocal acc, acc_reads, local
             if not acc:
                 return
-            t0 = time.perf_counter()
-            ids = np.concatenate([a[0] for a in acc])
-            cols = [np.concatenate([a[c] for a in acc]) for c in (1, 2, 3)]
-            acc, acc_reads = [], 0
-            if ids.size:
-                top = int(ids.max())
-                if top >= local.shape[0]:
-                    grown = max(top + 1, 2 * local.shape[0])
-                    local = np.vstack([local, np.zeros(
-                        (grown - local.shape[0], 3), np.int64)])
-                nb = local.shape[0]
-                # float64 sums of these small ints are exact (<< 2^53)
-                for c, w in enumerate(cols):
-                    local[:, c] += np.bincount(ids, weights=w, minlength=nb
-                                               ).astype(np.int64)
-            timings["host_fold"] += time.perf_counter() - t0
+            with span("classify.host_fold"):
+                ids = np.concatenate([a[0] for a in acc])
+                cols = [np.concatenate([a[c] for a in acc])
+                        for c in (1, 2, 3)]
+                acc, acc_reads = [], 0
+                if ids.size:
+                    top = int(ids.max())
+                    if top >= local.shape[0]:
+                        grown = max(top + 1, 2 * local.shape[0])
+                        local = np.vstack([local, np.zeros(
+                            (grown - local.shape[0], 3), np.int64)])
+                    nb = local.shape[0]
+                    # float64 sums of these small ints are exact (<< 2^53)
+                    for c, w in enumerate(cols):
+                        local[:, c] += np.bincount(
+                            ids, weights=w, minlength=nb).astype(np.int64)
 
         def drain(p):
             nonlocal acc_reads
@@ -791,8 +795,7 @@ def _classify_fastqs_native(table: H.KmerTable, paths: Iterable[str],
 def classify_fastqs_mesh(mesh, table: H.KmerTable, paths: Iterable[str],
                          batch_size: int = FQ.DEFAULT_BATCH,
                          tally: BarcodeTally | None = None,
-                         super_batch: int = 8,
-                         timings: dict | None = None) -> BarcodeTally:
+                         super_batch: int = 8) -> BarcodeTally:
     """Classify on a dp×tp mesh (the JAX `classify_fastqs_mesh`): the table
     (host or any device) is sharded over tp by rows, each super-batch's
     reads split over dp, and parallel.mesh.sharded_vote_step gives the
@@ -814,45 +817,31 @@ def classify_fastqs_mesh(mesh, table: H.KmerTable, paths: Iterable[str],
                                     fmt)
 
     return _classify_fastqs_native(table, paths, batch_size, tally,
-                                   super_batch, vote_fn=vote_fn,
-                                   timings=timings)
+                                   super_batch, vote_fn=vote_fn)
 
 
 def run_classify(hap0: str, hap1: str, reads: list[str], out,
                  w0: float = 1.0, w1: float = 1.0,
                  adaptor_f: str = ADAPTOR_F, adaptor_r: str = ADAPTOR_R,
                  batch_size: int = FQ.DEFAULT_BATCH, device="cuda",
-                 engine: str = "auto", timings: dict | None = None,
-                 mesh=None) -> BarcodeTally:
+                 engine: str = "auto", mesh=None) -> BarcodeTally:
     """Full stage-01 classify (the reference binary's main()).
 
     mesh: a parallel.mesh.Mesh; the probes then run over it
     (:func:`classify_fastqs_mesh`, which shards the host table itself)
     and device and engine are not used.
-    timings, when given, receives each phase's wall seconds
-    (load_markers, classify, decide_write, and host_fold on a mesh); the
-    classify phase ends with the tally on the host, so it includes all
-    device work.
     """
-    timings = {} if timings is None else timings
     _log("__START__")
     _log(f" use hap0 weight {w0:g}")
     _log(f" use hap1 weight {w1:g}")
-    t0 = time.perf_counter()
     table = load_marker_table(hap0, hap1)
     erase_adaptors(table, adaptor_f, adaptor_r)
     if mesh is None:
         table = table.to(device)
-    t1 = time.perf_counter()
-    if mesh is None:
         tally = classify_fastqs(table, reads, batch_size, engine=engine)
     else:
-        tally = classify_fastqs_mesh(mesh, table, reads, batch_size,
-                                     timings=timings)
-    t2 = time.perf_counter()
+        tally = classify_fastqs_mesh(mesh, table, reads, batch_size)
     _log("__print result__")
     write_phased_barcodes(tally, table, out, w0, w1)
     _log("__END__")
-    timings.update(load_markers=t1 - t0, classify=t2 - t1,
-                   decide_write=time.perf_counter() - t2)
     return tally

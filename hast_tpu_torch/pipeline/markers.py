@@ -32,7 +32,7 @@ import numpy as np
 from hast_tpu_torch.io import fastq as FQ
 from hast_tpu_torch.ops import kmer_count as KC
 from hast_tpu_torch.utils.checkpoint import step
-from hast_tpu_torch.utils.profiling import PhaseTimer
+from hast_tpu_torch.utils.profiling import PhaseTimer, span
 
 DEFAULT_K = 21
 DEFAULT_LOWER = 9
@@ -354,17 +354,19 @@ def _markers_partitioned(paternal, maternal, k, auto_bounds, bounds,
     def count_range(files, lo_b, hi_b) -> KC.DeviceCountTable:
         """One key-range pass over a parent's files: the native reader
         where it takes the file, else the python reader."""
-        total = KC.DeviceCounter(k, device, fold_above=fold_above)
-        for path in files:
-            dc = KC.count_file_native(path, k, batch_size, finalize=False,
-                                      key_range=(lo_b, hi_b),
-                                      fold_above=fold_above, device=device)
-            if dc is None:
-                dc = KC.count_pass_device(
-                    lambda p=path: FQ.sequence_batches(p, k, batch_size),
-                    k, lo_b, hi_b, fold_above=fold_above, device=device)
-            total.merge_device(dc)
-        return total.finalize_device()
+        with span("markers.count_pass"):
+            total = KC.DeviceCounter(k, device, fold_above=fold_above)
+            for path in files:
+                dc = KC.count_file_native(
+                    path, k, batch_size, finalize=False,
+                    key_range=(lo_b, hi_b), fold_above=fold_above,
+                    device=device)
+                if dc is None:
+                    dc = KC.count_pass_device(
+                        lambda p=path: FQ.sequence_batches(p, k, batch_size),
+                        k, lo_b, hi_b, fold_above=fold_above, device=device)
+                total.merge_device(dc)
+            return total.finalize_device()
 
     boundaries = KC.sample_boundaries(mat_source, k, n_parts,
                                       device=device)

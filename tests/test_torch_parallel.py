@@ -660,13 +660,17 @@ def test_classify_fastqs_mesh_matches_golden(fmt, tmp_path):
     table = H.from_reference(ref.data, ref.n_buckets, ref.max_probe, ref.k,
                              ref.n_keys, ref.set_sizes, ref.fmt, device="cpu")
     assert table.fmt == fmt
-    timings = {}
-    tally = C.classify_fastqs_mesh(cpu_mesh(16, tp=2), table, reads,
-                                   batch_size=4096, timings=timings)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tally = C.classify_fastqs_mesh(cpu_mesh(16, tp=2), table, reads,
+                                       batch_size=4096)
     out = io.BytesIO()
     C.write_phased_barcodes(tally, table, out, w0=1.04)
     assert out.getvalue() == (GOLD / "phased.barcodes.golden").read_bytes()
-    assert timings["host_fold"] > 0
+    # each file's fold of the host tally is a span
+    folds = [e for e in prof.events() if e.name == "classify.host_fold"]
+    assert len(folds) >= len(reads)
+    assert all(e.time_range.elapsed_us() > 0 for e in folds)
 
 
 def test_host_tally_path_matches_golden(tmp_path):

@@ -1,0 +1,193 @@
+"""The port's tracer (hast_tpu_torch/utils/profiling.py): spans that
+record only under a torch.profiler session, and the host counters, on
+the stage-01 and stage-00 goldens."""
+
+import io
+import json
+import os
+import pathlib
+import shutil
+import sys
+import threading
+import time
+
+import torch
+
+from hast_tpu_torch.io import fastq as FQ
+from hast_tpu_torch.pipeline import classify as C
+from hast_tpu_torch.pipeline import markers as M
+from hast_tpu_torch.utils import profiling as P
+
+GOLD = pathlib.Path(__file__).parent / "golden"
+READS01 = [GOLD / "stage01" / "reads1.fq.gz", GOLD / "stage01" / "reads2.fq"]
+PARENTS00 = {p: GOLD / "stage00" / f"{p}.reads.fa.gz"
+             for p in ("paternal", "maternal")}
+CPU = [torch.profiler.ProfilerActivity.CPU]
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("called with no profiler running")
+
+
+def _spans(prof, path) -> list:
+    """(name, start, end) of the exported trace's annotations, in µs."""
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in events
+            if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+
+
+def _records(path) -> int:
+    if str(path).endswith((".fa", ".fa.gz")):
+        return sum(1 for _ in FQ.fasta_records(str(path)))
+    return sum(1 for _ in FQ.fastq_records(str(path)))
+
+
+def test_span_enters_no_annotation_and_reads_no_clock_when_off(
+        monkeypatch):
+    assert not torch.autograd.profiler._is_profiler_enabled
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    monkeypatch.setattr(time, "perf_counter", _refuse)
+    monkeypatch.setattr(time, "perf_counter_ns", _refuse)
+    with P.span("a"):
+        with P.span("b"):
+            pass
+
+
+def test_span_and_phase_are_annotations_under_a_session(tmp_path):
+    timer = P.PhaseTimer(log=None)
+    with torch.profiler.profile(activities=CPU) as prof:
+        with P.span("outer"):
+            with timer.phase("inner"):
+                torch.ones(4).sum()
+    got = {n: (s, e) for n, s, e in _spans(prof, tmp_path / "t.json")}
+    assert set(got) == {"outer", "inner"}
+    assert got["outer"][0] <= got["inner"][0] <= got["inner"][1] \
+        <= got["outer"][1]
+    assert timer.phases["inner"] > 0
+    # the session is over: spans are off again
+    assert P.span("after") is P.span("again")
+
+
+def test_native_classify_spans_and_counters(tmp_path):
+    """Native classify of the stage-01 goldens under a CPU profiler
+    session: a reader wait a batch handed over, and one more a file for
+    the call that finds its end; no batch's staging inside a wait; every
+    read counted once."""
+    for f in ("hap0.mer", "hap1.mer"):     # the snapshot goes beside them
+        shutil.copy(GOLD / "stage01" / f, tmp_path / f)
+    table = C.load_marker_table(str(tmp_path / "hap0.mer"),
+                                str(tmp_path / "hap1.mer"))
+    C.erase_adaptors(table)
+    before = dict(P.COUNTERS)
+    with torch.profiler.profile(activities=CPU) as prof:
+        tally = C.classify_fastqs(table, [str(p) for p in READS01],
+                                  batch_size=512, engine="native")
+        out = _write(tally, table)
+    assert out == (GOLD / "stage01" / "phased.barcodes.golden").read_bytes()
+    grew = {k: P.COUNTERS[k] - before.get(k, 0)
+            for k in ("io.reads", "io.batches", "io.reader_opens")}
+    assert grew["io.reads"] == sum(_records(p) for p in READS01)
+    assert grew["io.reader_opens"] == len(READS01)
+    assert grew["io.batches"] >= grew["io.reads"] // 512
+    spans = _spans(prof, tmp_path / "trace.json")
+    names = [n for n, _, _ in spans]
+    waits = [(s, e) for n, s, e in spans if n == "io.read_wait"]
+    stages = [(s, e) for n, s, e in spans if n == "classify.stage"]
+    assert len(waits) == grew["io.batches"] + len(READS01)
+    assert len(stages) == grew["io.batches"]
+    assert not [1 for a, b in stages for s, e in waits if s < b and a < e]
+    assert names.count("classify.file") == len(READS01)
+    assert names.count("classify.fetch_tally") == len(READS01)
+    for name in ("classify.sort_barcodes", "classify.decide_format",
+                 "classify.write"):
+        assert names.count(name) == 1, name
+    files = [(s, e) for n, s, e in spans if n == "classify.file"]
+    inner = [(s, e) for n, s, e in spans
+             if n in ("io.read_wait", "classify.stage",
+                      "classify.fetch_tally")]
+    assert all(any(a <= s and e <= b for a, b in files) for s, e in inner)
+
+
+def _write(tally, table) -> bytes:
+    out = io.BytesIO()
+    C.write_phased_barcodes(tally, table, out, w0=1.04)
+    return out.getvalue()
+
+
+def _as_fastq(src: pathlib.Path, dst: pathlib.Path) -> str:
+    with open(dst, "wb") as f:
+        for head, seq in FQ.fasta_records(str(src)):
+            f.write(b"@%s\n%s\n+\n%s\n" % (head, seq, b"I" * len(seq)))
+    return str(dst)
+
+
+def test_partitioned_markers_read_each_parent_once_a_pass(tmp_path):
+    """build-markers in two key-range passes on the stage-00 goldens as
+    fastq: each parent is read once in each pass of both sweeps, and the
+    maternal file once more for the boundary sample; every span of the
+    stage-00 path is in the trace, and the outputs are the goldens."""
+    fq = {p: _as_fastq(src, tmp_path / f"{p}.fq")
+          for p, src in PARENTS00.items()}
+    reads = {p: _records(fq[p]) for p in fq}
+    before = dict(P.COUNTERS)
+    out = tmp_path / "out"
+    out.mkdir()
+    with torch.profiler.profile(activities=CPU) as prof:
+        M.build_unshared_markers(
+            [fq["paternal"]], [fq["maternal"]], str(out), auto_bounds=True,
+            n_parts=2, engine="device", device="cpu", log=io.StringIO())
+    n_parts = 2
+    assert P.COUNTERS["io.reads"] - before.get("io.reads", 0) == \
+        2 * n_parts * (reads["paternal"] + reads["maternal"]) \
+        + reads["maternal"]
+    assert P.COUNTERS["io.reader_opens"] - before.get(
+        "io.reader_opens", 0) == 2 * n_parts * 2 + 1
+    names = {n for n, _, _ in _spans(prof, tmp_path / "trace.json")}
+    assert {"io.read_wait", "markers.sample_boundaries",
+            "markers.count_pass", "markers.histo", "markers.dump_words",
+            "markers.algebra", "kmer_count.stage", "kmer_count.fold",
+            "histo_sweep", "bounds", "marker_sweep"} <= names
+    for p in PARENTS00:
+        for name, gold in ((f"{p}.kmercount.histo", f"{p}.histo"),
+                           (f"{p}.bounds.txt", f"{p}.bounds.txt")):
+            assert (out / name).read_bytes() == \
+                (GOLD / "stage00" / gold).read_bytes(), name
+        assert sorted((out / f"{p}.unique.filter.mer").read_bytes()
+                      .split()) == sorted(
+            (GOLD / "stage00" / f"{p}.unique.filter.mer").read_bytes()
+            .split())
+
+
+def test_python_reader_counts_nothing():
+    """The counters are the native readers': the python fasta reader,
+    which the boundary sample takes on fasta input, counts no reads."""
+    before = P.COUNTERS["io.reads"]
+    got = sum(b.n for b in FQ.sequence_batches(
+        str(PARENTS00["paternal"]), 21, 4096))
+    assert got == _records(PARENTS00["paternal"])
+    assert P.COUNTERS["io.reads"] == before
+
+
+
+def test_counts_from_many_threads_are_all_kept():
+    """Two parents count on two threads: no add is lost, with more
+    threads than cores and a thread switch every microsecond."""
+    threads, adds = 4 * (os.cpu_count() or 1), 2000
+    before = P.COUNTERS["test.adds"]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=lambda: [
+            P.count("test.adds", 3) for _ in range(adds)])
+            for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(interval)
+    assert P.COUNTERS["test.adds"] - before == 3 * adds * threads
