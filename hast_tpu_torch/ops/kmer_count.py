@@ -26,12 +26,15 @@ because torch on the CPU has no uint32/uint64 shifts or compares.
 :class:`DeviceCounter` folds chunks of keys into one resident sorted run
 (K5 + K6 + K12), :class:`DeviceCountTable` is that run, and
 :func:`device_marker_algebra` is the marker algebra over two of them
-(K8); only the final markers come to the host.
+(K8); only the final markers come to the host.  :class:`PackedSpill`
+keeps a parent's reads as K4 takes them in a host file, so that
+key-range passes read the inputs once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import threading
 from typing import Callable, Iterable
@@ -43,7 +46,7 @@ from hast_tpu_torch.io import fastq as FQ
 from hast_tpu_torch.io import native as N
 from hast_tpu_torch.ops import _build
 from hast_tpu_torch.ops import encode as E
-from hast_tpu_torch.utils.profiling import span
+from hast_tpu_torch.utils.profiling import count, span
 
 SENT = torch.iinfo(torch.int64).max
 FOLD_ABOVE = 48_000_000   # DeviceCounter's smallest fold, in keys
@@ -844,6 +847,38 @@ def _on(device, *arrays):
             for a in arrays]
 
 
+def _groups(items: Iterable, n: int):
+    """items in lists of n, the last one shorter when they run out."""
+    buf: list = []
+    for x in items:
+        buf.append(x)
+        if len(buf) >= n:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
+def _ascii_staged(buf: list):
+    """(packed, lengths, good) of ASCII ReadBatches, as _assemble_ascii
+    stacks them."""
+    packed, good, lengths = _assemble_ascii(buf)
+    return packed, lengths, good
+
+
+def _count_staged(dcounter: "DeviceCounter", staged, key_range) -> None:
+    """A super batch (packed, lengths, good or None) to the device, its
+    window keys (K4) into dcounter.  The staged tensors are held until
+    the chunk is queued, so a fold it sets off runs with them held."""
+    packed, lengths, good = staged
+    with span("kmer_count.stage"):
+        packed_t, lengths_t = _on(dcounter.device, packed, lengths)
+        good_t = None if good is None else _on(dcounter.device, good)[0]
+        keys = count_windows(packed_t, lengths_t, dcounter.k, good_t,
+                             key_range)
+    dcounter.add_sorted_chunk(keys)
+
+
 def count_batches(batches: Iterable, k: int, super_batch: int = 8,
                   finalize: bool = True, key_range=None,
                   fold_above: int = FOLD_ABOVE, device="cuda"
@@ -857,21 +892,47 @@ def count_batches(batches: Iterable, k: int, super_batch: int = 8,
     still on the device.
     """
     dcounter = DeviceCounter(k, device, fold_above)
-    buf: list = []
-
-    def flush():
-        packed, good, lengths = _on(dcounter.device, *_assemble_ascii(buf))
-        buf.clear()
-        dcounter.add_sorted_chunk(count_windows(packed, lengths, k, good,
-                                                key_range))
-
-    for batch in batches:
-        buf.append(batch)
-        if len(buf) >= super_batch:
-            flush()
-    if buf:
-        flush()
+    for buf in _groups(batches, super_batch):
+        _count_staged(dcounter, _ascii_staged(buf), key_range)
     return dcounter if not finalize else dcounter.finalize()
+
+
+def _sample_bounds(staged_batches: Iterable, k: int, n_parts: int,
+                   device) -> np.ndarray:
+    """(n_parts + 1,) uint64 split points at the quantiles of the real
+    window keys of the sampled batches, each (packed, lengths, good or
+    None), [0, 2^64) padded; even splits when the sample holds no key.
+    The keys are sorted and picked on the device: only the split points
+    come to the host.  Each batch goes to the device before the next is
+    taken, so a batch may be a view its source then reuses."""
+    chunks = []
+    for packed, lengths, good in staged_batches:
+        tensors = _on(device, packed, lengths,
+                      *(() if good is None else (good,)))
+        chunks.append(count_windows(tensors[0], tensors[1], k,
+                                    *tensors[2:]))
+    bounds = np.empty(n_parts + 1, np.uint64)
+    bounds[0] = 0
+    bounds[-1] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    keys = sort_pairs(torch.cat(chunks), None, k)[0] if chunks else None
+    # the sentinels sort after every real key
+    n = 0 if keys is None else int((keys != SENT).sum())
+    if n:
+        at = torch.tensor([min(n - 1, n * p // n_parts)
+                           for p in range(1, n_parts)], dtype=torch.int64,
+                          device=keys.device)
+        bounds[1:-1] = keys[at].cpu().numpy().astype(np.uint64)
+    else:
+        for p in range(1, n_parts):
+            # python-int arithmetic: uint64 p * 2^62 would wrap
+            bounds[p] = np.uint64((p * 2**64) // n_parts)
+    return bounds
+
+
+def _strided(items: Iterable, n_sample: int, scan_cap: int) -> list:
+    """Every (scan_cap // n_sample)-th of the first scan_cap items."""
+    stride = max(1, scan_cap // n_sample)
+    return [x for i, x in zip(range(scan_cap), items) if i % stride == 0]
 
 
 def estimate_boundaries(batches_sample, k: int, n_parts: int,
@@ -880,26 +941,8 @@ def estimate_boundaries(batches_sample, k: int, n_parts: int,
     canonical k-mers (canonical keys skew low, so even splits would
     unbalance the passes).  Returns (n_parts + 1,) uint64 ascending
     bounds, [0, 2^64) padded."""
-    chunks = []
-    for b in batches_sample:
-        packed, good, lengths = _on(device, *_assemble_ascii([b]))
-        keys, _ = sort_pairs(count_windows(packed, lengths, k, good), None,
-                             k)
-        w = keys.cpu().numpy()
-        chunks.append(w[w != SENT].astype(np.uint64))
-    sample = np.sort(np.concatenate(chunks)) if chunks else \
-        np.zeros(0, np.uint64)
-    bounds = np.empty(n_parts + 1, np.uint64)
-    bounds[0] = 0
-    bounds[-1] = np.uint64(0xFFFFFFFFFFFFFFFF)
-    for p in range(1, n_parts):
-        if sample.size:
-            bounds[p] = sample[min(sample.size - 1,
-                                   sample.size * p // n_parts)]
-        else:
-            # python-int arithmetic: uint64 p * 2^62 would wrap
-            bounds[p] = np.uint64((p * 2**64) // n_parts)
-    return bounds
+    return _sample_bounds((_ascii_staged([b]) for b in batches_sample), k,
+                          n_parts, device)
 
 
 def sample_boundaries(batch_source: Callable, k: int, n_parts: int,
@@ -908,15 +951,10 @@ def sample_boundaries(batch_source: Callable, k: int, n_parts: int,
     """Quantile split points from a strided sample: every
     (scan_cap // n_sample)-th of the first scan_cap batches, since
     genomic input is locally correlated."""
-    stride = max(1, scan_cap // n_sample)
-    sample = []
     with span("markers.sample_boundaries"):
-        for i, b in enumerate(batch_source()):
-            if i >= scan_cap:
-                break
-            if i % stride == 0:
-                sample.append(b)
-        return estimate_boundaries(sample, k, n_parts, device)
+        return estimate_boundaries(
+            _strided(batch_source(), n_sample, scan_cap), k, n_parts,
+            device)
 
 
 def count_pass_device(batch_source: Callable, k: int, lo_bound, hi_bound,
@@ -972,6 +1010,54 @@ def open_count_reader(path: str, batch_size: int = 1 << 14):
         return None
 
 
+class _ReaderBroke(Exception):
+    """The native counting reader stopped partway through a file (a read
+    beyond its length cap, multi-line fasta): the python reader redoes
+    the whole file."""
+
+
+def _native_groups(reader, super_batch: int):
+    """The reader's batches in lists of super_batch.  Only the reader's
+    own errors become _ReaderBroke; an error of the caller's work on a
+    list (the device's, say) propagates as it is."""
+    it = iter(reader)
+    buf: list = []
+    while True:
+        try:
+            batch = next(it)
+        except StopIteration:
+            break
+        except RuntimeError as e:
+            raise _ReaderBroke(str(e)) from e
+        buf.append(batch)
+        if len(buf) >= super_batch:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
+def _stack_native(batches: list):
+    """A super batch of the native reader's batches as K4 takes it:
+    (packed rows at the widest stride, lengths, the ACGT mask), the mask
+    None when every base is ACGT (the common case)."""
+    sp = max(b.packed.shape[1] for b in batches)
+    rows = sum(b.packed.shape[0] for b in batches)
+    packed = np.zeros((rows, sp), np.uint8)
+    lengths = np.zeros(rows, np.int32)
+    clean = all(batch_is_clean(b.good, b.lengths) for b in batches)
+    good = None if clean else np.zeros((rows, sp // 2), np.uint8)
+    r = 0
+    for b in batches:
+        n = b.packed.shape[0]
+        packed[r:r + n, :b.packed.shape[1]] = b.packed
+        lengths[r:r + n] = b.lengths
+        if good is not None:
+            good[r:r + n, :b.good.shape[1]] = b.good
+        r += n
+    return packed, lengths, good
+
+
 def count_file_native(path: str, k: int, batch_size: int = 1 << 14,
                       super_batch: int = 8, finalize: bool = True,
                       key_range=None, fold_above: int = FOLD_ABOVE,
@@ -988,50 +1074,170 @@ def count_file_native(path: str, k: int, batch_size: int = 1 << 14,
     if reader is None:
         return None
     dcounter = DeviceCounter(k, device, fold_above)
-    buf: list = []
-    clean: list = []
-
-    def flush():
-        # the host assembly, the copies to the device and K4
-        with span("kmer_count.stage"):
-            sp = max(b.packed.shape[1] for b in buf)
-            rows = sum(b.packed.shape[0] for b in buf)
-            packed = np.zeros((rows, sp), np.uint8)
-            lengths = np.zeros(rows, np.int32)
-            good = None if all(clean) else np.zeros((rows, sp // 2), np.uint8)
-            r = 0
-            for b in buf:
-                n = b.packed.shape[0]
-                packed[r:r + n, :b.packed.shape[1]] = b.packed
-                lengths[r:r + n] = b.lengths
-                if good is not None:
-                    good[r:r + n, :b.good.shape[1]] = b.good
-                r += n
-            buf.clear()
-            clean.clear()
-            packed_t, lengths_t = _on(dcounter.device, packed, lengths)
-            good_t = None if good is None else _on(dcounter.device, good)[0]
-            keys = count_windows(packed_t, lengths_t, k, good_t,
-                                 key_range)
-        dcounter.add_sorted_chunk(keys)
-
-    # only reader errors (truncation, multi-line fasta) may trigger the
-    # python fallback; a device error from flush() propagates
-    it = iter(reader)
     try:
-        while True:
-            try:
-                batch = next(it)
-            except StopIteration:
-                break
-            except RuntimeError:
-                return None
-            buf.append(batch)
-            clean.append(batch_is_clean(batch.good, batch.lengths))
-            if len(buf) >= super_batch:
-                flush()
-        if buf:
-            flush()
+        for batches in _native_groups(reader, super_batch):
+            _count_staged(dcounter, _stack_native(batches), key_range)
+    except _ReaderBroke:
+        return None
     finally:
         reader.close()
     return dcounter if not finalize else dcounter.finalize()
+
+
+@dataclasses.dataclass(frozen=True)
+class _SpillRecord:
+    """A super batch in a spill file: at offset, the lengths (int32 a
+    row), the packed rows (stride bytes each), then, when masked, the
+    ACGT mask (stride / 2 bytes a row); batches holds the (rows, reads)
+    of each reader batch in it, in order."""
+
+    offset: int
+    stride: int
+    masked: bool
+    batches: tuple
+
+    @property
+    def rows(self) -> int:
+        return sum(rows for rows, _ in self.batches)
+
+    @property
+    def nbytes(self) -> int:
+        return self.rows * (4 + self.stride
+                            + (self.stride // 2 if self.masked else 0))
+
+
+class PackedSpill:
+    """One parent's reads as K4 takes them, read once from its files and
+    then served from a file on the host to every key-range pass (meryl
+    splits its input once: meryl.sh, split.pl).
+
+    Each input file becomes a list of records, one a super batch,
+    assembled as :func:`count_file_native` assembles it; a file the
+    native reader cannot take, or that breaks it partway (its partial
+    records dropped), is assembled from the python reader's batches as
+    :func:`count_batches` does.  The spill file holds the records' bytes
+    back to back; their shapes stay in memory.  A pass reads the records
+    in order into one reused host buffer and sends each to the device as
+    one K4 launch, into a :class:`DeviceCounter` an input file merged
+    into one, as a pass over the input files does, so the launches,
+    shapes and tables are those of reading the files again.
+
+    Counters: ``io.spill_reads`` the reads a pass or the sample takes
+    from the spill, ``io.spill_bytes`` the bytes read back from it; the
+    input readers alone count ``io.reads``.  A spill is for one thread
+    at a time; its owner calls :meth:`remove`.  If the write fails, the
+    constructor removes the file before it raises.
+    """
+
+    def __init__(self, path: str, sources, k: int,
+                 batch_size: int = 1 << 14, super_batch: int = 8):
+        self.path = path
+        self.sources = list(sources)
+        self.k = k
+        self.files: list[list[_SpillRecord]] = []
+        self._buf = np.empty(0, np.uint8)
+        try:
+            with span("markers.spill_write"), open(path, "wb") as f:
+                for src in self.sources:
+                    self.files.append(
+                        self._write_file(f, src, batch_size, super_batch))
+        except BaseException:
+            self.remove()
+            raise
+
+    def _write_file(self, f, src: str, batch_size: int,
+                    super_batch: int) -> list:
+        start = f.tell()
+        reader = open_count_reader(src, batch_size)
+        if reader is not None:
+            records = []
+            try:
+                for batches in _native_groups(reader, super_batch):
+                    records.append(self._append(
+                        f, _stack_native(batches),
+                        [(b.packed.shape[0], b.n) for b in batches]))
+                return records
+            except _ReaderBroke:
+                f.seek(start)
+                f.truncate()
+            finally:
+                reader.close()
+        return [self._append(f, _ascii_staged(buf),
+                             [(b.seqs.shape[0], b.n) for b in buf])
+                for buf in _groups(FQ.sequence_batches(src, self.k,
+                                                       batch_size),
+                                   super_batch)]
+
+    @staticmethod
+    def _append(f, staged, batches) -> _SpillRecord:
+        packed, lengths, good = staged
+        rec = _SpillRecord(f.tell(), packed.shape[1], good is not None,
+                           tuple(batches))
+        for a in (lengths, packed, good):
+            if a is not None:
+                f.write(np.ascontiguousarray(a).data)
+        return rec
+
+    def _read(self, f, rec: _SpillRecord):
+        """A record's (packed, lengths, good or None), views of the
+        reused buffer: valid until the next read."""
+        with span("markers.spill_read"):
+            n = rec.nbytes
+            if self._buf.size < n:
+                self._buf = np.empty(n, np.uint8)
+            f.seek(rec.offset)
+            if f.readinto(memoryview(self._buf)[:n]) != n:
+                raise EOFError(f"{self.path}: spill ends inside a record")
+            rows, sp = rec.rows, rec.stride
+            lengths = self._buf[:4 * rows].view(np.int32)
+            packed = self._buf[4 * rows:(4 + sp) * rows].reshape(rows, sp)
+            good = (self._buf[(4 + sp) * rows:n].reshape(rows, sp // 2)
+                    if rec.masked else None)
+        count("io.spill_bytes", n)
+        return packed, lengths, good
+
+    def count_pass(self, key_range, fold_above: int = FOLD_ABOVE,
+                   device="cuda") -> DeviceCountTable:
+        """One key-range pass over the spill: the window keys in
+        key_range = (lo, hi), counted on the device."""
+        total = DeviceCounter(self.k, device, fold_above)
+        with open(self.path, "rb") as f:
+            for records in self.files:
+                dcounter = DeviceCounter(self.k, device, fold_above)
+                for rec in records:
+                    _count_staged(dcounter, self._read(f, rec), key_range)
+                    count("io.spill_reads", sum(r for _, r in rec.batches))
+                total.merge_device(dcounter)
+        return total.finalize_device()
+
+    def sample_boundaries(self, n_parts: int, n_sample: int = 16,
+                          scan_cap: int = 512, device="cuda") -> np.ndarray:
+        """:func:`sample_boundaries` over the spill's reader batches,
+        each sliced out of its record.  For fastq, batch i of the native
+        reader holds the reads of batch i of FQ.sequence_batches, so the
+        split points are the same."""
+        with span("markers.sample_boundaries"):
+            picked = _strided(((rec, i) for records in self.files
+                               for rec in records
+                               for i in range(len(rec.batches))),
+                              n_sample, scan_cap)
+            with open(self.path, "rb") as f:
+                return _sample_bounds(self._batches(f, picked), self.k,
+                                      n_parts, device)
+
+    def _batches(self, f, picked):
+        """The (packed, lengths, good) of each picked (record, batch),
+        sliced out of its record: views, valid until the next read."""
+        for rec, i in picked:
+            r0 = sum(rows for rows, _ in rec.batches[:i])
+            rows, reads = rec.batches[i]
+            count("io.spill_reads", reads)
+            yield tuple(None if a is None else a[r0:r0 + rows]
+                        for a in self._read(f, rec))
+
+    def remove(self) -> None:
+        """Delete the spill file (nothing if it is gone)."""
+        try:
+            os.unlink(self.path)
+        except FileNotFoundError:
+            pass

@@ -342,42 +342,48 @@ def _build_unshared_markers_device(paternal, maternal, out_dir, k,
 def _markers_partitioned(paternal, maternal, k, auto_bounds, bounds,
                          batch_size, log, n_parts, device, timer, j, paths):
     """The two sweeps of the n_parts > 1 device engine; returns the
-    marker counts (paternal, maternal)."""
-    def mat_source():
-        for path in maternal:
-            yield from FQ.sequence_batches(path, k, batch_size)
+    marker counts (paternal, maternal).
 
+    Each parent's files are read once, into a spill of packed rows
+    beside the outputs (KC.PackedSpill, as meryl splits its input once);
+    the boundary sample and every pass read the spills, which are
+    removed when the step ends, whether it succeeds or fails."""
+    spills: dict[str, KC.PackedSpill] = {}
+    try:
+        with timer.phase("spill"):
+            for name, files in (("maternal", maternal),
+                                ("paternal", paternal)):
+                spills[name] = KC.PackedSpill(j(f"{name}.reads.spill"),
+                                              files, k, batch_size)
+        return _sweeps(spills, k, auto_bounds, bounds, log, n_parts, device,
+                       timer, j, paths)
+    finally:
+        for spill in spills.values():
+            spill.remove()
+
+
+def _sweeps(spills, k, auto_bounds, bounds, log, n_parts, device, timer, j,
+            paths):
+    """Sweep A sums each parent's histograms over the key ranges, sweep
+    B counts each range of both parents and keeps its markers."""
     # a range pass keeps ~1/n_parts of the stream, so bigger, fewer folds
     # fit the same memory
     fold_above = min(192_000_000, KC.FOLD_ABOVE * n_parts)
 
-    def count_range(files, lo_b, hi_b) -> KC.DeviceCountTable:
-        """One key-range pass over a parent's files: the native reader
-        where it takes the file, else the python reader."""
+    def count_range(name, lo_b, hi_b) -> KC.DeviceCountTable:
+        """One key-range pass over a parent's spill."""
         with span("markers.count_pass"):
-            total = KC.DeviceCounter(k, device, fold_above=fold_above)
-            for path in files:
-                dc = KC.count_file_native(
-                    path, k, batch_size, finalize=False,
-                    key_range=(lo_b, hi_b), fold_above=fold_above,
-                    device=device)
-                if dc is None:
-                    dc = KC.count_pass_device(
-                        lambda p=path: FQ.sequence_batches(p, k, batch_size),
-                        k, lo_b, hi_b, fold_above=fold_above, device=device)
-                total.merge_device(dc)
-            return total.finalize_device()
+            return spills[name].count_pass((lo_b, hi_b), fold_above, device)
 
-    boundaries = KC.sample_boundaries(mat_source, k, n_parts,
-                                      device=device)
-    parents = (("maternal", maternal), ("paternal", paternal))
-    hists = {name: np.zeros(HIGH + 2, np.int64) for name, _ in parents}
-    stats = {name: [0, 0] for name, _ in parents}
+    boundaries = spills["maternal"].sample_boundaries(n_parts, device=device)
+    parents = ("maternal", "paternal")
+    hists = {name: np.zeros(HIGH + 2, np.int64) for name in parents}
+    stats = {name: [0, 0] for name in parents}
     with timer.phase("histo_sweep"):
         for p in range(n_parts):
-            for name, files in parents:
+            for name in parents:
                 t0 = time.perf_counter()
-                t = count_range(files, boundaries[p], boundaries[p + 1])
+                t = count_range(name, boundaries[p], boundaries[p + 1])
                 hists[name] += t.histo(high=HIGH)
                 stats[name][0] += t.n_distinct
                 stats[name][1] += t.total
@@ -385,7 +391,7 @@ def _markers_partitioned(paternal, maternal, k, auto_bounds, bounds,
                       f"{t.n_distinct} distinct resident, "
                       f"{time.perf_counter() - t0:.1f}s", file=log)
                 del t
-    for name, _ in parents:
+    for name in parents:
         print(f"  {name}: {stats[name][0]} distinct / {stats[name][1]} "
               f"total {k}-mers", file=log)
     with timer.phase("bounds"):
@@ -397,8 +403,8 @@ def _markers_partitioned(paternal, maternal, k, auto_bounds, bounds,
     p_parts, m_parts = [], []
     with timer.phase("marker_sweep"):
         for p in range(n_parts):
-            dmat = count_range(maternal, boundaries[p], boundaries[p + 1])
-            dpat = count_range(paternal, boundaries[p], boundaries[p + 1])
+            dmat = count_range("maternal", boundaries[p], boundaries[p + 1])
+            dpat = count_range("paternal", boundaries[p], boundaries[p + 1])
             pw, mw = KC.device_marker_algebra(dpat, dmat, p_lower, p_upper,
                                               m_lower, m_upper)
             print(f"  marker pass {p + 1}/{n_parts}: {pw.size}+{mw.size} "

@@ -9,16 +9,24 @@ sorted, and the .mer files byte-identical to hast_tpu's on the same
 inputs (both write ascending canonical words).  Also the host engine's
 sub-step resume, the multi-line fasta fallback, the native reader as
 the port opens it and the port's parental-read generator against
-hast_tpu's.  Exact comparisons throughout.
+hast_tpu's.  The key-range passes' spill (ops.kmer_count.PackedSpill):
+outputs, its removal on success and on error, files of both readers,
+its boundary sample against the ASCII reader's, and on the card its
+device peak against re-reading the files.  Exact comparisons
+throughout.
 """
 
+import io
 import pathlib
 
 import numpy as np
 import pytest
+import torch
 
+from hast_tpu_torch.io import fastq as FQ
 from hast_tpu_torch.ops import kmer_count as KC
 from hast_tpu_torch.pipeline import markers as M
+from hast_tpu_torch.utils import profiling as P
 
 GOLD = pathlib.Path(__file__).parent / "golden" / "stage00"
 PAT = [str(GOLD / "paternal.reads.fa.gz")]
@@ -83,7 +91,6 @@ def test_build_markers_reads_the_environment(tmp_path, monkeypatch, var,
     """Without --count-parts and --engine (and under `run`, which has
     neither flag), build-markers takes HAST_COUNT_PARTS and
     HAST_STAGE00_ENGINE as the JAX package does."""
-    import io
     from hast_tpu_torch.cli import main
     log = io.StringIO()
     real = M.build_unshared_markers
@@ -218,3 +225,247 @@ def test_synthetic_parent_reads_match_jax_package(tmp_path, err_rate):
     assert n == JS.make_parent_reads_vectorized(3, genomes[0], str(theirs),
                                                 8.0, 100, err_rate) == 1600
     assert ours.read_bytes() == theirs.read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# key-range passes from the spill
+# ---------------------------------------------------------------------------
+
+OUTPUTS = tuple(f"{p}.{x}" for p in PARENTS
+                for x in ("unique.filter.mer", "kmercount.histo",
+                          "bounds.txt"))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _fastq(path: pathlib.Path, records) -> str:
+    with open(path, "wb") as f:
+        for head, seq in records:
+            f.write(b"@%s\n%s\n+\n%s\n" % (head, seq, b"I" * len(seq)))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def golden_fastq(tmp_path_factory):
+    """The stage-00 goldens as fastq, and their one-pass outputs."""
+    d = tmp_path_factory.mktemp("stage00_fastq")
+    fq = {p: _fastq(d / f"{p}.fq", FQ.fasta_records(
+        str(GOLD / f"{p}.reads.fa.gz"))) for p in PARENTS}
+    return fq, _build(d / "one_pass", [fq["paternal"]], [fq["maternal"]],
+                      1, device="cpu")
+
+
+def _build(out: pathlib.Path, paternal, maternal, n_parts: int,
+           **kw) -> dict:
+    """The six stage-00 files of a device-engine build into out."""
+    out.mkdir()
+    M.build_unshared_markers(paternal, maternal, str(out), auto_bounds=True,
+                             n_parts=n_parts, engine="device",
+                             log=io.StringIO(), **kw)
+    assert not list(out.glob("*.spill"))
+    return {name: (out / name).read_bytes() for name in OUTPUTS}
+
+
+def _assert_goldens(files: dict) -> None:
+    for p in PARENTS:
+        assert files[f"{p}.kmercount.histo"] == \
+            (GOLD / f"{p}.histo").read_bytes(), p
+        assert files[f"{p}.bounds.txt"] == \
+            (GOLD / f"{p}.bounds.txt").read_bytes(), p
+        assert sorted(files[f"{p}.unique.filter.mer"].split()) == sorted(
+            (GOLD / f"{p}.unique.filter.mer").read_bytes().split()), p
+
+
+@pytest.mark.parametrize("n_parts", [2, 3])
+def test_spilled_passes_give_the_goldens(tmp_path, golden_fastq, n_parts):
+    """Passes from the spill on the goldens as fastq: the histos and
+    bounds are the goldens, the .mer files the one-pass run's bytes, and
+    no spill is left beside them."""
+    fq, one_pass = golden_fastq
+    got = _build(tmp_path / "out", [fq["paternal"]], [fq["maternal"]],
+                 n_parts, device="cpu")
+    _assert_goldens(got)
+    assert got == one_pass
+
+
+@pytest.mark.parametrize("n_parts", [2, 3])
+def test_spill_removed_when_a_pass_fails(tmp_path, golden_fastq,
+                                         monkeypatch, n_parts):
+    """A pass that raises (its merge on the device fails once): the
+    error reaches the caller, no spill is left and the step is not
+    marked done, so the rerun counts everything and gives the goldens."""
+    fq, one_pass = golden_fastq
+    real = KC.DeviceCounter.merge_device
+    calls = []
+
+    def fail_once(self, other):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("simulated device failure")
+        return real(self, other)
+
+    monkeypatch.setattr(KC.DeviceCounter, "merge_device", fail_once)
+    out = tmp_path / "out"
+    out.mkdir()
+    with pytest.raises(RuntimeError, match="simulated"):
+        M.build_unshared_markers([fq["paternal"]], [fq["maternal"]],
+                                 str(out), auto_bounds=True,
+                                 n_parts=n_parts, engine="device",
+                                 device="cpu", log=io.StringIO())
+    assert not list(out.glob("*.spill"))
+    assert not list(out.glob("step_*_done"))
+    M.build_unshared_markers([fq["paternal"]], [fq["maternal"]], str(out),
+                             auto_bounds=True, n_parts=n_parts,
+                             engine="device", device="cpu",
+                             log=io.StringIO())
+    assert not list(out.glob("*.spill"))
+    assert {name: (out / name).read_bytes() for name in OUTPUTS} == \
+        one_pass
+
+
+def test_spill_takes_files_of_both_readers(tmp_path):
+    """A paternal list of two files, fastq the native reader takes and
+    multi-line fasta it refuses: the spill holds both, and the outputs
+    are the one-pass run's and the goldens."""
+    records = list(FQ.fasta_records(str(GOLD / "paternal.reads.fa.gz")))
+    half = len(records) // 2
+    first = _fastq(tmp_path / "pa1.fq", records[:half])
+    second = tmp_path / "pa2.fa"
+    with open(second, "wb") as f:
+        for head, seq in records[half:]:
+            f.write(b">%s\n%s\n%s\n" % (head, seq[:40], seq[40:]))
+    paternal = [first, str(second)]
+    spill = KC.PackedSpill(str(tmp_path / "pa.spill"), paternal, 21)
+    try:
+        assert [sum(reads for rec in recs for _, reads in rec.batches)
+                for recs in spill.files] == [half, len(records) - half]
+    finally:
+        spill.remove()
+    assert not (tmp_path / "pa.spill").exists()
+    one = _build(tmp_path / "one", paternal, MAT, 1, device="cpu")
+    got = _build(tmp_path / "parts", paternal, MAT, 2, device="cpu")
+    assert got == one
+    _assert_goldens(got)
+
+
+def _n_reads_fastq(path: pathlib.Path, n: int, seed: int) -> str:
+    """n reads of 40-130 bases off a random genome; N bases only in the
+    first 512, so that the spill holds masked and clean records."""
+    rng = np.random.default_rng(seed)
+    genome = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 20_000)]
+    records = []
+    for i in range(n):
+        length = int(rng.integers(40, 131))
+        start = int(rng.integers(0, genome.size - length))
+        seq = genome[start:start + length].copy()
+        if i < 512 and i % 3 == 0:
+            seq[rng.integers(0, length, 2)] = ord("N")
+        records.append((b"r%d" % i, seq.tobytes()))
+    return _fastq(path, records)
+
+
+@pytest.mark.parametrize("n_sample,scan_cap", [(16, 512), (4, 16), (3, 7)])
+@pytest.mark.parametrize("n_parts", [2, 4])
+def test_spill_sample_matches_the_ascii_readers(tmp_path, n_sample,
+                                                scan_cap, n_parts):
+    """The boundaries sampled from the maternal spill are those of
+    sample_boundaries over the ASCII reader, on a fastq of 40 batches
+    of 64 reads (the last 5 short) with N bases in the first 8
+    batches' reads; the sample counts only its batches' reads."""
+    k, bs = 21, 64
+    path = _n_reads_fastq(tmp_path / "ma.fq", 40 * bs - 5, 3)
+    spill = KC.PackedSpill(str(tmp_path / "ma.spill"), [path], k, bs)
+    try:
+        assert {rec.masked for recs in spill.files for rec in recs} == \
+            {True, False}
+        before = P.COUNTERS["io.spill_reads"]
+        got = spill.sample_boundaries(n_parts, n_sample, scan_cap,
+                                      device="cpu")
+        picked = range(0, min(scan_cap, 40), max(1, scan_cap // n_sample))
+        assert P.COUNTERS["io.spill_reads"] - before == \
+            sum(bs if i < 39 else bs - 5 for i in picked)
+    finally:
+        spill.remove()
+    want = KC.sample_boundaries(lambda: FQ.sequence_batches(path, k, bs),
+                                k, n_parts, n_sample, scan_cap,
+                                device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype and (got[1:] > got[:-1]).all()
+
+
+def test_spill_redoes_a_file_the_native_reader_breaks_on(tmp_path):
+    """A fastq whose read of 9,000 bases (past the native reader's cap)
+    comes after more than a record of batches: the native records of the
+    file are dropped and the python reader's take their place, so every
+    read is in the spill once and a full-range pass counts what
+    count_batches counts over the ASCII reader."""
+    k, bs = 21, 64
+    path = tmp_path / "long.fq"
+    _n_reads_fastq(path, 20 * bs, 5)
+    rng = np.random.default_rng(6)
+    long_read = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 9000)]
+    with open(path, "ab") as f:
+        f.write(b"@long\n%s\n+\n%s\n" % (long_read.tobytes(),
+                                          b"I" * 9000))
+    spill = KC.PackedSpill(str(tmp_path / "long.spill"), [str(path)], k, bs)
+    try:
+        assert sum(reads for recs in spill.files for rec in recs
+                   for _, reads in rec.batches) == 20 * bs + 1
+        got = spill.count_pass((0, (1 << 64) - 1), device="cpu").fetch()
+    finally:
+        spill.remove()
+    want = KC.count_batches(FQ.sequence_batches(str(path), k, bs), k,
+                            device="cpu")
+    np.testing.assert_array_equal(got.words, want.words)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert want.total > 20 * bs
+
+
+@pytest.mark.cuda
+def test_spilled_passes_hold_the_reread_peak_on_the_card(card, tmp_path,
+                                                         monkeypatch):
+    """A --count-parts 4 build of generated parents on the card: the same
+    six files, and the same torch.cuda.max_memory_allocated(), as the
+    build whose passes read the parents' files again, as they did
+    before the spill."""
+    from hast_tpu_torch.utils import synthetic as S
+    bs = 4096
+    pat_genome, mat_genome = S.make_trio_genomes(5, 400_000,
+                                                 het_rate=0.002)
+    pa, ma = str(tmp_path / "pa.fa"), str(tmp_path / "ma.fa")
+    n_pa = S.make_parent_reads_vectorized(1, pat_genome, pa, 30.0, 100,
+                                          0.002)
+    n_ma = S.make_parent_reads_vectorized(2, mat_genome, ma, 30.0, 100,
+                                          0.002)
+
+    def reread(self, key_range, fold_above=KC.FOLD_ABOVE, device="cuda"):
+        total = KC.DeviceCounter(self.k, device, fold_above)
+        for path in self.sources:
+            total.merge_device(KC.count_file_native(
+                path, self.k, bs, finalize=False, key_range=key_range,
+                fold_above=fold_above, device=device))
+        return total.finalize_device()
+
+    def build(name):
+        reads = P.COUNTERS["io.reads"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        files = _build(tmp_path / name, [pa], [ma], 4, batch_size=bs,
+                       device=card)
+        torch.cuda.synchronize()
+        return (files, torch.cuda.max_memory_allocated(),
+                P.COUNTERS["io.reads"] - reads)
+
+    spilled, spilled_peak, spilled_reads = build("spilled")
+    with monkeypatch.context() as m:
+        m.setattr(KC.PackedSpill, "count_pass", reread)
+        reread_files, reread_peak, reread_reads = build("reread")
+    assert spilled == reread_files
+    assert spilled_peak == reread_peak
+    assert spilled_reads == n_pa + n_ma
+    assert reread_reads == 9 * (n_pa + n_ma)

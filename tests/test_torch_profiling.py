@@ -126,9 +126,10 @@ def _as_fastq(src: pathlib.Path, dst: pathlib.Path) -> str:
 
 def test_partitioned_markers_read_each_parent_once_a_pass(tmp_path):
     """build-markers in two key-range passes on the stage-00 goldens as
-    fastq: each parent is read once in each pass of both sweeps, and the
-    maternal file once more for the boundary sample; every span of the
-    stage-00 path is in the trace, and the outputs are the goldens."""
+    fastq: each parent's file is read once a job, into its spill, and
+    every pass of both sweeps and the boundary sample read the spills;
+    every span of the stage-00 path is in the trace, and the outputs
+    are the goldens."""
     fq = {p: _as_fastq(src, tmp_path / f"{p}.fq")
           for p, src in PARENTS00.items()}
     reads = {p: _records(fq[p]) for p in fq}
@@ -140,13 +141,22 @@ def test_partitioned_markers_read_each_parent_once_a_pass(tmp_path):
             [fq["paternal"]], [fq["maternal"]], str(out), auto_bounds=True,
             n_parts=2, engine="device", device="cpu", log=io.StringIO())
     n_parts = 2
-    assert P.COUNTERS["io.reads"] - before.get("io.reads", 0) == \
-        2 * n_parts * (reads["paternal"] + reads["maternal"]) \
-        + reads["maternal"]
-    assert P.COUNTERS["io.reader_opens"] - before.get(
-        "io.reader_opens", 0) == 2 * n_parts * 2 + 1
+    grew = {k: P.COUNTERS[k] - before.get(k, 0)
+            for k in ("io.reads", "io.reader_opens", "io.spill_reads",
+                      "io.spill_bytes")}
+    assert grew["io.reads"] == reads["paternal"] + reads["maternal"]
+    assert grew["io.reader_opens"] == 2
+    # the sample: every 32nd of the first 512 maternal batches
+    bs = FQ.DEFAULT_BATCH
+    sampled = sum(min(bs, reads["maternal"] - i)
+                  for i in range(0, reads["maternal"], 32 * bs))
+    assert grew["io.spill_reads"] == \
+        2 * n_parts * (reads["paternal"] + reads["maternal"]) + sampled
+    assert grew["io.spill_bytes"] > 0
+    assert not list(out.glob("*.spill"))
     names = {n for n, _, _ in _spans(prof, tmp_path / "trace.json")}
     assert {"io.read_wait", "markers.sample_boundaries",
+            "markers.spill_write", "markers.spill_read",
             "markers.count_pass", "markers.histo", "markers.dump_words",
             "markers.algebra", "kmer_count.stage", "kmer_count.fold",
             "histo_sweep", "bounds", "marker_sweep"} <= names
@@ -163,7 +173,7 @@ def test_partitioned_markers_read_each_parent_once_a_pass(tmp_path):
 
 def test_python_reader_counts_nothing():
     """The counters are the native readers': the python fasta reader,
-    which the boundary sample takes on fasta input, counts no reads."""
+    which takes files the native reader refuses, counts no reads."""
     before = P.COUNTERS["io.reads"]
     got = sum(b.n for b in FQ.sequence_batches(
         str(PARENTS00["paternal"]), 21, 4096))
