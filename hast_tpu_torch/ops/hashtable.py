@@ -26,6 +26,7 @@ import torch
 
 from hast_tpu_torch.io import native as N
 from hast_tpu_torch.ops import _build
+from hast_tpu_torch.utils import profiling as P
 
 BUCKET = 2                       # slots per bucket, "full" format
 QUOT_BUCKET = 4                  # slots per bucket, "quot" format
@@ -65,7 +66,14 @@ class KmerTable:
         return self.data.cpu().numpy().view(np.uint32)
 
     def to(self, device) -> "KmerTable":
-        return dataclasses.replace(self, data=self.data.to(device))
+        """The table on device: span ``table.upload``; counter
+        ``table.upload_bytes`` grows by the bytes copied (none when the
+        rows are there already)."""
+        with P.span("table.upload"):
+            data = self.data.to(device)
+        if data is not self.data:
+            P.count("table.upload_bytes", data.nbytes)
+        return dataclasses.replace(self, data=data)
 
 
 def from_reference(data, n_buckets: int, max_probe: int, k: int,
@@ -260,29 +268,53 @@ def _dedup_or(hi, lo, payload):
     return hi[new], lo[new], pay
 
 
+def table_shape(n: int, k: int, load: float = 0.35,
+                fmt: str = "auto") -> tuple[str, int]:
+    """(format, n_buckets) that :func:`build_table` starts from for n
+    distinct keys: fmt "auto" takes "quot" whenever the quotient fits a
+    slot (2k - log2(n_buckets) <= 29), else "full".  Placement doubles
+    n_buckets while it fails, and "quot" while its quotient is too wide."""
+    def buckets(per: int) -> int:
+        return _next_pow2(max(1, int(np.ceil(n / (per * load)))))
+    if fmt == "auto":
+        fmt = "quot" if 2 * k - buckets(QUOT_BUCKET).bit_length() + 1 <= 29 \
+            else "full"
+    return fmt, buckets(QUOT_BUCKET if fmt == "quot" else BUCKET)
+
+
 def build_table(hi, lo, payload, k: int, load: float = 0.35,
                 set_sizes: tuple[int, ...] = (),
                 fmt: str = "auto") -> KmerTable:
     """Build the table on the host from canonical (hi, lo) uint32 keys and
     payloads; ``KmerTable.to`` moves it to the card.
 
-    Duplicate keys OR their payloads (a marker of both haplotypes gets 3).
-    fmt "auto" takes "quot" whenever the quotient fits a slot
-    (2k - log2(n_buckets) <= 29), else "full".
+    Duplicate keys OR their payloads (a marker of both haplotypes gets 3);
+    fmt and the size are :func:`table_shape`'s.  Span ``table.build``
+    around the call, its children ``table.dedup`` (the sort and merge)
+    and ``table.place``; counters ``table.keys`` (distinct keys stored)
+    and ``table.rows`` (n_buckets) grow by the table's.
     """
-    hi = np.ascontiguousarray(hi, np.uint32)
-    lo = np.ascontiguousarray(lo, np.uint32)
-    payload = np.ascontiguousarray(payload, np.uint32)
-    if hi.size:
-        hi, lo, payload = _dedup_or(hi, lo, payload)
+    with P.span("table.build"):
+        hi = np.ascontiguousarray(hi, np.uint32)
+        lo = np.ascontiguousarray(lo, np.uint32)
+        payload = np.ascontiguousarray(payload, np.uint32)
+        if hi.size:
+            with P.span("table.dedup"):
+                hi, lo, payload = _dedup_or(hi, lo, payload)
+        with P.span("table.place"):
+            table = _place(hi, lo, payload, k, load, set_sizes, fmt)
+    P.count("table.keys", table.n_keys)
+    P.count("table.rows", table.n_buckets)
+    return table
+
+
+def _place(hi, lo, payload, k: int, load: float, set_sizes,
+           fmt: str) -> KmerTable:
+    """The table of distinct sorted keys: 2-choice placement, doubling
+    the buckets until every key is placed."""
     n = hi.size
-
-    if fmt == "auto":
-        nb_q = _next_pow2(max(1, int(np.ceil(n / (QUOT_BUCKET * load)))))
-        fmt = "quot" if 2 * k - nb_q.bit_length() + 1 <= 29 else "full"
-
+    fmt, n_buckets = table_shape(n, k, load, fmt)
     if fmt == "quot":
-        n_buckets = _next_pow2(max(1, int(np.ceil(n / (QUOT_BUCKET * load)))))
         while True:
             bbits = n_buckets.bit_length() - 1
             if 2 * k - bbits > 29:
@@ -310,7 +342,6 @@ def build_table(hi, lo, payload, k: int, load: float = 0.35,
             return from_reference(data, n_buckets, 2, k, n, set_sizes,
                                   "quot", device="cpu")
 
-    n_buckets = _next_pow2(max(1, int(np.ceil(n / (BUCKET * load)))))
     hi_packed = hi | (payload << PAYLOAD_SHIFT)
     while True:
         mask = np.uint32(n_buckets - 1)

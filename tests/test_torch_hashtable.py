@@ -76,6 +76,19 @@ def test_build_table_matches_jax(monkeypatch, placement, fmt, k):
     np.testing.assert_array_equal(got.data_np(), want.data)
 
 
+@pytest.mark.parametrize("n,load,want", [
+    (10 ** 8 + 1, 0.7, ("quot", 2 ** 26)),      # 5e7 markers a haplotype
+    (4 * 10 ** 8 + 1, 0.7, ("quot", 2 ** 28)),  # 2e8 markers a haplotype
+    (2 ** 20, 0.35, ("quot", 2 ** 20)),
+    (3000, 0.7, ("full", 4096)),                # quotient too wide for a slot
+])
+def test_table_shape_sizes_a_table_without_building_it(n, load, want):
+    """build_table's size rule at k 21, for key counts too large to build
+    in a test: the loader's load 0.7 puts two sets of 5e7 markers in 2^26
+    quot rows (1 GiB) and two of 2e8 in 2^28 (4 GiB)."""
+    assert H.table_shape(n, 21, load) == want
+
+
 @pytest.mark.parametrize("fmt,k,n", [
     ("quot", 21, 3000),    # bbits < k
     ("quot", 11, 4000),    # bbits == k

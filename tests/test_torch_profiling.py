@@ -1,6 +1,6 @@
 """The port's tracer (hast_tpu_torch/utils/profiling.py): spans that
 record only under a torch.profiler session, and the host counters, on
-the stage-01 and stage-00 goldens."""
+the stage-01 and stage-00 goldens and on a small marker table."""
 
 import io
 import json
@@ -11,9 +11,11 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 from hast_tpu_torch.io import fastq as FQ
+from hast_tpu_torch.ops import hashtable as H
 from hast_tpu_torch.pipeline import classify as C
 from hast_tpu_torch.pipeline import markers as M
 from hast_tpu_torch.utils import profiling as P
@@ -201,3 +203,62 @@ def test_counts_from_many_threads_are_all_kept():
     finally:
         sys.setswitchinterval(interval)
     assert P.COUNTERS["test.adds"] - before == 3 * adds * threads
+
+
+def _small_table_keys():
+    """300 keys, 40 of them twice (in both sets): 260 distinct."""
+    rng = np.random.default_rng(5)
+    words = np.unique(rng.integers(0, 4 ** 21, 300, dtype=np.int64))[:260]
+    keys = np.concatenate([words, words[:40]])
+    pay = np.concatenate([np.ones(260, np.uint32), np.full(40, 2, np.uint32)])
+    return (keys >> 32).astype(np.uint32), \
+        (keys & 0xFFFFFFFF).astype(np.uint32), pay
+
+
+_TABLE_COUNTERS = ("table.keys", "table.rows", "table.upload_bytes")
+
+
+def test_table_build_and_upload_spans_under_a_session(tmp_path):
+    """build_table opens table.build with table.dedup and table.place
+    inside it; KmerTable.to opens table.upload."""
+    hi, lo, pay = _small_table_keys()
+    with torch.profiler.profile(activities=CPU) as prof:
+        table = H.build_table(hi, lo, pay, 21, load=0.7)
+        table.to("meta")
+    spans = {n: (s, e) for n, s, e in _spans(prof, tmp_path / "t.json")}
+    assert {"table.build", "table.dedup", "table.place",
+            "table.upload"} <= set(spans)
+    b0, b1 = spans["table.build"]
+    for child in ("table.dedup", "table.place"):
+        assert b0 <= spans[child][0] <= spans[child][1] <= b1
+    assert spans["table.dedup"][1] <= spans["table.place"][0]
+    assert spans["table.upload"][0] >= b1
+
+
+def test_table_counters_count_keys_rows_and_bytes_moved():
+    """table.keys grows by the distinct keys, table.rows by the buckets,
+    table.upload_bytes by the rows' bytes when they move and not when
+    they are on the device already."""
+    hi, lo, pay = _small_table_keys()
+    before = {k: P.COUNTERS[k] for k in _TABLE_COUNTERS}
+    table = H.build_table(hi, lo, pay, 21, load=0.7)
+    assert table.n_keys == 260
+    assert H.table_shape(260, 21, 0.7) == (table.fmt, table.n_buckets)
+    table.to("cpu")
+    moved = table.to("meta")
+    assert moved.data.device.type == "meta"
+    grew = {k: P.COUNTERS[k] - before[k] for k in _TABLE_COUNTERS}
+    assert grew == {"table.keys": 260, "table.rows": table.n_buckets,
+                    "table.upload_bytes": 16 * table.n_buckets}
+
+
+def test_table_spans_record_nothing_outside_a_session(monkeypatch):
+    """With no session running, the table's spans enter no annotation
+    and read no clock; the counters count all the same."""
+    assert not torch.autograd.profiler._is_profiler_enabled
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    monkeypatch.setattr(time, "perf_counter", _refuse)
+    hi, lo, pay = _small_table_keys()
+    before = P.COUNTERS["table.keys"]
+    H.build_table(hi, lo, pay, 21, load=0.7).to("meta")
+    assert P.COUNTERS["table.keys"] - before == 260
