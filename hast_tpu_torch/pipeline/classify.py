@@ -20,6 +20,7 @@ output rows are sorted bytewise by barcode.  Reads shorter than k vote
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import sys
@@ -33,7 +34,7 @@ from hast_tpu_torch.io import native as N
 from hast_tpu_torch.ops import _build
 from hast_tpu_torch.ops import encode as E
 from hast_tpu_torch.ops import hashtable as H
-from hast_tpu_torch.utils.profiling import span
+from hast_tpu_torch.utils.profiling import count, span
 
 ADAPTOR_F = "CTGTCTCTTATACACATCTTAGGAAGACAAGCACTGACGACATGA"
 ADAPTOR_R = "TCTGCTGAGTCGAGAACGTCTCTGTGAGCCAAGGAGTTGCTCTGG"
@@ -608,9 +609,11 @@ def classify_fastqs(table: H.KmerTable, paths: Iterable[str],
     """Stream fastq files through K3 into a barcode tally.
 
     The device is the table's.  engine "native" reads with libhastio
-    (decode, 2-bit pack and barcode ids off the GIL), "python" with the
-    pure-Python reader and the host barcode dict, "auto" native when the
-    library builds.  Both feed the same kernel and give the same output.
+    (decode, 2-bit pack and barcode ids off the GIL), several files'
+    readers open at once so that their inflates run side by side
+    (:func:`_classify_native`); "python" with the pure-Python reader and
+    the host barcode dict, "auto" native when the library builds.  Both
+    feed the same kernel and give the same output.
     """
     tally = BarcodeTally()
     if engine == "auto":
@@ -620,8 +623,9 @@ def classify_fastqs(table: H.KmerTable, paths: Iterable[str],
     device = table.data.device
     _log(f"[hast_tpu_torch] classify engine: {engine} reader on {device}")
     if engine == "native":
-        for path in paths:
-            _classify_native(table, path, batch_size, tally, device)
+        paths = list(paths)
+        _classify_native(table, paths, batch_size, tally, device,
+                         _reader_width(len(paths)))
         return tally
     acc = torch.zeros((1 << 12, 3), dtype=torch.int32, device=device)
     for path in paths:
@@ -645,6 +649,11 @@ def classify_fastqs(table: H.KmerTable, paths: Iterable[str],
 LEN_CAPS = (1024, 8192, 1 << 16)
 
 
+def _redo_note(path: str, cap: int, bigger: int) -> None:
+    _log(f"[hast_tpu_torch] NOTE: {path} has reads longer than {cap} "
+         f"bases; redoing it with len_cap {bigger}")
+
+
 def _with_len_caps(path: str, run):
     """run(len_cap) under each of LEN_CAPS until the native reader takes
     every read of path; a read past the last cap raises."""
@@ -652,40 +661,121 @@ def _with_len_caps(path: str, run):
         try:
             return run(cap)
         except N.ReadTooLong:
-            _log(f"[hast_tpu_torch] NOTE: {path} has reads longer than "
-                 f"{cap} bases; redoing it with len_cap {bigger}")
+            _redo_note(path, cap, bigger)
     return run(LEN_CAPS[-1])
 
 
-def _classify_native(table, path, batch_size, tally, device) -> None:
-    """One file through the native reader into a fresh device tally."""
-    _log(f"__process read: {path}")
+def _reader_width(n_paths: int) -> int:
+    """How many files' native readers classify keeps open at once: each
+    reader runs two threads (inflate, parse), so half the usable cores,
+    and at least one."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        cores = os.cpu_count() or 1
+    return min(n_paths, max(1, cores // 2))
 
-    def run(len_cap):
-        reader = N.NativeFastqReader(path, batch_size, len_cap=len_cap,
-                                     packed=True)
-        try:
-            acc = torch.zeros((TALLY_ROWS, 3), dtype=torch.int32,
-                              device=device)
-            for b in reader:
-                with span("classify.stage"):
-                    n = b.n
-                    ids = b.barcode_ids[:n]
-                    acc = grow_tally(acc, int(ids.max(initial=-1)))
-                    tally_step(table, acc, _tensor(b.seqs[:n], device),
-                               _tensor(b.lengths[:n], device),
-                               _tensor(ids, device),
-                               _tensor(b.has_n[:n], device))
-            # a read past len_cap raises above, before this file merges
-            with span("classify.fetch_tally"):
-                names = reader.barcodes_array()
-                tally.merge_names(names, fetch_tally(acc[:names.size]))
-        finally:
-            reader.close()
 
-    with span("classify.file"):
-        _with_len_caps(path, run)
-    _log("__process read done__")
+class _NativeFile:
+    """One file's native reader and its own device tally.  A read past
+    len_cap drops both and reopens the file from its start under the
+    next of LEN_CAPS."""
+
+    def __init__(self, index: int, path: str, batch_size: int, device):
+        self.index, self.path = index, path
+        self._bs, self._device = batch_size, device
+        self._caps = iter(LEN_CAPS)
+        self._open(next(self._caps))
+
+    def _open(self, cap: int) -> None:
+        self._cap = cap
+        self._reader = N.NativeFastqReader(self.path, self._bs, len_cap=cap,
+                                           packed=True)
+        self._batches = iter(self._reader)
+        self._acc = torch.zeros((TALLY_ROWS, 3), dtype=torch.int32,
+                                device=self._device)
+
+    def next_batch(self):
+        """The file's next batch, or None at its end."""
+        while True:
+            try:
+                return next(self._batches, None)
+            except N.ReadTooLong:
+                bigger = next(self._caps, None)
+                if bigger is None:
+                    raise
+                self.close()
+                _redo_note(self.path, self._cap, bigger)
+                self._open(bigger)
+
+    def stage(self, table, b) -> None:
+        """One batch through K3 into the file's tally."""
+        with span("classify.stage"):
+            n, device = b.n, self._device
+            ids = b.barcode_ids[:n]
+            self._acc = grow_tally(self._acc, int(ids.max(initial=-1)))
+            tally_step(table, self._acc, _tensor(b.seqs[:n], device),
+                       _tensor(b.lengths[:n], device), _tensor(ids, device),
+                       _tensor(b.has_n[:n], device))
+
+    def fetch(self):
+        """(barcode names, (n, 3) int64 counts) at the file's end; closes
+        the reader."""
+        with span("classify.fetch_tally"):
+            names = self._reader.barcodes_array()
+            counts = fetch_tally(self._acc[:names.size])
+        self.close()
+        return names, counts
+
+    def close(self) -> None:
+        self._reader.close()
+        self._acc = None
+
+
+def _classify_native(table, paths, batch_size, tally, device,
+                     width: int) -> None:
+    """The files through the native reader, up to width readers open at
+    once on this one thread: a batch from each open reader in turn, the
+    next file opening in the place of one that ends.  Each reader's own
+    threads inflate and parse while this thread serves the others; with
+    width 1 the files go one after the other.  Each file has its own
+    device tally, fetched at its end and merged by barcode name in file
+    order.  A batch taken while another file's reader is open counts as
+    ``classify.overlapped_batches``."""
+    waiting = collections.deque(enumerate(paths))
+    ended: dict = {}        # file index -> (path, names, counts)
+    live: list = []
+    merged = turn = 0
+    try:
+        with span("classify.files"):
+            while waiting and len(live) < width:
+                live.append(_NativeFile(*waiting.popleft(), batch_size,
+                                        device))
+            while live:
+                f = live[turn]
+                b = f.next_batch()
+                if b is not None:
+                    if len(live) > 1:
+                        count("classify.overlapped_batches")
+                    f.stage(table, b)
+                else:
+                    ended[f.index] = (f.path, *f.fetch())
+                    if waiting:
+                        live[turn] = _NativeFile(*waiting.popleft(),
+                                                 batch_size, device)
+                    else:
+                        del live[turn]
+                        turn -= 1
+                    while merged in ended:
+                        path, names, counts = ended.pop(merged)
+                        tally.merge_names(names, counts)
+                        _log(f"__process read: {path}")
+                        _log("__process read done__")
+                        merged += 1
+                turn = (turn + 1) % len(live) if live else 0
+    finally:
+        for f in live:
+            f.close()
 
 
 def _classify_fastqs_native(table: H.KmerTable, paths: Iterable[str],

@@ -12,6 +12,7 @@ so the tolerance is exact equality.  Inputs are copied to tmp_path
 first: a marker load writes its .probetable.npz beside hap0.
 """
 
+import gzip
 import io
 import os
 import pathlib
@@ -28,6 +29,7 @@ from hast_tpu_torch.ops import encode as E
 from hast_tpu_torch.ops import hashtable as H
 from hast_tpu_torch.pipeline import classify as C
 from hast_tpu_torch.pipeline import partition as P
+from hast_tpu_torch.utils.profiling import COUNTERS
 
 GOLD = pathlib.Path(__file__).parent / "golden" / "stage01"
 CASES = {
@@ -415,10 +417,52 @@ def test_snapshot_sees_a_rewrite_within_one_second(tmp_path):
                                   C.load_marker_table(hap0, hap1).data_np())
 
 
-@pytest.mark.parametrize("engine", ["native", "mesh"])
-def test_native_paths_take_reads_past_1024_bases(tmp_path, engine):
+def _sorted_tally(tally):
+    names, counts = tally.finalize()
+    order = np.argsort(names)
+    return names[order], counts[order]
+
+
+@pytest.mark.parametrize("width,third", [(1, False), (2, False), (2, True)])
+def test_interleaved_native_classify(tmp_path, monkeypatch, width, third):
+    """Native classify with up to width files' readers open at once, a
+    batch from each in turn: the stage-01 goldens' bytes, and, with a
+    third file (every other record of reads1, last first) that opens in
+    the place of the shortest file and ends before the first, the python
+    engine's tally on the same list."""
+    if N.get_lib() is None:
+        pytest.skip("libhastio.so unavailable")
+    hap0, hap1, reads, golden, batch = copy_case("main", tmp_path)
+    if third:
+        lines = gzip.decompress(pathlib.Path(reads[0]).read_bytes()).split(
+            b"\n")
+        records = [lines[i:i + 4] for i in range(0, len(lines) - 3, 8)]
+        path = tmp_path / "reads3.fq"
+        path.write_bytes(b"".join(b"\n".join(r) + b"\n"
+                                  for r in records[::-1]))
+        reads.append(str(path))
+    monkeypatch.setattr(C, "_reader_width", lambda n: min(n, width))
+    table = C.load_marker_table(hap0, hap1)
+    C.erase_adaptors(table)
+    overlapped = COUNTERS["classify.overlapped_batches"]
+    got = C.classify_fastqs(table, reads, 512, engine="native")
+    overlapped = COUNTERS["classify.overlapped_batches"] - overlapped
+    assert (overlapped > 0) == (width > 1)
+    want = C.classify_fastqs(table, reads, 512, engine="python")
+    out = io.BytesIO()
+    C.write_phased_barcodes(got, table, out, w0=1.04)
+    if not third:
+        assert out.getvalue() == golden
+    for g, w in zip(_sorted_tally(got), _sorted_tally(want)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("engine", ["native", "mesh", "native-interleaved"])
+def test_native_paths_take_reads_past_1024_bases(tmp_path, engine, capsys):
     """A read of 1,500 bases in a file: both native classify paths redo
-    the file with a larger len_cap and give the python reader's tally."""
+    the file with a larger len_cap and give the python reader's tally.
+    With a file of short reads beside it and both readers open at once,
+    only the long file is redone."""
     from hast_tpu_torch.parallel import mesh as PM
     hap0, hap1, reads, _, batch = copy_case("main", tmp_path)
     lines = pathlib.Path(reads[1]).read_bytes().split(b"\n")
@@ -426,15 +470,26 @@ def test_native_paths_take_reads_past_1024_bases(tmp_path, engine):
     lines[3] = b"I" * 1500
     long_fq = tmp_path / "long.fq"
     long_fq.write_bytes(b"\n".join(lines))
+    paths = [str(long_fq)]
+    if engine == "native-interleaved":
+        paths = [reads[1], str(long_fq)]
     table = C.load_marker_table(hap0, hap1)
-    want = C.classify_fastqs(table, [str(long_fq)], batch,
+    want = C.classify_fastqs(table, paths, batch,
                              engine="python").finalize()
-    if engine == "native":
-        got = C.classify_fastqs(table, [str(long_fq)], batch,
-                                engine="native").finalize()
-    else:
+    opens = COUNTERS["io.reader_opens"]
+    capsys.readouterr()
+    if engine == "mesh":
         got = C.classify_fastqs_mesh(PM.make_mesh(2, devices=["cpu"] * 2),
-                                     table, [str(long_fq)], batch).finalize()
+                                     table, paths, batch).finalize()
+    else:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(C, "_reader_width", lambda n: n)
+            got = C.classify_fastqs(table, paths, batch,
+                                    engine="native").finalize()
+        assert COUNTERS["io.reader_opens"] - opens == len(paths) + 1
+        notes = [ln for ln in capsys.readouterr().err.splitlines()
+                 if "NOTE" in ln]
+        assert len(notes) == 1 and str(long_fq) in notes[0]
     w, g = np.argsort(want[0]), np.argsort(got[0])
     np.testing.assert_array_equal(got[0][g], want[0][w])
     np.testing.assert_array_equal(got[1][g], want[1][w])

@@ -12,6 +12,7 @@ import threading
 import time
 
 import numpy as np
+import pytest
 import torch
 
 from hast_tpu_torch.io import fastq as FQ
@@ -73,16 +74,21 @@ def test_span_and_phase_are_annotations_under_a_session(tmp_path):
     assert P.span("after") is P.span("again")
 
 
-def test_native_classify_spans_and_counters(tmp_path):
+@pytest.mark.parametrize("width", [1, 2])
+def test_native_classify_spans_and_counters(tmp_path, monkeypatch, width):
     """Native classify of the stage-01 goldens under a CPU profiler
-    session: a reader wait a batch handed over, and one more a file for
-    the call that finds its end; no batch's staging inside a wait; every
-    read counted once."""
+    session, with up to width files' readers open at once: a reader wait
+    a batch handed over, and one more a file for the call that finds its
+    end; no batch's staging inside a wait; one fetch a file; every read
+    counted once; all of them inside the one classify.files span of the
+    call, and the batches taken while both files' readers were open
+    counted as overlapped."""
     for f in ("hap0.mer", "hap1.mer"):     # the snapshot goes beside them
         shutil.copy(GOLD / "stage01" / f, tmp_path / f)
     table = C.load_marker_table(str(tmp_path / "hap0.mer"),
                                 str(tmp_path / "hap1.mer"))
     C.erase_adaptors(table)
+    monkeypatch.setattr(C, "_reader_width", lambda n: min(n, width))
     before = dict(P.COUNTERS)
     with torch.profiler.profile(activities=CPU) as prof:
         tally = C.classify_fastqs(table, [str(p) for p in READS01],
@@ -90,10 +96,16 @@ def test_native_classify_spans_and_counters(tmp_path):
         out = _write(tally, table)
     assert out == (GOLD / "stage01" / "phased.barcodes.golden").read_bytes()
     grew = {k: P.COUNTERS[k] - before.get(k, 0)
-            for k in ("io.reads", "io.batches", "io.reader_opens")}
+            for k in ("io.reads", "io.batches", "io.reader_opens",
+                      "classify.overlapped_batches")}
     assert grew["io.reads"] == sum(_records(p) for p in READS01)
     assert grew["io.reader_opens"] == len(READS01)
-    assert grew["io.batches"] >= grew["io.reads"] // 512
+    batches = [-(-_records(p) // 512) for p in READS01]
+    assert grew["io.batches"] == sum(batches)
+    if width == 1:
+        assert grew["classify.overlapped_batches"] == 0
+    else:
+        assert grew["classify.overlapped_batches"] >= 2 * min(batches) - 1
     spans = _spans(prof, tmp_path / "trace.json")
     names = [n for n, _, _ in spans]
     waits = [(s, e) for n, s, e in spans if n == "io.read_wait"]
@@ -101,12 +113,12 @@ def test_native_classify_spans_and_counters(tmp_path):
     assert len(waits) == grew["io.batches"] + len(READS01)
     assert len(stages) == grew["io.batches"]
     assert not [1 for a, b in stages for s, e in waits if s < b and a < e]
-    assert names.count("classify.file") == len(READS01)
+    assert names.count("classify.files") == 1
     assert names.count("classify.fetch_tally") == len(READS01)
     for name in ("classify.sort_barcodes", "classify.decide_format",
                  "classify.write"):
         assert names.count(name) == 1, name
-    files = [(s, e) for n, s, e in spans if n == "classify.file"]
+    files = [(s, e) for n, s, e in spans if n == "classify.files"]
     inner = [(s, e) for n, s, e in spans
              if n in ("io.read_wait", "classify.stage",
                       "classify.fetch_tally")]
