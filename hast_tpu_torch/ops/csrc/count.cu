@@ -10,10 +10,10 @@
 // read r is valid iff p + k <= length and, when a mask is given, all k
 // of its mask bits are set (bit j of mask byte m is base 8m + j).  A
 // valid key outside [lo, hi) becomes the sentinel too.  The bounds are
-// uint64 and compared as uint64: estimate_boundaries returns 2^64 - 1 as
-// the last bound and even splits at or above 2^63, which as int64 would
-// be negative.  Keys are below 2^62 (k <= 31), so the sentinel
-// INT64_MAX sorts after every real key.
+// uint64 and compared as uint64: the boundary sample (kmer_count.py
+// _sample_bounds) returns 2^64 - 1 as the last bound and even splits at
+// or above 2^63, which as int64 would be negative.  Keys are below 2^62
+// (k <= 31), so the sentinel INT64_MAX sorts after every real key.
 //
 // K1 replaces hast_tpu/ops/encode.py `canonical_kmers` + `window_valid`
 // (and the unpack of hast_tpu/pipeline/classify.py `tally_step`): the

@@ -3,9 +3,8 @@ hast_tpu/ops/kmer_count.py).
 
 Host side, copied without jax: the ACGT mask packing and clean-batch
 test, the run-length encoder, the host :class:`CountTable` and
-:class:`Counter`, the jellyfish-style string dump and the key-range
-boundary estimate.  Host tables keep the JAX layout: uint64 words
-``(hi << 32) | lo``, int64 counts.
+:class:`Counter` and the jellyfish-style string dump.  Host tables
+keep the JAX layout: uint64 words ``(hi << 32) | lo``, int64 counts.
 
 Device side: a key is one int64 word per canonical k-mer, the same word
 (below 2^62, as k <= 31); invalid or out-of-range windows are the
@@ -26,16 +25,17 @@ because torch on the CPU has no uint32/uint64 shifts or compares.
 :class:`DeviceCounter` folds chunks of keys into one resident sorted run
 (K5 + K6 + K12), :class:`DeviceCountTable` is that run, and
 :func:`device_marker_algebra` is the marker algebra over two of them
-(K8); only the final markers come to the host.  :class:`PackedSpill`
-keeps a parent's reads as K4 takes them in a host file, so that
-key-range passes read the inputs once.
+(K8); only the final markers come to the host.
+:func:`read_super_batches` reads a file as K4 takes it, through the
+native reader or else the python one; :func:`count_file` counts it, and
+:class:`PackedSpill` keeps a parent's files so read in a host file, from
+which its boundary sample and every key-range pass read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import sys
 import threading
 from typing import Callable, Iterable
 
@@ -901,7 +901,9 @@ def _sample_bounds(staged_batches: Iterable, k: int, n_parts: int,
                    device) -> np.ndarray:
     """(n_parts + 1,) uint64 split points at the quantiles of the real
     window keys of the sampled batches, each (packed, lengths, good or
-    None), [0, 2^64) padded; even splits when the sample holds no key.
+    None), [0, 2^64) padded: canonical keys skew low, so even splits
+    would unbalance the passes, and are taken only when the sample holds
+    no key.
     The keys are sorted and picked on the device: only the split points
     come to the host.  Each batch goes to the device before the next is
     taken, so a batch may be a view its source then reuses."""
@@ -933,66 +935,6 @@ def _strided(items: Iterable, n_sample: int, scan_cap: int) -> list:
     """Every (scan_cap // n_sample)-th of the first scan_cap items."""
     stride = max(1, scan_cap // n_sample)
     return [x for i, x in zip(range(scan_cap), items) if i % stride == 0]
-
-
-def estimate_boundaries(batches_sample, k: int, n_parts: int,
-                        device="cuda") -> np.ndarray:
-    """Key-space split points equalizing mass, from a sample's sorted
-    canonical k-mers (canonical keys skew low, so even splits would
-    unbalance the passes).  Returns (n_parts + 1,) uint64 ascending
-    bounds, [0, 2^64) padded."""
-    return _sample_bounds((_ascii_staged([b]) for b in batches_sample), k,
-                          n_parts, device)
-
-
-def sample_boundaries(batch_source: Callable, k: int, n_parts: int,
-                      n_sample: int = 16, scan_cap: int = 512,
-                      device="cuda") -> np.ndarray:
-    """Quantile split points from a strided sample: every
-    (scan_cap // n_sample)-th of the first scan_cap batches, since
-    genomic input is locally correlated."""
-    with span("markers.sample_boundaries"):
-        return estimate_boundaries(
-            _strided(batch_source(), n_sample, scan_cap), k, n_parts,
-            device)
-
-
-def count_pass_device(batch_source: Callable, k: int, lo_bound, hi_bound,
-                      super_batch: int = 8, fold_above: int = FOLD_ABOVE,
-                      device="cuda") -> DeviceCounter:
-    """One key-range pass: stream the whole input and fold only canonical
-    k-mers in [lo_bound, hi_bound) into a device-resident counter."""
-    return count_batches(batch_source(), k, super_batch, finalize=False,
-                         key_range=(lo_bound, hi_bound),
-                         fold_above=fold_above, device=device)
-
-
-def count_batches_partitioned(batch_source: Callable, k: int, n_parts: int,
-                              super_batch: int = 8,
-                              boundaries: np.ndarray | None = None,
-                              device="cuda") -> CountTable:
-    """Multi-pass counting with a resident run of ~1/n_parts of the
-    distinct set: pass p streams the whole input and keeps only key range
-    p; the ranges are disjoint, so the tables concatenate.
-
-    batch_source: callable returning a fresh iterator of ReadBatches.
-    """
-    if boundaries is None:
-        boundaries = sample_boundaries(batch_source, k, n_parts,
-                                       device=device)
-    parts: list[CountTable] = []
-    for p in range(n_parts):
-        t = count_pass_device(batch_source, k, boundaries[p],
-                              boundaries[p + 1], super_batch,
-                              device=device).finalize()
-        print(f"  count pass {p + 1}/{n_parts}: {t.n_distinct} distinct "
-              f"k-mers resident", file=sys.stderr)
-        parts.append(t)
-    words = np.concatenate([t.words for t in parts])
-    counts = np.concatenate([t.counts for t in parts])
-    if not np.all(words[1:] > words[:-1]):
-        raise RuntimeError("key-range passes overlap")
-    return CountTable(words, counts, k)
 
 
 def open_count_reader(path: str, batch_size: int = 1 << 14):
@@ -1058,30 +1000,59 @@ def _stack_native(batches: list):
     return packed, lengths, good
 
 
-def count_file_native(path: str, k: int, batch_size: int = 1 << 14,
-                      super_batch: int = 8, finalize: bool = True,
-                      key_range=None, fold_above: int = FOLD_ABOVE,
-                      device="cuda") -> "CountTable | DeviceCounter | None":
-    """Count one fasta/fastq file through the native counting reader.
+def read_super_batches(path: str, k: int, attempt: Callable,
+                       batch_size: int = 1 << 14,
+                       super_batch: int = 8) -> None:
+    """Read a fasta/fastq file as K4 takes it: super batches of
+    super_batch reader batches, each (packed, lengths, good or None),
+    with the (rows, reads) of each reader batch in it.
 
-    Its C++ threads decode, 2-bit pack and build the ACGT mask.  A super
-    batch whose bases are all ACGT (the common case) goes to K4 without
-    its mask.  Returns None when the reader cannot take the file (no
-    library, a read beyond its length cap, multi-line fasta): callers
-    fall back to the python reader; the fold is abandoned whole.
+    The native counting reader takes the file when it can: its C++
+    threads decode, 2-bit pack and build the ACGT mask, and a super
+    batch whose bases are all ACGT (the common case) comes without its
+    mask (_stack_native).  When it cannot take the file, or breaks
+    partway (a read beyond its length cap, multi-line fasta), the python
+    reader's batches come instead, from the file's start
+    (_ascii_staged).  attempt() is called before each reading and
+    returns the take(staged, batches) that gets its super batches in
+    order; a second attempt means that what the first took is dropped.
     """
     reader = open_count_reader(path, batch_size)
-    if reader is None:
-        return None
-    dcounter = DeviceCounter(k, device, fold_above)
-    try:
-        for batches in _native_groups(reader, super_batch):
-            _count_staged(dcounter, _stack_native(batches), key_range)
-    except _ReaderBroke:
-        return None
-    finally:
-        reader.close()
-    return dcounter if not finalize else dcounter.finalize()
+    if reader is not None:
+        take = attempt()
+        try:
+            for batches in _native_groups(reader, super_batch):
+                take(_stack_native(batches),
+                     [(b.packed.shape[0], b.n) for b in batches])
+            return
+        except _ReaderBroke:
+            pass
+        finally:
+            reader.close()
+    take = attempt()
+    for buf in _groups(FQ.sequence_batches(path, k, batch_size),
+                       super_batch):
+        take(_ascii_staged(buf), [(b.seqs.shape[0], b.n) for b in buf])
+
+
+def count_file(path: str, k: int, batch_size: int = 1 << 14,
+               super_batch: int = 8, finalize: bool = True,
+               key_range=None, fold_above: int = FOLD_ABOVE,
+               device="cuda") -> "CountTable | DeviceCounter":
+    """Count one fasta/fastq file: each super batch of
+    :func:`read_super_batches` is one K4 launch into a
+    :class:`DeviceCounter`, which is dropped whole if the native reader
+    breaks.  key_range=(lo, hi) keeps only canonical keys in [lo, hi);
+    finalize=False returns the counter, still on the device."""
+    counter = None
+
+    def attempt():
+        nonlocal counter
+        dcounter = counter = DeviceCounter(k, device, fold_above)
+        return lambda staged, _: _count_staged(dcounter, staged, key_range)
+
+    read_super_batches(path, k, attempt, batch_size, super_batch)
+    return counter if not finalize else counter.finalize()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1111,16 +1082,16 @@ class PackedSpill:
     then served from a file on the host to every key-range pass (meryl
     splits its input once: meryl.sh, split.pl).
 
-    Each input file becomes a list of records, one a super batch,
-    assembled as :func:`count_file_native` assembles it; a file the
-    native reader cannot take, or that breaks it partway (its partial
-    records dropped), is assembled from the python reader's batches as
-    :func:`count_batches` does.  The spill file holds the records' bytes
-    back to back; their shapes stay in memory.  A pass reads the records
-    in order into one reused host buffer and sends each to the device as
-    one K4 launch, into a :class:`DeviceCounter` an input file merged
-    into one, as a pass over the input files does, so the launches,
-    shapes and tables are those of reading the files again.
+    Each input file becomes a list of records, one a super batch of
+    :func:`read_super_batches`, as :func:`count_file` counts them; when
+    the native reader breaks partway, the file's records are truncated
+    away and the python reader's take their place.  The spill file holds
+    the records' bytes back to back; their shapes stay in memory.  A pass
+    reads the records in order into one reused host buffer and sends
+    each to the device as one K4 launch, into a :class:`DeviceCounter`
+    an input file merged into one, as a pass over the input files does,
+    so the launches, shapes and tables are those of reading the files
+    again.
 
     Counters: ``io.spill_reads`` the reads a pass or the sample takes
     from the spill, ``io.spill_bytes`` the bytes read back from it; the
@@ -1148,25 +1119,17 @@ class PackedSpill:
     def _write_file(self, f, src: str, batch_size: int,
                     super_batch: int) -> list:
         start = f.tell()
-        reader = open_count_reader(src, batch_size)
-        if reader is not None:
-            records = []
-            try:
-                for batches in _native_groups(reader, super_batch):
-                    records.append(self._append(
-                        f, _stack_native(batches),
-                        [(b.packed.shape[0], b.n) for b in batches]))
-                return records
-            except _ReaderBroke:
-                f.seek(start)
-                f.truncate()
-            finally:
-                reader.close()
-        return [self._append(f, _ascii_staged(buf),
-                             [(b.seqs.shape[0], b.n) for b in buf])
-                for buf in _groups(FQ.sequence_batches(src, self.k,
-                                                       batch_size),
-                                   super_batch)]
+        records: list = []
+
+        def attempt():
+            f.seek(start)
+            f.truncate()
+            records.clear()
+            return lambda staged, batches: records.append(
+                self._append(f, staged, batches))
+
+        read_super_batches(src, self.k, attempt, batch_size, super_batch)
+        return records
 
     @staticmethod
     def _append(f, staged, batches) -> _SpillRecord:
@@ -1212,10 +1175,12 @@ class PackedSpill:
 
     def sample_boundaries(self, n_parts: int, n_sample: int = 16,
                           scan_cap: int = 512, device="cuda") -> np.ndarray:
-        """:func:`sample_boundaries` over the spill's reader batches,
-        each sliced out of its record.  For fastq, batch i of the native
-        reader holds the reads of batch i of FQ.sequence_batches, so the
-        split points are the same."""
+        """Key-space split points at the quantiles of a strided sample
+        of the spill's reader batches, each sliced out of its record:
+        every (scan_cap // n_sample)-th of the first scan_cap, since
+        genomic input is locally correlated.  For fastq, batch i of the
+        native reader holds the reads of batch i of FQ.sequence_batches,
+        so the split points are those of sampling the python reader."""
         with span("markers.sample_boundaries"):
             picked = _strided(((rec, i) for records in self.files
                                for rec in records

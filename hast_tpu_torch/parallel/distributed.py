@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import sys
+import tempfile
 import types
 from typing import Sequence
 
@@ -315,5 +316,7 @@ def count_files_multihost(paths: Sequence[str], k: int,
         table = count_files_sharded(local_mesh(devices=devices), local, k,
                                     batch_size)
     else:
-        table = M.count_files(local, k, batch_size, device=device)
+        with tempfile.TemporaryDirectory() as spill_dir:
+            table = M.count_files(local, k, batch_size, device=device,
+                                  spill_dir=spill_dir)
     return allgather_count_table(table)

@@ -15,7 +15,11 @@ A k-mer of parent A is "unique" iff absent from parent B's count table,
 and the markers of A are unique(A) ∩ count-range(A).  Engine ``device``
 (the default) keeps both count tables on the device and fetches only the
 markers; engine ``host`` fetches each table and snapshots it per
-sub-step (``.counts.npz``), for the reference's finer resume.  On
+sub-step (``.counts.npz``), for the reference's finer resume.  Both
+read a file one way, KC.read_super_batches (the native reader, else the
+python reader).  With n_parts > 1 both count in key-range passes, and
+both read each parent once, into a spill beside the outputs
+(KC.PackedSpill) that the boundary sample and every pass read.  On
 ``--device cpu`` both run the kernels' plain PyTorch twins.
 """
 
@@ -50,26 +54,51 @@ def _count_parts(n_parts: int | None) -> int:
 
 def count_files(paths: Sequence[str], k: int,
                 batch_size: int = FQ.DEFAULT_BATCH, n_parts: int | None = None,
-                device="cuda") -> KC.CountTable:
+                device="cuda", spill_dir: str | None = None
+                ) -> KC.CountTable:
     """Count canonical k-mers over fasta/fastq files (jellyfish count -C)
-    into a host table.  n_parts > 1 counts in key-range passes, each with
-    a resident run of ~1/n_parts of the distinct set; None reads
-    HAST_COUNT_PARTS (default 1)."""
+    into a host table, a file at a time (KC.count_file).  n_parts > 1
+    counts in key-range passes from a spill of the files in spill_dir
+    (_count_ranges); None reads HAST_COUNT_PARTS (default 1)."""
     n_parts = _count_parts(n_parts)
     if n_parts > 1:
-        def source():
-            for path in paths:
-                yield from FQ.sequence_batches(path, k, batch_size)
-        return KC.count_batches_partitioned(source, k, n_parts,
-                                            device=device)
+        return _count_ranges(paths, k, batch_size, n_parts, device,
+                             spill_dir)
     counter = KC.Counter(k)
     for path in paths:
-        t = KC.count_file_native(path, k, batch_size, device=device)
-        if t is None:
-            t = KC.count_batches(FQ.sequence_batches(path, k, batch_size),
-                                 k, device=device)
-        counter.add_table(t)
+        counter.add_table(KC.count_file(path, k, batch_size, device=device))
     return counter.finalize()
+
+
+def _count_ranges(paths, k, batch_size, n_parts, device,
+                  spill_dir) -> KC.CountTable:
+    """The files read once into a spill in spill_dir (KC.PackedSpill),
+    split at the quantiles of its sample and counted a key range a pass,
+    each pass with a resident run of ~1/n_parts of the distinct set; the
+    ranges are disjoint, so their tables concatenate.  The spill is
+    removed whether the count succeeds or fails."""
+    if spill_dir is None:
+        raise ValueError("counting in key-range passes needs a spill "
+                         "directory")
+    spill = KC.PackedSpill(os.path.join(spill_dir, "count.reads.spill"),
+                           paths, k, batch_size)
+    try:
+        boundaries = spill.sample_boundaries(n_parts, device=device)
+        parts: list[KC.CountTable] = []
+        for p in range(n_parts):
+            with span("markers.count_pass"):
+                t = spill.count_pass((boundaries[p], boundaries[p + 1]),
+                                     device=device).fetch()
+            print(f"  count pass {p + 1}/{n_parts}: {t.n_distinct} "
+                  "distinct k-mers resident", file=sys.stderr)
+            parts.append(t)
+    finally:
+        spill.remove()
+    words = np.concatenate([t.words for t in parts])
+    counts = np.concatenate([t.counts for t in parts])
+    if not np.all(words[1:] > words[:-1]):
+        raise RuntimeError("key-range passes overlap")
+    return KC.CountTable(words, counts, k)
 
 
 def count_files_device(paths: Sequence[str], k: int,
@@ -79,12 +108,8 @@ def count_files_device(paths: Sequence[str], k: int,
     runs union-sum with DeviceCounter.merge_device."""
     total = KC.DeviceCounter(k, device)
     for path in paths:
-        dc = KC.count_file_native(path, k, batch_size, finalize=False,
-                                  device=device)
-        if dc is None:
-            dc = KC.count_batches(FQ.sequence_batches(path, k, batch_size),
-                                  k, finalize=False, device=device)
-        total.merge_device(dc)
+        total.merge_device(KC.count_file(path, k, batch_size,
+                                         finalize=False, device=device))
     return total.finalize_device()
 
 
@@ -210,9 +235,10 @@ def build_unshared_markers(
 
     Returns the paths of the two marker files (the stage 00/01
     interface).  engine "device" (also "auto"): one all-or-nothing
-    checkpoint, both tables resident, only the markers fetched; n_parts
-    > 1 counts in key-range passes.  engine "host": per-substep
-    checkpoints with ``.counts.npz`` snapshots.  None reads
+    checkpoint, both tables resident, only the markers fetched.  engine
+    "host": per-substep checkpoints with ``.counts.npz`` snapshots.  In
+    either, n_parts > 1 counts in key-range passes from spills in
+    out_dir.  None reads
     HAST_STAGE00_ENGINE (default auto) and HAST_COUNT_PARTS (default 1),
     as the JAX package does; `run` has no flag for either.
     """
@@ -236,7 +262,8 @@ def build_unshared_markers(
     with step("00.1_count_maternal", out_dir, log=log) as todo:
         if todo:
             with timer.phase("count_maternal"):
-                mat = count_files(maternal, k, batch_size, n_parts, device)
+                mat = count_files(maternal, k, batch_size, n_parts, device,
+                                  out_dir)
             timer.add_items("count_maternal", mat.total)
             mat.save(j("maternal.counts.npz"))
     if mat is None:
@@ -244,7 +271,8 @@ def build_unshared_markers(
     with step("00.2_count_paternal", out_dir, log=log) as todo:
         if todo:
             with timer.phase("count_paternal"):
-                pat = count_files(paternal, k, batch_size, n_parts, device)
+                pat = count_files(paternal, k, batch_size, n_parts, device,
+                                  out_dir)
             timer.add_items("count_paternal", pat.total)
             pat.save(j("paternal.counts.npz"))
     if pat is None:

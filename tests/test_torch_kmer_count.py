@@ -7,9 +7,9 @@ and chunk_sorted_kmers; sort_pairs against lax.sort; fold_runs against
 _merge_rle_kernel; shrink_run against _shrink; count_stats against
 _histo_kernel and _total_kernel; marker_filter against
 device_marker_algebra.  Then the counters built on
-them: DeviceCounter (merge_device included), the key-range passes with
-bounds at and beyond 2^63, the native-reader path and the boundary
-estimate.  Every value is an integer and the kernels use integer
+them: DeviceCounter (merge_device included), the key-range passes over
+a spill with bounds at and beyond 2^63, the file counter and the spill's
+boundary sample.  Every value is an integer and the kernels use integer
 atomics, so the tolerance is exact equality throughout; the kernels are
 held against the twins on the card (marked cuda).
 """
@@ -504,40 +504,86 @@ def test_merge_device_union_sums():
     assert empty.n_valid == 0 and empty.keys.numel() == 0
 
 
+def fastq_of(batches, path) -> str:
+    """The batches' reads, each cut to its length, as a fastq."""
+    with open(path, "wb") as f:
+        for b in batches:
+            for i, (seq, n) in enumerate(zip(b.seqs, b.lengths)):
+                f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq[:n].tobytes(),
+                                                 b"I" * int(n)))
+    return str(path)
+
+
+def count_spill(path: str, k: int, bounds, device, **kw) -> KC.CountTable:
+    """A spill of the file counted a key range a pass, the ranges'
+    tables concatenated."""
+    spill = KC.PackedSpill(path + ".spill", [path], k, **kw)
+    try:
+        parts = [spill.count_pass((bounds[p], bounds[p + 1]),
+                                  device=device).fetch()
+                 for p in range(len(bounds) - 1)]
+    finally:
+        spill.remove()
+    return KC.CountTable(np.concatenate([t.words for t in parts]),
+                         np.concatenate([t.counts for t in parts]), k)
+
+
+def spill_bounds(path: str, k: int, n_parts: int, **kw) -> np.ndarray:
+    """The split points of a spill of the file."""
+    spill = KC.PackedSpill(path + ".spill", [path], k, 64)
+    try:
+        return spill.sample_boundaries(n_parts, device="cpu", **kw)
+    finally:
+        spill.remove()
+
+
 @pytest.mark.parametrize("n_parts", [4, 8])
-def test_partitioned_count_with_bounds_beyond_int64(n_parts):
+def test_partitioned_count_with_bounds_beyond_int64(tmp_path, n_parts):
     """An empty sample gives even bounds, half of them >= 2^63 and the
-    last 2^64 - 1; the passes must still cover every key exactly once."""
+    last 2^64 - 1; the passes over a spill must still cover every key
+    exactly once, as they must with its sampled bounds."""
     _, _, JKC = jax_modules()
     k = 21
-    bounds = KC.estimate_boundaries([], k, n_parts, device="cpu")
+    bounds = KC._sample_bounds([], k, n_parts, device="cpu")
     np.testing.assert_array_equal(bounds,
                                   JKC.estimate_boundaries([], k, n_parts))
     assert int(bounds[n_parts // 2]) >= 1 << 63
     batches = batches_of(3, k, n_batches=3)
-    got = KC.count_batches_partitioned(lambda: iter(batches), k, n_parts,
-                                       boundaries=bounds, device="cpu")
+    path = fastq_of(batches, tmp_path / "r.fq")
     want = KC.count_batches(batches, k, device="cpu")
+    got = count_spill(path, k, bounds, "cpu")
     np.testing.assert_array_equal(got.words, want.words)
     np.testing.assert_array_equal(got.counts, want.counts)
-    sampled = KC.count_batches_partitioned(lambda: iter(batches), k,
-                                           n_parts, device="cpu")
+    sampled = count_spill(path, k, spill_bounds(path, k, n_parts), "cpu")
     np.testing.assert_array_equal(sampled.words, want.words)
+    np.testing.assert_array_equal(sampled.counts, want.counts)
 
 
-def test_boundaries_match_jax():
+def test_boundaries_match_jax(tmp_path):
+    """The spill's sampler on a fastq of four batches of 64 reads
+    against hast_tpu's estimate_boundaries over all of them and its
+    sample_boundaries; a fastq of reads shorter than k (a sample with no
+    key) against the even bounds of an empty one."""
     _, _, JKC = jax_modules()
     k = 21
     batches = batches_of(5, k, n_batches=4, alphabet=b"ACGTNacgt")
+    path = fastq_of(batches, tmp_path / "r.fq")
     for n_parts in (2, 3, 5):
         np.testing.assert_array_equal(
-            KC.estimate_boundaries(batches, k, n_parts, device="cpu"),
+            spill_bounds(path, k, n_parts, n_sample=4, scan_cap=4),
             JKC.estimate_boundaries(batches, k, n_parts))
     np.testing.assert_array_equal(
-        KC.sample_boundaries(lambda: iter(batches), k, 3, n_sample=2,
-                             scan_cap=4, device="cpu"),
+        spill_bounds(path, k, 3, n_sample=2, scan_cap=4),
         JKC.sample_boundaries(lambda: iter(batches), k, 3, n_sample=2,
                               scan_cap=4))
+    short = batches_of(6, k, n_batches=2)
+    for b in short:
+        b.lengths = 1 + b.lengths % (k - 1)
+    short_path = fastq_of(short, tmp_path / "short.fq")
+    for n_parts in (2, 5):
+        np.testing.assert_array_equal(
+            spill_bounds(short_path, k, n_parts),
+            JKC.estimate_boundaries([], k, n_parts))
 
 
 @pytest.mark.parametrize("with_n", [False, True])
@@ -558,9 +604,8 @@ def test_count_file_native_matches_jax(tmp_path, with_n):
             seq = letters[rng.integers(0, letters.size, L)].tobytes()
             f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * L))
     for key_range in (None, (1 << 35, (1 << 64) - 1)):
-        got = KC.count_file_native(str(path), k, batch_size=128,
-                                   super_batch=2, key_range=key_range,
-                                   device="cpu")
+        got = KC.count_file(str(path), k, batch_size=128, super_batch=2,
+                            key_range=key_range, device="cpu")
         want = JKC.count_file_native(str(path), k, batch_size=128,
                                      super_batch=2, key_range=key_range)
         np.testing.assert_array_equal(got.words, want.words)
@@ -891,11 +936,11 @@ def test_sort_kernel_across_portions(card, k, counts, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_parts", [1, 4, 8])
-def test_counting_on_card_matches_cpu(card, n_parts):
+def test_counting_on_card_matches_cpu(card, tmp_path, n_parts):
     """The DeviceCounter on the card, folding several times (n_parts 1),
-    and the key-range passes with an empty sample's even bounds, half of
-    them >= 2^63 and the last 2^64 - 1 (n_parts 4, 8), equal the CPU
-    count."""
+    and the key-range passes over a spill with an empty sample's even
+    bounds, half of them >= 2^63 and the last 2^64 - 1 (n_parts 4, 8),
+    equal the CPU count."""
     k = 21
     batches = batches_of(3, k, n_batches=7)
     want = KC.count_batches(batches, k, super_batch=2, device="cpu")
@@ -907,10 +952,9 @@ def test_counting_on_card_matches_cpu(card, n_parts):
         assert counter.n_folds >= 2
         got = counter.finalize()
     else:
-        bounds = KC.estimate_boundaries([], k, n_parts)
-        got = KC.count_batches_partitioned(lambda: iter(batches), k,
-                                           n_parts, super_batch=2,
-                                           boundaries=bounds, device=card)
+        bounds = KC._sample_bounds([], k, n_parts, device=card)
+        got = count_spill(fastq_of(batches, tmp_path / "r.fq"), k, bounds,
+                          card, batch_size=64, super_batch=2)
     assert _build.LAUNCHES["count_windows"] >= launches + 4 * n_parts
     np.testing.assert_array_equal(got.words, want.words)
     np.testing.assert_array_equal(got.counts, want.counts)

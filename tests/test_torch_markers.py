@@ -10,13 +10,14 @@ inputs (both write ascending canonical words).  Also the host engine's
 sub-step resume, the multi-line fasta fallback, the native reader as
 the port opens it and the port's parental-read generator against
 hast_tpu's.  The key-range passes' spill (ops.kmer_count.PackedSpill):
-outputs, its removal on success and on error, files of both readers,
-its boundary sample against the ASCII reader's, and on the card its
-device peak against re-reading the files.  Exact comparisons
-throughout.
+outputs of both engines, its removal on success and on error, files of
+both readers, its boundary sample against hast_tpu's over the ASCII
+reader, and on the card its device peak against re-reading the files.
+Exact comparisons throughout.
 """
 
 import io
+import itertools
 import pathlib
 
 import numpy as np
@@ -128,11 +129,12 @@ def test_host_engine_resumes_after_a_crash(tmp_path, monkeypatch):
     real_count = M.count_files
     calls = []
 
-    def crashing_count(paths, k, batch_size, n_parts=1, device="cpu"):
+    def crashing_count(paths, k, batch_size, n_parts=1, device="cpu",
+                       spill_dir=None):
         calls.append(tuple(paths))
         if paths == PAT:
             raise KeyboardInterrupt("simulated crash mid-run")
-        return real_count(paths, k, batch_size, n_parts, device)
+        return real_count(paths, k, batch_size, n_parts, device, spill_dir)
 
     monkeypatch.setattr(M, "count_files", crashing_count)
     with pytest.raises(KeyboardInterrupt):
@@ -144,10 +146,11 @@ def test_host_engine_resumes_after_a_crash(tmp_path, monkeypatch):
     assert (tmp_path / "maternal.counts.npz").exists()
     assert not (tmp_path / "step_00.2_count_paternal_done").exists()
 
-    def second_run_count(paths, k, batch_size, n_parts=1, device="cpu"):
+    def second_run_count(paths, k, batch_size, n_parts=1, device="cpu",
+                         spill_dir=None):
         assert paths != MAT, "maternal count was redone after resume"
         calls.append(tuple(paths))
-        return real_count(paths, k, batch_size, n_parts, device)
+        return real_count(paths, k, batch_size, n_parts, device, spill_dir)
 
     monkeypatch.setattr(M, "count_files", second_run_count)
     paths = M.build_unshared_markers(paternal=PAT, maternal=MAT,
@@ -176,12 +179,14 @@ def test_native_count_multiline_fasta_fallback(tmp_path):
                       b"\n>r2\n" + seq[5:] + b"\n")
     want = M.count_files([str(single)], 21, batch_size=64, device="cpu")
     if N.get_lib() is not None:
-        native = KC.count_file_native(str(single), 21, batch_size=64,
-                                      device="cpu")
+        native = KC.count_file(str(single), 21, batch_size=64, device="cpu")
         np.testing.assert_array_equal(native.words, want.words)
         np.testing.assert_array_equal(native.counts, want.counts)
-    assert KC.count_file_native(str(multi), 21, batch_size=64,
-                                device="cpu") is None
+    python = KC.count_batches(FQ.sequence_batches(str(multi), 21, 64), 21,
+                              device="cpu")
+    got = KC.count_file(str(multi), 21, batch_size=64, device="cpu")
+    np.testing.assert_array_equal(got.words, python.words)
+    np.testing.assert_array_equal(got.counts, python.counts)
     for table in (M.count_files([str(multi)], 21, batch_size=64,
                                 device="cpu"),
                   M.count_files_device([str(multi)], 21, batch_size=64,
@@ -261,11 +266,11 @@ def golden_fastq(tmp_path_factory):
 
 
 def _build(out: pathlib.Path, paternal, maternal, n_parts: int,
-           **kw) -> dict:
-    """The six stage-00 files of a device-engine build into out."""
+           engine: str = "device", **kw) -> dict:
+    """The six stage-00 files of a build into out."""
     out.mkdir()
     M.build_unshared_markers(paternal, maternal, str(out), auto_bounds=True,
-                             n_parts=n_parts, engine="device",
+                             n_parts=n_parts, engine=engine,
                              log=io.StringIO(), **kw)
     assert not list(out.glob("*.spill"))
     return {name: (out / name).read_bytes() for name in OUTPUTS}
@@ -353,6 +358,23 @@ def test_spill_takes_files_of_both_readers(tmp_path):
     _assert_goldens(got)
 
 
+def test_host_engine_counts_parts_from_a_spill(tmp_path):
+    """The host engine in 2 key-range passes on the first 10,000 reads
+    of each golden parent: the six files of the one-pass host build,
+    each parent read once, into a spill that is gone afterwards."""
+    fq = {p: _fastq(tmp_path / f"{p}.fq", itertools.islice(
+        FQ.fasta_records(str(GOLD / f"{p}.reads.fa.gz")), 10_000))
+        for p in PARENTS}
+    one = _build(tmp_path / "one", [fq["paternal"]], [fq["maternal"]], 1,
+                 engine="host", device="cpu")
+    reads = P.COUNTERS["io.reads"]
+    got = _build(tmp_path / "parts", [fq["paternal"]], [fq["maternal"]], 2,
+                 engine="host", device="cpu")
+    assert P.COUNTERS["io.reads"] - reads == 2 * 10_000
+    assert got == one
+    assert not list(tmp_path.glob("**/*.spill"))
+
+
 def _n_reads_fastq(path: pathlib.Path, n: int, seed: int) -> str:
     """n reads of 40-130 bases off a random genome; N bases only in the
     first 512, so that the spill holds masked and clean records."""
@@ -374,9 +396,11 @@ def _n_reads_fastq(path: pathlib.Path, n: int, seed: int) -> str:
 def test_spill_sample_matches_the_ascii_readers(tmp_path, n_sample,
                                                 scan_cap, n_parts):
     """The boundaries sampled from the maternal spill are those of
-    sample_boundaries over the ASCII reader, on a fastq of 40 batches
-    of 64 reads (the last 5 short) with N bases in the first 8
+    hast_tpu's sample_boundaries over the ASCII reader, on a fastq of 40
+    batches of 64 reads (the last 5 short) with N bases in the first 8
     batches' reads; the sample counts only its batches' reads."""
+    pytest.importorskip("jax")
+    from hast_tpu.ops import kmer_count as JKC
     k, bs = 21, 64
     path = _n_reads_fastq(tmp_path / "ma.fq", 40 * bs - 5, 3)
     spill = KC.PackedSpill(str(tmp_path / "ma.spill"), [path], k, bs)
@@ -391,9 +415,8 @@ def test_spill_sample_matches_the_ascii_readers(tmp_path, n_sample,
             sum(bs if i < 39 else bs - 5 for i in picked)
     finally:
         spill.remove()
-    want = KC.sample_boundaries(lambda: FQ.sequence_batches(path, k, bs),
-                                k, n_parts, n_sample, scan_cap,
-                                device="cpu")
+    want = JKC.sample_boundaries(lambda: FQ.sequence_batches(path, k, bs),
+                                 k, n_parts, n_sample, scan_cap)
     np.testing.assert_array_equal(got, want)
     assert got.dtype == want.dtype and (got[1:] > got[:-1]).all()
 
@@ -446,7 +469,7 @@ def test_spilled_passes_hold_the_reread_peak_on_the_card(card, tmp_path,
     def reread(self, key_range, fold_above=KC.FOLD_ABOVE, device="cuda"):
         total = KC.DeviceCounter(self.k, device, fold_above)
         for path in self.sources:
-            total.merge_device(KC.count_file_native(
+            total.merge_device(KC.count_file(
                 path, self.k, bs, finalize=False, key_range=key_range,
                 fold_above=fold_above, device=device))
         return total.finalize_device()
