@@ -26,15 +26,20 @@ because torch on the CPU has no uint32/uint64 shifts or compares.
 (K5 + K6 + K12), :class:`DeviceCountTable` is that run, and
 :func:`device_marker_algebra` is the marker algebra over two of them
 (K8); only the final markers come to the host.
-:func:`read_super_batches` reads a file as K4 takes it, through the
-native reader or else the python one; :func:`count_file` counts it, and
+:class:`_FileRead` reads a file as K4 takes it, a reader batch a step,
+through the native reader or else the python one, and
+:func:`read_in_turn` steps several files' readers in turn on one
+thread; :func:`count_file` counts a file so read, and
 :class:`PackedSpill` keeps a parent's files so read in a host file, from
 which its boundary sample and every key-range pass read.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import functools
 import os
 import threading
 from typing import Callable, Iterable
@@ -958,25 +963,19 @@ class _ReaderBroke(Exception):
     the whole file."""
 
 
-def _native_groups(reader, super_batch: int):
-    """The reader's batches in lists of super_batch.  Only the reader's
-    own errors become _ReaderBroke; an error of the caller's work on a
-    list (the device's, say) propagates as it is."""
+def _native_batches(reader):
+    """The reader's batches.  Only the reader's own errors become
+    _ReaderBroke; an error of the caller's work between two batches (the
+    device's, say) propagates as it is."""
     it = iter(reader)
-    buf: list = []
     while True:
         try:
             batch = next(it)
         except StopIteration:
-            break
+            return
         except RuntimeError as e:
             raise _ReaderBroke(str(e)) from e
-        buf.append(batch)
-        if len(buf) >= super_batch:
-            yield buf
-            buf = []
-    if buf:
-        yield buf
+        yield batch
 
 
 def _stack_native(batches: list):
@@ -1000,12 +999,11 @@ def _stack_native(batches: list):
     return packed, lengths, good
 
 
-def read_super_batches(path: str, k: int, attempt: Callable,
-                       batch_size: int = 1 << 14,
-                       super_batch: int = 8) -> None:
-    """Read a fasta/fastq file as K4 takes it: super batches of
-    super_batch reader batches, each (packed, lengths, good or None),
-    with the (rows, reads) of each reader batch in it.
+class _FileRead:
+    """A fasta/fastq file read as K4 takes it, one reader batch a
+    :meth:`step`: super batches of super_batch reader batches, each
+    (packed, lengths, good or None), with the (rows, reads) of each
+    reader batch in it.
 
     The native counting reader takes the file when it can: its C++
     threads decode, 2-bit pack and build the ACGT mask, and a super
@@ -1017,32 +1015,108 @@ def read_super_batches(path: str, k: int, attempt: Callable,
     returns the take(staged, batches) that gets its super batches in
     order; a second attempt means that what the first took is dropped.
     """
-    reader = open_count_reader(path, batch_size)
-    if reader is not None:
-        take = attempt()
+
+    def __init__(self, path: str, k: int, attempt: Callable,
+                 batch_size: int = 1 << 14, super_batch: int = 8):
+        self.path, self._k, self._bs = path, k, batch_size
+        self._attempt, self._super_batch = attempt, super_batch
+        self._pending: list = []
+        self._reader = open_count_reader(path, batch_size)
+        if self._reader is None:
+            self._read_python()
+        else:
+            self._take = attempt()
+            self._batches = _native_batches(self._reader)
+
+    @property
+    def native(self) -> bool:
+        """Whether the native reader is reading the file."""
+        return self._reader is not None
+
+    def _read_python(self) -> None:
+        self.close()
+        self._pending = []
+        self._take = self._attempt()
+        self._batches = FQ.sequence_batches(self.path, self._k, self._bs)
+
+    def step(self) -> bool:
+        """Take the file's next reader batch, and hand on the super batch
+        it fills; False at the file's end, with its last super batch
+        handed on and its reader closed."""
         try:
-            for batches in _native_groups(reader, super_batch):
-                take(_stack_native(batches),
-                     [(b.packed.shape[0], b.n) for b in batches])
-            return
+            batch = next(self._batches, None)
         except _ReaderBroke:
-            pass
-        finally:
-            reader.close()
-    take = attempt()
-    for buf in _groups(FQ.sequence_batches(path, k, batch_size),
-                       super_batch):
-        take(_ascii_staged(buf), [(b.seqs.shape[0], b.n) for b in buf])
+            self._read_python()
+            return True
+        if batch is not None:
+            self._pending.append(batch)
+        if self._pending and (batch is None
+                              or len(self._pending) >= self._super_batch):
+            buf, self._pending = self._pending, []
+            if self.native:
+                self._take(_stack_native(buf),
+                           [(b.packed.shape[0], b.n) for b in buf])
+            else:
+                self._take(_ascii_staged(buf),
+                           [(b.seqs.shape[0], b.n) for b in buf])
+        if batch is None:
+            self.close()
+        return batch is not None
+
+    def close(self) -> None:
+        if self._reader is not None:
+            self._reader.close()
+            self._reader = None
+
+
+def read_in_turn(lanes: Iterable[Iterable[Callable]], width: int) -> None:
+    """Read the files of up to width lanes at once on this one thread, a
+    reader batch from each open file in turn (_FileRead.step), so that
+    their readers' threads decode side by side.
+
+    A lane is a sequence of openers, each a callable that returns a
+    :class:`_FileRead`; its files are read one after the other, each
+    opening when the one before it ends.  A lane that ends gives its
+    place to the next; with width 1 every file is read one after the
+    other.  A native reader's batch taken while another lane's file is
+    open counts as ``markers.overlapped_batches``."""
+    waiting = collections.deque(iter(lane) for lane in lanes)
+    live: list = []          # [lane, its open file]
+    turn = 0
+    try:
+        while True:
+            while waiting and len(live) < width:
+                lane = waiting.popleft()
+                opener = next(lane, None)
+                if opener is not None:
+                    live.append([lane, opener()])
+            if not live:
+                return
+            lane, f = live[turn]
+            if f.step():
+                if f.native and len(live) > 1:
+                    count("markers.overlapped_batches")
+            else:
+                opener = next(lane, None)
+                if opener is not None:
+                    live[turn][1] = opener()
+                else:
+                    del live[turn]
+                    turn -= 1
+            turn = (turn + 1) % len(live) if live else 0
+    finally:
+        for _, f in live:
+            f.close()
 
 
 def count_file(path: str, k: int, batch_size: int = 1 << 14,
                super_batch: int = 8, finalize: bool = True,
                key_range=None, fold_above: int = FOLD_ABOVE,
                device="cuda") -> "CountTable | DeviceCounter":
-    """Count one fasta/fastq file: each super batch of
-    :func:`read_super_batches` is one K4 launch into a
-    :class:`DeviceCounter`, which is dropped whole if the native reader
-    breaks.  key_range=(lo, hi) keeps only canonical keys in [lo, hi);
+    """Count one fasta/fastq file: each super batch of its
+    :class:`_FileRead` is one K4 launch into a :class:`DeviceCounter`,
+    which is dropped whole if the native reader breaks.
+    key_range=(lo, hi) keeps only canonical keys in [lo, hi);
     finalize=False returns the counter, still on the device."""
     counter = None
 
@@ -1051,7 +1125,8 @@ def count_file(path: str, k: int, batch_size: int = 1 << 14,
         dcounter = counter = DeviceCounter(k, device, fold_above)
         return lambda staged, _: _count_staged(dcounter, staged, key_range)
 
-    read_super_batches(path, k, attempt, batch_size, super_batch)
+    read_in_turn([[functools.partial(_FileRead, path, k, attempt,
+                                     batch_size, super_batch)]], 1)
     return counter if not finalize else counter.finalize()
 
 
@@ -1083,15 +1158,15 @@ class PackedSpill:
     splits its input once: meryl.sh, split.pl).
 
     Each input file becomes a list of records, one a super batch of
-    :func:`read_super_batches`, as :func:`count_file` counts them; when
-    the native reader breaks partway, the file's records are truncated
-    away and the python reader's take their place.  The spill file holds
-    the records' bytes back to back; their shapes stay in memory.  A pass
+    :class:`_FileRead`, as :func:`count_file` counts them; when the
+    native reader breaks partway, the file's records are truncated away
+    and the python reader's take their place.  The spill file holds the
+    records' bytes back to back; their shapes stay in memory.  A pass
     reads the records in order into one reused host buffer and sends
     each to the device as one K4 launch, into a :class:`DeviceCounter`
     an input file merged into one, as a pass over the input files does,
     so the launches, shapes and tables are those of reading the files
-    again.
+    again.  :meth:`write_in_turn` writes several parents' spills at once.
 
     Counters: ``io.spill_reads`` the reads a pass or the sample takes
     from the spill, ``io.spill_bytes`` the bytes read back from it; the
@@ -1102,24 +1177,59 @@ class PackedSpill:
 
     def __init__(self, path: str, sources, k: int,
                  batch_size: int = 1 << 14, super_batch: int = 8):
+        self._start(path, sources, k)
+        self._write([self], batch_size, super_batch, 1)
+
+    def _start(self, path: str, sources, k: int) -> None:
         self.path = path
         self.sources = list(sources)
         self.k = k
         self.files: list[list[_SpillRecord]] = []
         self._buf = np.empty(0, np.uint8)
+
+    @classmethod
+    def write_in_turn(cls, specs, k: int, batch_size: int = 1 << 14,
+                      super_batch: int = 8, width: int = 1
+                      ) -> list["PackedSpill"]:
+        """A spill of each (path, sources) in specs, up to width of them
+        written at once on this one thread: a reader batch from each
+        spill's open file in turn (:func:`read_in_turn`), each spill's
+        files one after the other, so every spill holds the bytes and
+        records that writing it alone gives.  If a write fails, every
+        spill's file is removed before it raises."""
+        spills = []
+        for path, sources in specs:
+            spill = cls.__new__(cls)
+            spill._start(path, sources, k)
+            spills.append(spill)
+        cls._write(spills, batch_size, super_batch, width)
+        return spills
+
+    @staticmethod
+    def _write(spills: list, batch_size: int, super_batch: int,
+               width: int) -> None:
         try:
-            with span("markers.spill_write"), open(path, "wb") as f:
-                for src in self.sources:
-                    self.files.append(
-                        self._write_file(f, src, batch_size, super_batch))
+            with span("markers.spill_write"), \
+                    contextlib.ExitStack() as stack:
+                lanes = []
+                for s in spills:
+                    f = stack.enter_context(open(s.path, "wb"))
+                    lanes.append([functools.partial(
+                        s._open_source, f, src, batch_size, super_batch)
+                        for src in s.sources])
+                read_in_turn(lanes, width)
         except BaseException:
-            self.remove()
+            for s in spills:
+                s.remove()
             raise
 
-    def _write_file(self, f, src: str, batch_size: int,
-                    super_batch: int) -> list:
+    def _open_source(self, f, src: str, batch_size: int,
+                     super_batch: int) -> _FileRead:
+        """src's :class:`_FileRead`, whose records go into f after those
+        of the sources before it."""
         start = f.tell()
         records: list = []
+        self.files.append(records)
 
         def attempt():
             f.seek(start)
@@ -1128,8 +1238,7 @@ class PackedSpill:
             return lambda staged, batches: records.append(
                 self._append(f, staged, batches))
 
-        read_super_batches(src, self.k, attempt, batch_size, super_batch)
-        return records
+        return _FileRead(src, self.k, attempt, batch_size, super_batch)
 
     @staticmethod
     def _append(f, staged, batches) -> _SpillRecord:

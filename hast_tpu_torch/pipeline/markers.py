@@ -16,10 +16,11 @@ and the markers of A are unique(A) ∩ count-range(A).  Engine ``device``
 (the default) keeps both count tables on the device and fetches only the
 markers; engine ``host`` fetches each table and snapshots it per
 sub-step (``.counts.npz``), for the reference's finer resume.  Both
-read a file one way, KC.read_super_batches (the native reader, else the
-python reader).  With n_parts > 1 both count in key-range passes, and
-both read each parent once, into a spill beside the outputs
-(KC.PackedSpill) that the boundary sample and every pass read.  On
+read a file one way, KC._FileRead (the native reader, else the python
+reader).  With n_parts > 1 both count in key-range passes, and both
+read each parent once, into a spill beside the outputs (KC.PackedSpill)
+that the boundary sample and every pass read; the device engine writes
+both parents' spills at once, a reader batch from each in turn.  On
 ``--device cpu`` both run the kernels' plain PyTorch twins.
 """
 
@@ -35,6 +36,7 @@ import numpy as np
 
 from hast_tpu_torch.io import fastq as FQ
 from hast_tpu_torch.ops import kmer_count as KC
+from hast_tpu_torch.pipeline import classify as C
 from hast_tpu_torch.utils.checkpoint import step
 from hast_tpu_torch.utils.profiling import PhaseTimer, span
 
@@ -373,16 +375,20 @@ def _markers_partitioned(paternal, maternal, k, auto_bounds, bounds,
     marker counts (paternal, maternal).
 
     Each parent's files are read once, into a spill of packed rows
-    beside the outputs (KC.PackedSpill, as meryl splits its input once);
-    the boundary sample and every pass read the spills, which are
-    removed when the step ends, whether it succeeds or fails."""
+    beside the outputs (KC.PackedSpill, as meryl splits its input once),
+    both parents' readers open at once as classify keeps its files'
+    (C._reader_width), a batch from each in turn; the boundary sample
+    and every pass read the spills, which are removed when the step
+    ends, whether it succeeds or fails."""
     spills: dict[str, KC.PackedSpill] = {}
+    parents = (("maternal", maternal), ("paternal", paternal))
     try:
         with timer.phase("spill"):
-            for name, files in (("maternal", maternal),
-                                ("paternal", paternal)):
-                spills[name] = KC.PackedSpill(j(f"{name}.reads.spill"),
-                                              files, k, batch_size)
+            written = KC.PackedSpill.write_in_turn(
+                [(j(f"{name}.reads.spill"), files)
+                 for name, files in parents],
+                k, batch_size, width=C._reader_width(len(parents)))
+            spills = {name: s for (name, _), s in zip(parents, written)}
         return _sweeps(spills, k, auto_bounds, bounds, log, n_parts, device,
                        timer, j, paths)
     finally:

@@ -12,12 +12,17 @@ the port opens it and the port's parental-read generator against
 hast_tpu's.  The key-range passes' spill (ops.kmer_count.PackedSpill):
 outputs of both engines, its removal on success and on error, files of
 both readers, its boundary sample against hast_tpu's over the ASCII
-reader, and on the card its device peak against re-reading the files.
-Exact comparisons throughout.
+reader, and on the card its device peak against re-reading the files;
+both parents' spills written with their readers open at once against
+each written alone.  Exact comparisons throughout.
 """
 
+import collections
+import gzip
+import hashlib
 import io
 import itertools
+import os
 import pathlib
 
 import numpy as np
@@ -26,6 +31,7 @@ import torch
 
 from hast_tpu_torch.io import fastq as FQ
 from hast_tpu_torch.ops import kmer_count as KC
+from hast_tpu_torch.pipeline import classify as C
 from hast_tpu_torch.pipeline import markers as M
 from hast_tpu_torch.utils import profiling as P
 
@@ -378,6 +384,11 @@ def test_host_engine_counts_parts_from_a_spill(tmp_path):
 def _n_reads_fastq(path: pathlib.Path, n: int, seed: int) -> str:
     """n reads of 40-130 bases off a random genome; N bases only in the
     first 512, so that the spill holds masked and clean records."""
+    return _fastq(path, _n_reads(n, seed))
+
+
+def _n_reads(n: int, seed: int) -> list:
+    """The (name, sequence) records of _n_reads_fastq."""
     rng = np.random.default_rng(seed)
     genome = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 20_000)]
     records = []
@@ -388,7 +399,7 @@ def _n_reads_fastq(path: pathlib.Path, n: int, seed: int) -> str:
         if i < 512 and i % 3 == 0:
             seq[rng.integers(0, length, 2)] = ord("N")
         records.append((b"r%d" % i, seq.tobytes()))
-    return _fastq(path, records)
+    return records
 
 
 @pytest.mark.parametrize("n_sample,scan_cap", [(16, 512), (4, 16), (3, 7)])
@@ -447,6 +458,144 @@ def test_spill_redoes_a_file_the_native_reader_breaks_on(tmp_path):
     np.testing.assert_array_equal(got.words, want.words)
     np.testing.assert_array_equal(got.counts, want.counts)
     assert want.total > 20 * bs
+
+
+# ---------------------------------------------------------------------------
+# both parents' spills written at once
+# ---------------------------------------------------------------------------
+
+
+def _fasta(path: pathlib.Path, records, gz: bool = False,
+           split_at: int | None = None) -> str:
+    """records as two-line fasta, gzipped if gz; record split_at, if
+    given, over two lines, which the native reader refuses."""
+    data = b"".join(
+        b">%s\n%s\n" % (head, seq if i != split_at
+                        else seq[:30] + b"\n" + seq[30:])
+        for i, (head, seq) in enumerate(records))
+    path.write_bytes(gzip.compress(data) if gz else data)
+    return str(path)
+
+
+def _spill_inputs(tmp_path: pathlib.Path, case: str) -> tuple:
+    """(maternal files, paternal files) of a case."""
+    ma = [_n_reads_fastq(tmp_path / "ma.fq", 150, 11)]
+    pa = _n_reads(130, 12)
+    if case == "two_files":
+        return ma, [_fastq(tmp_path / "pa1.fq", pa[:80]),
+                    _fastq(tmp_path / "pa2.fq", pa[80:])]
+    if case == "fasta_gz":
+        return ([_fasta(tmp_path / "ma.fa.gz", _n_reads(150, 11), gz=True)],
+                [_fasta(tmp_path / "pa.fa.gz", pa, gz=True)])
+    if case == "broken":
+        # record 41 is multi-line: the reader's parse thread, at most a
+        # queue of three batches of two ahead, flags it after at least 17
+        # batches were taken, so records were written before it breaks
+        return ma, [_fasta(tmp_path / "pa.fa", pa, split_at=40)]
+    return ma, [_fastq(tmp_path / "pa.fq", pa)]
+
+
+def _n_records(path: str) -> int:
+    return sum(b.n for b in FQ.sequence_batches(path, 21))
+
+
+def _sha256(path: str) -> str:
+    return hashlib.sha256(pathlib.Path(path).read_bytes()).hexdigest()
+
+
+@pytest.mark.parametrize("case", ["fastq", "two_files", "fasta_gz",
+                                  "broken", "no_lib"])
+def test_spills_written_in_turn_are_those_written_alone(tmp_path,
+                                                        monkeypatch, case):
+    """Both parents' spills written with up to width readers open at
+    once, a reader batch from each in turn, hold the bytes (sha256) and
+    records of each written alone by the PackedSpill constructor: one
+    fastq a parent, two paternal files (in order), gzipped fasta, a
+    paternal fasta the native reader breaks on after forty records while
+    the maternal reader is open (only the paternal records are redone),
+    and no libhastio (the python reader alone).  markers.overlapped_batches
+    grows iff width > 1 and a native reader reads."""
+    from hast_tpu_torch.io import native as N
+    if case == "no_lib":
+        monkeypatch.setattr(N, "get_lib", lambda: None)
+    elif N.get_lib() is None:
+        pytest.skip("libhastio.so unavailable")
+    parents = _spill_inputs(tmp_path, case)
+    k, bs, sb = 21, 2, 2
+    alone = []
+    for name, files in zip(PARENTS, parents):
+        spill = KC.PackedSpill(str(tmp_path / f"{name}.alone"), files, k,
+                               bs, sb)
+        alone.append((_sha256(spill.path), spill.files))
+        records = [rec for recs in spill.files for rec in recs]
+        # every file's reads, its records back to back in file order
+        assert [sum(reads for rec in recs for _, reads in rec.batches)
+                for recs in spill.files] == [_n_records(f) for f in files]
+        assert [rec.offset for rec in records] == list(itertools.accumulate(
+            [0] + [rec.nbytes for rec in records[:-1]]))
+        assert os.path.getsize(spill.path) == sum(r.nbytes for r in records)
+        spill.remove()
+    appends: collections.Counter = collections.Counter()
+    real = KC.PackedSpill._append
+
+    def counted(f, staged, batches):
+        appends[os.path.basename(f.name)] += 1
+        return real(f, staged, batches)
+
+    monkeypatch.setattr(KC.PackedSpill, "_append", staticmethod(counted))
+    for width in (1, 2):
+        monkeypatch.setattr(C, "_reader_width", lambda n: min(n, width))
+        appends.clear()
+        before = P.COUNTERS["markers.overlapped_batches"]
+        spills = KC.PackedSpill.write_in_turn(
+            [(str(tmp_path / f"{name}.w{width}"), files)
+             for name, files in zip(PARENTS, parents)],
+            k, bs, sb, C._reader_width(len(parents)))
+        try:
+            assert [(_sha256(s.path), s.files) for s in spills] == alone
+        finally:
+            for s in spills:
+                s.remove()
+        grew = P.COUNTERS["markers.overlapped_batches"] - before
+        assert (grew > 0) == (width > 1 and case != "no_lib")
+        redone = {name: appends[f"{name}.w{width}"] > sum(
+            len(records) for records in s.files)
+            for name, s in zip(PARENTS, spills)}
+        assert redone == {"maternal": False, "paternal": case == "broken"}
+    assert not list(tmp_path.glob("*.w*"))
+
+
+@pytest.mark.parametrize("n_parts", [2, 4])
+def test_device_engine_with_both_readers_open(tmp_path, golden_fastq,
+                                              monkeypatch, n_parts):
+    """The device engine in n_parts key-range passes, both parents'
+    readers open at once (width 2): the goldens and the one-pass run's
+    bytes, batches taken side by side, and each spill, as the step
+    removes it, the bytes of the parent's spill written alone."""
+    fq, one_pass = golden_fastq
+    monkeypatch.setattr(C, "_reader_width", lambda n: min(n, 2))
+    removed = {}
+    real = KC.PackedSpill.remove
+
+    def hashed(self):
+        if os.path.exists(self.path):
+            removed[os.path.basename(self.path)] = _sha256(self.path)
+        real(self)
+
+    monkeypatch.setattr(KC.PackedSpill, "remove", hashed)
+    before = P.COUNTERS["markers.overlapped_batches"]
+    got = _build(tmp_path / "out", [fq["paternal"]], [fq["maternal"]],
+                 n_parts, device="cpu")
+    assert P.COUNTERS["markers.overlapped_batches"] > before
+    _assert_goldens(got)
+    assert got == one_pass
+    alone = {}
+    for p in PARENTS:
+        spill = KC.PackedSpill(str(tmp_path / f"{p}.reads.spill"), [fq[p]],
+                               21, FQ.DEFAULT_BATCH)
+        alone[f"{p}.reads.spill"] = _sha256(spill.path)
+        spill.remove()
+    assert removed == alone
 
 
 @pytest.mark.cuda

@@ -138,12 +138,14 @@ def _as_fastq(src: pathlib.Path, dst: pathlib.Path) -> str:
     return str(dst)
 
 
-def test_partitioned_markers_read_each_parent_once_a_pass(tmp_path):
+def test_partitioned_markers_read_each_parent_once_a_pass(tmp_path,
+                                                          monkeypatch):
     """build-markers in two key-range passes on the stage-00 goldens as
-    fastq: each parent's file is read once a job, into its spill, and
-    every pass of both sweeps and the boundary sample read the spills;
-    every span of the stage-00 path is in the trace, and the outputs
-    are the goldens."""
+    fastq: each parent's file is read once a job, into its spill, both
+    parents' readers open at once, and every pass of both sweeps and the
+    boundary sample read the spills; every span of the stage-00 path is
+    in the trace, and the outputs are the goldens."""
+    monkeypatch.setattr(C, "_reader_width", lambda n: min(n, 2))
     fq = {p: _as_fastq(src, tmp_path / f"{p}.fq")
           for p, src in PARENTS00.items()}
     reads = {p: _records(fq[p]) for p in fq}
@@ -157,9 +159,11 @@ def test_partitioned_markers_read_each_parent_once_a_pass(tmp_path):
     n_parts = 2
     grew = {k: P.COUNTERS[k] - before.get(k, 0)
             for k in ("io.reads", "io.reader_opens", "io.spill_reads",
-                      "io.spill_bytes")}
+                      "io.spill_bytes", "markers.overlapped_batches")}
     assert grew["io.reads"] == reads["paternal"] + reads["maternal"]
     assert grew["io.reader_opens"] == 2
+    assert "markers.overlapped_batches" in P.COUNTERS
+    assert grew["markers.overlapped_batches"] > 0
     # the sample: every 32nd of the first 512 maternal batches
     bs = FQ.DEFAULT_BATCH
     sampled = sum(min(bs, reads["maternal"] - i)
