@@ -1078,8 +1078,10 @@ def read_in_turn(lanes: Iterable[Iterable[Callable]], width: int) -> None:
     :class:`_FileRead`; its files are read one after the other, each
     opening when the one before it ends.  A lane that ends gives its
     place to the next; with width 1 every file is read one after the
-    other.  A native reader's batch taken while another lane's file is
-    open counts as ``markers.overlapped_batches``."""
+    other.  Each turn that takes a batch adds one to ``markers.turns``
+    and the files open then to ``markers.open_readers``; a native
+    reader's batch taken while another lane's file is open counts as
+    ``markers.overlapped_batches``."""
     waiting = collections.deque(iter(lane) for lane in lanes)
     live: list = []          # [lane, its open file]
     turn = 0
@@ -1094,6 +1096,8 @@ def read_in_turn(lanes: Iterable[Iterable[Callable]], width: int) -> None:
                 return
             lane, f = live[turn]
             if f.step():
+                count("markers.turns")
+                count("markers.open_readers", len(live))
                 if f.native and len(live) > 1:
                     count("markers.overlapped_batches")
             else:
@@ -1271,7 +1275,9 @@ class PackedSpill:
     def count_pass(self, key_range, fold_above: int = FOLD_ABOVE,
                    device="cuda") -> DeviceCountTable:
         """One key-range pass over the spill: the window keys in
-        key_range = (lo, hi), counted on the device."""
+        key_range = (lo, hi), counted on the device: a run an input file,
+        and the files' runs unioned into one (span ``markers.file_merge``;
+        ``markers.merged_runs`` counts the files)."""
         total = DeviceCounter(self.k, device, fold_above)
         with open(self.path, "rb") as f:
             for records in self.files:
@@ -1280,7 +1286,10 @@ class PackedSpill:
                     _count_staged(dcounter, self._read(f, rec), key_range)
                     count("io.spill_reads", sum(r for _, r in rec.batches))
                 total.merge_device(dcounter)
-        return total.finalize_device()
+        with span("markers.file_merge"):
+            table = total.finalize_device()
+        count("markers.merged_runs", len(self.files))
+        return table
 
     def sample_boundaries(self, n_parts: int, n_sample: int = 16,
                           scan_cap: int = 512, device="cuda") -> np.ndarray:

@@ -641,3 +641,127 @@ def test_spilled_passes_hold_the_reread_peak_on_the_card(card, tmp_path,
     assert spilled_peak == reread_peak
     assert spilled_reads == n_pa + n_ma
     assert reread_reads == 9 * (n_pa + n_ma)
+
+
+# ---------------------------------------------------------------------------
+# parents as paired, gzipped libraries
+# ---------------------------------------------------------------------------
+
+
+def _fastq_gz(path: pathlib.Path, records) -> str:
+    """records as fastq in one gzip member."""
+    path.write_bytes(gzip.compress(b"".join(
+        b"@%s\n%s\n+\n%s\n" % (head, seq, b"I" * len(seq))
+        for head, seq in records)))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def libraries(tmp_path_factory):
+    """Each parent's 6,000 reads of a 20-kb haplotype at 30X, as one
+    plain fastq and as a paired library: R1 and R2 the first and the
+    second half of the same reads, each fastq in one gzip member."""
+    from hast_tpu_torch.utils import synthetic as S
+    d = tmp_path_factory.mktemp("paired")
+    genomes = dict(zip(("paternal", "maternal"),
+                       S.make_trio_genomes(7, 20_000, het_rate=0.01)))
+    plain, paired = {}, {}
+    for i, p in enumerate(PARENTS):
+        fa = d / f"{p}.fa"
+        S.make_parent_reads_vectorized(11 + i, genomes[p], str(fa), 30.0,
+                                       100, 0.002)
+        records = [(b"r%d" % j, seq) for j, (_, seq) in
+                   enumerate(FQ.fasta_records(str(fa)))]
+        half = len(records) // 2
+        plain[p] = [_fastq(d / f"{p}.fq", records)]
+        paired[p] = [_fastq_gz(d / f"{p}_1.fq.gz", records[:half]),
+                     _fastq_gz(d / f"{p}_2.fq.gz", records[half:])]
+    return plain, paired
+
+
+@pytest.mark.parametrize("n_parts", [1, 3])
+def test_a_paired_gzipped_library_gives_the_plain_fastq_s_files(
+        tmp_path, libraries, n_parts):
+    """The device engine on the same reads, given as one plain fastq a
+    parent or as its R1 and R2 fastq.gz: the six files byte for byte,
+    in one pass (the files' tables merged) and in three key-range passes
+    (each pass's union of the two files' runs)."""
+    plain, paired = libraries
+    one = _build(tmp_path / "plain", plain["paternal"], plain["maternal"],
+                 n_parts, device="cpu")
+    two = _build(tmp_path / "paired", paired["paternal"],
+                 paired["maternal"], n_parts, device="cpu")
+    assert two == one
+    assert all(one[f"{p}.unique.filter.mer"] for p in PARENTS)
+
+
+def test_a_paired_gzipped_library_gives_the_jax_package_s_files(
+        tmp_path, libraries):
+    """hast_tpu's stage 00 on the paired libraries writes the six files
+    that the port's device engine writes in three key-range passes."""
+    pytest.importorskip("jax")
+    from hast_tpu.pipeline import markers as JM
+    _, paired = libraries
+    out = tmp_path / "jax"
+    out.mkdir()
+    JM.build_unshared_markers(paternal=paired["paternal"],
+                              maternal=paired["maternal"], out_dir=str(out),
+                              auto_bounds=True, batch_size=16384,
+                              log=io.StringIO(), n_parts=1, engine="host")
+    want = {name: (out / name).read_bytes() for name in OUTPUTS}
+    assert _build(tmp_path / "port", paired["paternal"], paired["maternal"],
+                  3, device="cpu") == want
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_a_second_file_the_native_reader_breaks_on_keeps_the_first_s(
+        tmp_path, monkeypatch, width):
+    """A parent's R1 and R2 as fastq.gz, R2's read 1,281 of 9,000 bases
+    (past the native reader's cap): R2 goes to the python reader
+    partway, while the maternal lane is open too at width 2, and R1's
+    records and bytes in the spill are those of R1 spilled alone; a
+    full-range pass counts what count_batches counts over both files."""
+    from hast_tpu_torch.io import native as N
+    if N.get_lib() is None:
+        pytest.skip("libhastio.so unavailable")
+    k, bs = 21, 64
+    r1 = _fastq_gz(tmp_path / "pa_1.fq.gz", _n_reads(30 * bs, 21))
+    rng = np.random.default_rng(22)
+    long_read = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, 9000)].tobytes()
+    r2 = _fastq_gz(tmp_path / "pa_2.fq.gz", _n_reads(20 * bs, 23)
+                   + [(b"long", long_read)] + _n_reads(bs, 24))
+    ma = _n_reads_fastq(tmp_path / "ma.fq", 25 * bs, 25)
+    alone = KC.PackedSpill(str(tmp_path / "alone.spill"), [r1], k, bs)
+    alone_bytes = pathlib.Path(alone.path).read_bytes()
+    alone.remove()
+    appends: collections.Counter = collections.Counter()
+    real = KC.PackedSpill._append
+
+    def counted(f, staged, batches):
+        appends[os.path.basename(f.name)] += 1
+        return real(f, staged, batches)
+
+    monkeypatch.setattr(KC.PackedSpill, "_append", staticmethod(counted))
+    spills = KC.PackedSpill.write_in_turn(
+        [(str(tmp_path / "pa.spill"), [r1, r2]),
+         (str(tmp_path / "ma.spill"), [ma])], k, bs, width=width)
+    pa = spills[0]
+    try:
+        assert pa.files[0] == alone.files[0]
+        assert pathlib.Path(pa.path).read_bytes()[:len(alone_bytes)] == \
+            alone_bytes
+        assert [sum(reads for rec in recs for _, reads in rec.batches)
+                for recs in pa.files] == [30 * bs, 21 * bs + 1]
+        # R2's native records were written, then dropped
+        assert appends["pa.spill"] > sum(len(recs) for recs in pa.files)
+        assert appends["ma.spill"] == len(spills[1].files[0])
+        got = pa.count_pass((0, (1 << 64) - 1), device="cpu").fetch()
+    finally:
+        for s in spills:
+            s.remove()
+    want = KC.count_batches(itertools.chain(
+        FQ.sequence_batches(r1, k, bs), FQ.sequence_batches(r2, k, bs)), k,
+        device="cpu")
+    np.testing.assert_array_equal(got.words, want.words)
+    np.testing.assert_array_equal(got.counts, want.counts)

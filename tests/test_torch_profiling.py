@@ -2,6 +2,7 @@
 record only under a torch.profiler session, and the host counters, on
 the stage-01 and stage-00 goldens and on a small marker table."""
 
+import gzip
 import io
 import json
 import os
@@ -17,6 +18,7 @@ import torch
 
 from hast_tpu_torch.io import fastq as FQ
 from hast_tpu_torch.ops import hashtable as H
+from hast_tpu_torch.ops import kmer_count as KC
 from hast_tpu_torch.pipeline import classify as C
 from hast_tpu_torch.pipeline import markers as M
 from hast_tpu_torch.utils import profiling as P
@@ -187,6 +189,63 @@ def test_partitioned_markers_read_each_parent_once_a_pass(tmp_path,
                       .split()) == sorted(
             (GOLD / "stage00" / f"{p}.unique.filter.mer").read_bytes()
             .split())
+
+
+def test_file_merge_opens_once_a_pass_and_counts_each_parent_s_files(
+        tmp_path):
+    """build-markers in two key-range passes, the paternal goldens as a
+    paired library (R1 and R2 the two halves of its reads, fastq.gz) and
+    the maternal as one fastq: markers.file_merge opens once in each
+    pass of both sweeps, inside it, and markers.merged_runs grows by the
+    parent's file count a pass; the outputs are the goldens."""
+    records = list(FQ.fasta_records(str(PARENTS00["paternal"])))
+    half = len(records) // 2
+    paternal = []
+    for mate, part in ((1, records[:half]), (2, records[half:])):
+        path = tmp_path / f"paternal_{mate}.fq.gz"
+        path.write_bytes(gzip.compress(b"".join(
+            b"@%s\n%s\n+\n%s\n" % (head, seq, b"I" * len(seq))
+            for head, seq in part)))
+        paternal.append(str(path))
+    maternal = [_as_fastq(PARENTS00["maternal"], tmp_path / "ma.fq")]
+    out = tmp_path / "out"
+    out.mkdir()
+    before = P.COUNTERS["markers.merged_runs"]
+    n_parts = 2
+    with torch.profiler.profile(activities=CPU) as prof:
+        M.build_unshared_markers(
+            paternal, maternal, str(out), auto_bounds=True, n_parts=n_parts,
+            engine="device", device="cpu", log=io.StringIO())
+    spans = _spans(prof, tmp_path / "trace.json")
+    passes = [(s, e) for n, s, e in spans if n == "markers.count_pass"]
+    merges = [(s, e) for n, s, e in spans if n == "markers.file_merge"]
+    assert len(passes) == len(merges) == 2 * n_parts * 2
+    assert all(a <= s and e <= b for (a, b), (s, e) in zip(passes, merges))
+    assert P.COUNTERS["markers.merged_runs"] - before == \
+        2 * n_parts * (len(paternal) + len(maternal))
+    for p in PARENTS00:
+        assert (out / f"{p}.kmercount.histo").read_bytes() == \
+            (GOLD / "stage00" / f"{p}.histo").read_bytes(), p
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_open_readers_a_turn_read_the_width(tmp_path, width):
+    """Two parents' spills written in turn, each parent one fastq of the
+    same 45,000 reads: markers.turns counts the batches taken, and
+    markers.open_readers over it reads 2.0 with both parents' readers
+    open at once, 1.0 one at a time."""
+    fq = _as_fastq(PARENTS00["maternal"], tmp_path / "ma.fq")
+    shutil.copy(fq, tmp_path / "pa.fq")
+    names = ("markers.turns", "markers.open_readers")
+    before = {n: P.COUNTERS[n] for n in names}
+    spills = KC.PackedSpill.write_in_turn(
+        [(str(tmp_path / "pa.spill"), [str(tmp_path / "pa.fq")]),
+         (str(tmp_path / "ma.spill"), [fq])], 21, 4096, width=width)
+    for s in spills:
+        s.remove()
+    grew = {n: P.COUNTERS[n] - before[n] for n in names}
+    assert grew["markers.turns"] == 2 * -(-_records(fq) // 4096)
+    assert grew["markers.open_readers"] / grew["markers.turns"] == width
 
 
 def test_python_reader_counts_nothing():
