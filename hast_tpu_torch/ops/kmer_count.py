@@ -30,16 +30,17 @@ because torch on the CPU has no uint32/uint64 shifts or compares.
 through the native reader or else the python one, and
 :func:`read_in_turn` steps several files' readers in turn on one
 thread; :func:`count_file` counts a file so read, and
-:class:`PackedSpill` keeps a parent's files so read in a host file, from
-which its boundary sample and every key-range pass read.
+:class:`PackedSpill` keeps a parent's files so read in host files, a
+part a file, from which its boundary sample and every key-range pass
+read.
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import dataclasses
 import functools
+import itertools
 import os
 import threading
 from typing import Callable, Iterable
@@ -1069,47 +1070,42 @@ class _FileRead:
             self._reader = None
 
 
-def read_in_turn(lanes: Iterable[Iterable[Callable]], width: int) -> None:
-    """Read the files of up to width lanes at once on this one thread, a
-    reader batch from each open file in turn (_FileRead.step), so that
-    their readers' threads decode side by side.
+def read_in_turn(openers: Iterable[Callable], width: int) -> None:
+    """Read up to width files at once on this one thread, a reader batch
+    from each open file in turn (_FileRead.step), so that their readers'
+    threads decode side by side.
 
-    A lane is a sequence of openers, each a callable that returns a
-    :class:`_FileRead`; its files are read one after the other, each
-    opening when the one before it ends.  A lane that ends gives its
-    place to the next; with width 1 every file is read one after the
-    other.  Each turn that takes a batch adds one to ``markers.turns``
-    and the files open then to ``markers.open_readers``; a native
-    reader's batch taken while another lane's file is open counts as
-    ``markers.overlapped_batches``."""
-    waiting = collections.deque(iter(lane) for lane in lanes)
-    live: list = []          # [lane, its open file]
+    Each opener is a callable that returns a :class:`_FileRead`, a lane
+    a file: the files open in the openers' order, and a file that ends
+    gives its place to the next, so with width 1 they are read one after
+    the other.  Each turn that takes a batch adds one to
+    ``markers.turns`` and the files open then to
+    ``markers.open_readers``; a native reader's batch taken while
+    another file is open counts as ``markers.overlapped_batches``."""
+    pending = iter(openers)
+    live: list = []
     turn = 0
     try:
-        while True:
-            while waiting and len(live) < width:
-                lane = waiting.popleft()
-                opener = next(lane, None)
-                if opener is not None:
-                    live.append([lane, opener()])
-            if not live:
-                return
-            lane, f = live[turn]
+        for opener in itertools.islice(pending, width):
+            live.append(opener())
+        while live:
+            f = live[turn]
             if f.step():
                 count("markers.turns")
                 count("markers.open_readers", len(live))
                 if f.native and len(live) > 1:
                     count("markers.overlapped_batches")
+                turn += 1
             else:
-                opener = next(lane, None)
-                if opener is not None:
-                    live[turn][1] = opener()
-                else:
+                opener = next(pending, None)
+                if opener is None:
                     del live[turn]
-                    turn -= 1
-            turn = (turn + 1) % len(live) if live else 0
+                else:
+                    live[turn] = opener()
+                    turn += 1
+            turn = turn % len(live) if live else 0
     finally:
-        for _, f in live:
+        for f in live:
             f.close()
 
 
@@ -1129,8 +1125,8 @@ def count_file(path: str, k: int, batch_size: int = 1 << 14,
         dcounter = counter = DeviceCounter(k, device, fold_above)
         return lambda staged, _: _count_staged(dcounter, staged, key_range)
 
-    read_in_turn([[functools.partial(_FileRead, path, k, attempt,
-                                     batch_size, super_batch)]], 1)
+    read_in_turn([functools.partial(_FileRead, path, k, attempt,
+                                    batch_size, super_batch)], 1)
     return counter if not finalize else counter.finalize()
 
 
@@ -1158,25 +1154,29 @@ class _SpillRecord:
 
 class PackedSpill:
     """One parent's reads as K4 takes them, read once from its files and
-    then served from a file on the host to every key-range pass (meryl
+    then served from files on the host to every key-range pass (meryl
     splits its input once: meryl.sh, split.pl).
 
-    Each input file becomes a list of records, one a super batch of
-    :class:`_FileRead`, as :func:`count_file` counts them; when the
-    native reader breaks partway, the file's records are truncated away
-    and the python reader's take their place.  The spill file holds the
-    records' bytes back to back; their shapes stay in memory.  A pass
-    reads the records in order into one reused host buffer and sends
-    each to the device as one K4 launch, into a :class:`DeviceCounter`
-    an input file merged into one, as a pass over the input files does,
-    so the launches, shapes and tables are those of reading the files
-    again.  :meth:`write_in_turn` writes several parents' spills at once.
+    Each input file becomes a part of the spill: a file of its own,
+    named after path with the file's index before the extension
+    (``parts``), holding the file's records back to back, one a super
+    batch of :class:`_FileRead`, as :func:`count_file` counts them; the
+    records' shapes stay in memory (``files``, in the input files'
+    order).  When the native reader breaks partway, the part is
+    truncated and the python reader's records take its place.  A pass
+    reads each part's records in order into one reused host buffer and
+    sends each to the device as one K4 launch, into a
+    :class:`DeviceCounter` a part, the parts' runs merged into one, as a
+    pass over the input files does, so the launches, shapes and tables
+    are those of reading the files again.  :meth:`write_in_turn` writes
+    several parents' spills at once, a reader a file.
 
     Counters: ``io.spill_reads`` the reads a pass or the sample takes
     from the spill, ``io.spill_bytes`` the bytes read back from it; the
     input readers alone count ``io.reads``.  A spill is for one thread
-    at a time; its owner calls :meth:`remove`.  If the write fails, the
-    constructor removes the file before it raises.
+    at a time; its owner calls :meth:`remove`, which deletes every part.
+    If the write fails, the constructor removes the parts before it
+    raises.
     """
 
     def __init__(self, path: str, sources, k: int,
@@ -1185,22 +1185,24 @@ class PackedSpill:
         self._write([self], batch_size, super_batch, 1)
 
     def _start(self, path: str, sources, k: int) -> None:
-        self.path = path
         self.sources = list(sources)
+        root, ext = os.path.splitext(path)
+        self.parts = [f"{root}.{i}{ext}" for i in range(len(self.sources))]
         self.k = k
-        self.files: list[list[_SpillRecord]] = []
+        self.files: list[list[_SpillRecord]] = [[] for _ in self.sources]
         self._buf = np.empty(0, np.uint8)
 
     @classmethod
     def write_in_turn(cls, specs, k: int, batch_size: int = 1 << 14,
                       super_batch: int = 8, width: int = 1
                       ) -> list["PackedSpill"]:
-        """A spill of each (path, sources) in specs, up to width of them
-        written at once on this one thread: a reader batch from each
-        spill's open file in turn (:func:`read_in_turn`), each spill's
-        files one after the other, so every spill holds the bytes and
-        records that writing it alone gives.  If a write fails, every
-        spill's file is removed before it raises."""
+        """A spill of each (path, sources) in specs, up to width files
+        read at once on this one thread, a lane a file
+        (:func:`read_in_turn`): the spills' first files, then their
+        second ones, and so on, so that a width of at least the number
+        of spills opens a file of each first.  Each part holds the bytes
+        and records that writing its file alone gives.  If a write
+        fails, every part of every spill is removed before it raises."""
         spills = []
         for path, sources in specs:
             spill = cls.__new__(cls)
@@ -1215,34 +1217,33 @@ class PackedSpill:
         try:
             with span("markers.spill_write"), \
                     contextlib.ExitStack() as stack:
-                lanes = []
-                for s in spills:
-                    f = stack.enter_context(open(s.path, "wb"))
-                    lanes.append([functools.partial(
-                        s._open_source, f, src, batch_size, super_batch)
-                        for src in s.sources])
-                read_in_turn(lanes, width)
+                lanes = [[functools.partial(
+                    s._open_source, i, stack.enter_context(open(part, "wb")),
+                    batch_size, super_batch)
+                    for i, part in enumerate(s.parts)] for s in spills]
+                read_in_turn([opener for nth in itertools.zip_longest(*lanes)
+                              for opener in nth if opener is not None],
+                             width)
         except BaseException:
             for s in spills:
                 s.remove()
             raise
 
-    def _open_source(self, f, src: str, batch_size: int,
+    def _open_source(self, i: int, f, batch_size: int,
                      super_batch: int) -> _FileRead:
-        """src's :class:`_FileRead`, whose records go into f after those
-        of the sources before it."""
-        start = f.tell()
-        records: list = []
-        self.files.append(records)
+        """Source i's :class:`_FileRead`, whose records go into its part,
+        open as f."""
+        records = self.files[i]
 
         def attempt():
-            f.seek(start)
+            f.seek(0)
             f.truncate()
             records.clear()
             return lambda staged, batches: records.append(
                 self._append(f, staged, batches))
 
-        return _FileRead(src, self.k, attempt, batch_size, super_batch)
+        return _FileRead(self.sources[i], self.k, attempt, batch_size,
+                         super_batch)
 
     @staticmethod
     def _append(f, staged, batches) -> _SpillRecord:
@@ -1255,15 +1256,15 @@ class PackedSpill:
         return rec
 
     def _read(self, f, rec: _SpillRecord):
-        """A record's (packed, lengths, good or None), views of the
-        reused buffer: valid until the next read."""
+        """A record's (packed, lengths, good or None) from its part f,
+        views of the reused buffer: valid until the next read."""
         with span("markers.spill_read"):
             n = rec.nbytes
             if self._buf.size < n:
                 self._buf = np.empty(n, np.uint8)
             f.seek(rec.offset)
             if f.readinto(memoryview(self._buf)[:n]) != n:
-                raise EOFError(f"{self.path}: spill ends inside a record")
+                raise EOFError(f"{f.name}: spill ends inside a record")
             rows, sp = rec.rows, rec.stride
             lengths = self._buf[:4 * rows].view(np.int32)
             packed = self._buf[4 * rows:(4 + sp) * rows].reshape(rows, sp)
@@ -1275,17 +1276,17 @@ class PackedSpill:
     def count_pass(self, key_range, fold_above: int = FOLD_ABOVE,
                    device="cuda") -> DeviceCountTable:
         """One key-range pass over the spill: the window keys in
-        key_range = (lo, hi), counted on the device: a run an input file,
-        and the files' runs unioned into one (span ``markers.file_merge``;
-        ``markers.merged_runs`` counts the files)."""
+        key_range = (lo, hi), counted on the device: a run a part, and
+        the parts' runs unioned into one (span ``markers.file_merge``;
+        ``markers.merged_runs`` counts the parts)."""
         total = DeviceCounter(self.k, device, fold_above)
-        with open(self.path, "rb") as f:
-            for records in self.files:
-                dcounter = DeviceCounter(self.k, device, fold_above)
+        for part, records in zip(self.parts, self.files):
+            dcounter = DeviceCounter(self.k, device, fold_above)
+            with open(part, "rb") as f:
                 for rec in records:
                     _count_staged(dcounter, self._read(f, rec), key_range)
                     count("io.spill_reads", sum(r for _, r in rec.batches))
-                total.merge_device(dcounter)
+            total.merge_device(dcounter)
         with span("markers.file_merge"):
             table = total.finalize_device()
         count("markers.merged_runs", len(self.files))
@@ -1295,23 +1296,27 @@ class PackedSpill:
                           scan_cap: int = 512, device="cuda") -> np.ndarray:
         """Key-space split points at the quantiles of a strided sample
         of the spill's reader batches, each sliced out of its record:
-        every (scan_cap // n_sample)-th of the first scan_cap, since
-        genomic input is locally correlated.  For fastq, batch i of the
-        native reader holds the reads of batch i of FQ.sequence_batches,
-        so the split points are those of sampling the python reader."""
-        with span("markers.sample_boundaries"):
-            picked = _strided(((rec, i) for records in self.files
+        every (scan_cap // n_sample)-th of the first scan_cap, the parts
+        in order, since genomic input is locally correlated.  For fastq,
+        batch i of the native reader holds the reads of batch i of
+        FQ.sequence_batches, so the split points are those of sampling
+        the python reader."""
+        with span("markers.sample_boundaries"), \
+                contextlib.ExitStack() as stack:
+            parts = [stack.enter_context(open(p, "rb")) for p in self.parts]
+            picked = _strided(((f, rec, i)
+                               for f, records in zip(parts, self.files)
                                for rec in records
                                for i in range(len(rec.batches))),
                               n_sample, scan_cap)
-            with open(self.path, "rb") as f:
-                return _sample_bounds(self._batches(f, picked), self.k,
-                                      n_parts, device)
+            return _sample_bounds(self._batches(picked), self.k, n_parts,
+                                  device)
 
-    def _batches(self, f, picked):
-        """The (packed, lengths, good) of each picked (record, batch),
-        sliced out of its record: views, valid until the next read."""
-        for rec, i in picked:
+    def _batches(self, picked):
+        """The (packed, lengths, good) of each picked (part, record,
+        batch), sliced out of its record: views, valid until the next
+        read."""
+        for f, rec, i in picked:
             r0 = sum(rows for rows, _ in rec.batches[:i])
             rows, reads = rec.batches[i]
             count("io.spill_reads", reads)
@@ -1319,8 +1324,9 @@ class PackedSpill:
                         for a in self._read(f, rec))
 
     def remove(self) -> None:
-        """Delete the spill file (nothing if it is gone)."""
-        try:
-            os.unlink(self.path)
-        except FileNotFoundError:
-            pass
+        """Delete every part (nothing for a part that is gone)."""
+        for part in self.parts:
+            try:
+                os.unlink(part)
+            except FileNotFoundError:
+                pass

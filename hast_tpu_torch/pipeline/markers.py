@@ -20,8 +20,8 @@ read a file one way, KC._FileRead (the native reader, else the python
 reader).  With n_parts > 1 both count in key-range passes, and both
 read each parent once, into a spill beside the outputs (KC.PackedSpill)
 that the boundary sample and every pass read; the device engine writes
-both parents' spills at once, a reader batch from each in turn.  On
-``--device cpu`` both run the kernels' plain PyTorch twins.
+both parents' spills at once, a reader a file, a reader batch from each
+in turn.  On ``--device cpu`` both run the kernels' plain PyTorch twins.
 """
 
 from __future__ import annotations
@@ -376,10 +376,11 @@ def _markers_partitioned(paternal, maternal, k, auto_bounds, bounds,
 
     Each parent's files are read once, into a spill of packed rows
     beside the outputs (KC.PackedSpill, as meryl splits its input once),
-    both parents' readers open at once as classify keeps its files'
-    (C._reader_width), a batch from each in turn; the boundary sample
-    and every pass read the spills, which are removed when the step
-    ends, whether it succeeds or fails."""
+    a lane a file: as many files' readers open at once as classify keeps
+    (C._reader_width of all the files), the parents' first files first
+    (maternal R1, paternal R1, maternal R2, paternal R2), a batch from
+    each in turn; the boundary sample and every pass read the spills,
+    which are removed when the step ends, whether it succeeds or fails."""
     spills: dict[str, KC.PackedSpill] = {}
     parents = (("maternal", maternal), ("paternal", paternal))
     try:
@@ -387,7 +388,8 @@ def _markers_partitioned(paternal, maternal, k, auto_bounds, bounds,
             written = KC.PackedSpill.write_in_turn(
                 [(j(f"{name}.reads.spill"), files)
                  for name, files in parents],
-                k, batch_size, width=C._reader_width(len(parents)))
+                k, batch_size,
+                width=C._reader_width(sum(len(f) for _, f in parents)))
             spills = {name: s for (name, _), s in zip(parents, written)}
         return _sweeps(spills, k, auto_bounds, bounds, log, n_parts, device,
                        timer, j, paths)

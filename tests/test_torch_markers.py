@@ -13,8 +13,9 @@ hast_tpu's.  The key-range passes' spill (ops.kmer_count.PackedSpill):
 outputs of both engines, its removal on success and on error, files of
 both readers, its boundary sample against hast_tpu's over the ASCII
 reader, and on the card its device peak against re-reading the files;
-both parents' spills written with their readers open at once against
-each written alone.  Exact comparisons throughout.
+both parents' spills written a reader a file, their readers open at
+once, against each file spilled alone, and a failed write removing every
+part.  Exact comparisons throughout.
 """
 
 import collections
@@ -353,11 +354,14 @@ def test_spill_takes_files_of_both_readers(tmp_path):
     paternal = [first, str(second)]
     spill = KC.PackedSpill(str(tmp_path / "pa.spill"), paternal, 21)
     try:
+        assert spill.parts == [str(tmp_path / "pa.0.spill"),
+                               str(tmp_path / "pa.1.spill")]
+        assert all(os.path.exists(part) for part in spill.parts)
         assert [sum(reads for rec in recs for _, reads in rec.batches)
                 for recs in spill.files] == [half, len(records) - half]
     finally:
         spill.remove()
-    assert not (tmp_path / "pa.spill").exists()
+    assert not list(tmp_path.glob("*.spill"))
     one = _build(tmp_path / "one", paternal, MAT, 1, device="cpu")
     got = _build(tmp_path / "parts", paternal, MAT, 2, device="cpu")
     assert got == one
@@ -479,6 +483,13 @@ def _fasta(path: pathlib.Path, records, gz: bool = False,
 
 def _spill_inputs(tmp_path: pathlib.Path, case: str) -> tuple:
     """(maternal files, paternal files) of a case."""
+    if case == "paired":
+        # each parent's R1 and R2, fastq.gz of 70 reads each
+        return tuple([_fastq_gz(tmp_path / f"{p}_{mate + 1}.fq.gz",
+                                reads[70 * mate:70 * (mate + 1)])
+                      for mate in range(2)]
+                     for p, reads in (("ma", _n_reads(140, 11)),
+                                      ("pa", _n_reads(140, 12))))
     ma = [_n_reads_fastq(tmp_path / "ma.fq", 150, 11)]
     pa = _n_reads(130, 12)
     if case == "two_files":
@@ -503,38 +514,94 @@ def _sha256(path: str) -> str:
     return hashlib.sha256(pathlib.Path(path).read_bytes()).hexdigest()
 
 
+def _spilled(spill: KC.PackedSpill) -> list:
+    """Each part's (sha256, records), in the files' order."""
+    return [(_sha256(part), records)
+            for part, records in zip(spill.parts, spill.files)]
+
+
+def _spilled_alone(tmp_path: pathlib.Path, files, *args) -> list:
+    """_spilled of each file spilled alone by the PackedSpill
+    constructor, its one part holding its records back to back."""
+    alone = []
+    for path in files:
+        spill = KC.PackedSpill(str(tmp_path / "alone.spill"), [path], *args)
+        (part,), (records,) = spill.parts, spill.files
+        try:
+            assert sum(reads for rec in records
+                       for _, reads in rec.batches) == _n_records(path)
+            assert [rec.offset for rec in records] == list(
+                itertools.accumulate([0] + [r.nbytes for r in records[:-1]]))
+            assert os.path.getsize(part) == sum(r.nbytes for r in records)
+            alone.extend(_spilled(spill))
+        finally:
+            spill.remove()
+        assert not os.path.exists(part)
+    return alone
+
+
+class _OpenFiles:
+    """The input files open at each turn of read_in_turn that took a
+    batch (a file is open from its _FileRead to the step that ends it),
+    and every _FileRead made."""
+
+    def __init__(self, monkeypatch):
+        self.live: set = set()
+        self.turns: list = []
+        self.made: list = []
+        init, step = KC._FileRead.__init__, KC._FileRead.step
+
+        def opened(f, path, *args, **kw):
+            self.live.add(path)
+            self.made.append(f)
+            init(f, path, *args, **kw)
+
+        def stepped(f):
+            took = step(f)
+            if took:
+                self.turns.append(frozenset(self.live))
+            else:
+                self.live.discard(f.path)
+            return took
+
+        monkeypatch.setattr(KC._FileRead, "__init__", opened)
+        monkeypatch.setattr(KC._FileRead, "step", stepped)
+
+
 @pytest.mark.parametrize("case", ["fastq", "two_files", "fasta_gz",
-                                  "broken", "no_lib"])
+                                  "broken", "no_lib", "paired"])
 def test_spills_written_in_turn_are_those_written_alone(tmp_path,
                                                         monkeypatch, case):
-    """Both parents' spills written with up to width readers open at
-    once, a reader batch from each in turn, hold the bytes (sha256) and
-    records of each written alone by the PackedSpill constructor: one
-    fastq a parent, two paternal files (in order), gzipped fasta, a
-    paternal fasta the native reader breaks on after forty records while
-    the maternal reader is open (only the paternal records are redone),
-    and no libhastio (the python reader alone).  markers.overlapped_batches
-    grows iff width > 1 and a native reader reads."""
+    """Both parents' spills written a lane a file, up to width readers
+    open at once and a reader batch from each in turn: each part holds
+    the bytes (sha256) and records of its file spilled alone, as the
+    PackedSpill constructor's parts do.  One fastq a parent, two
+    paternal files (in order), gzipped fasta, a paternal fasta the
+    native reader breaks on after forty records while the maternal
+    reader is open (only the paternal records are redone), no libhastio
+    (the python reader alone), and each parent's R1 and R2 as fastq.gz of
+    like size: at width 2 a file of each parent open at every turn, at
+    width 4 all four.  markers.overlapped_batches grows iff width > 1 and
+    a native reader reads; markers.open_readers over markers.turns reads
+    the files open at each turn, at most the width."""
     from hast_tpu_torch.io import native as N
     if case == "no_lib":
         monkeypatch.setattr(N, "get_lib", lambda: None)
     elif N.get_lib() is None:
         pytest.skip("libhastio.so unavailable")
     parents = _spill_inputs(tmp_path, case)
+    n_files = sum(len(files) for files in parents)
+    parent_of = {path: name for name, files in zip(PARENTS, parents)
+                 for path in files}
     k, bs, sb = 21, 2, 2
-    alone = []
-    for name, files in zip(PARENTS, parents):
-        spill = KC.PackedSpill(str(tmp_path / f"{name}.alone"), files, k,
+    alone = [_spilled_alone(tmp_path, files, k, bs, sb) for files in parents]
+    for name, files, want in zip(PARENTS, parents, alone):
+        spill = KC.PackedSpill(str(tmp_path / f"{name}.all.spill"), files, k,
                                bs, sb)
-        alone.append((_sha256(spill.path), spill.files))
-        records = [rec for recs in spill.files for rec in recs]
-        # every file's reads, its records back to back in file order
-        assert [sum(reads for rec in recs for _, reads in rec.batches)
-                for recs in spill.files] == [_n_records(f) for f in files]
-        assert [rec.offset for rec in records] == list(itertools.accumulate(
-            [0] + [rec.nbytes for rec in records[:-1]]))
-        assert os.path.getsize(spill.path) == sum(r.nbytes for r in records)
-        spill.remove()
+        try:
+            assert _spilled(spill) == want
+        finally:
+            spill.remove()
     appends: collections.Counter = collections.Counter()
     real = KC.PackedSpill._append
 
@@ -543,59 +610,97 @@ def test_spills_written_in_turn_are_those_written_alone(tmp_path,
         return real(f, staged, batches)
 
     monkeypatch.setattr(KC.PackedSpill, "_append", staticmethod(counted))
-    for width in (1, 2):
+    seen = _OpenFiles(monkeypatch)
+    names = ("markers.overlapped_batches", "markers.turns",
+             "markers.open_readers")
+    for width in (1, 2, 4):
         monkeypatch.setattr(C, "_reader_width", lambda n: min(n, width))
         appends.clear()
-        before = P.COUNTERS["markers.overlapped_batches"]
+        seen.turns.clear()
+        before = {n: P.COUNTERS[n] for n in names}
         spills = KC.PackedSpill.write_in_turn(
-            [(str(tmp_path / f"{name}.w{width}"), files)
+            [(str(tmp_path / f"{name}.w{width}.spill"), files)
              for name, files in zip(PARENTS, parents)],
-            k, bs, sb, C._reader_width(len(parents)))
+            k, bs, sb, C._reader_width(n_files))
         try:
-            assert [(_sha256(s.path), s.files) for s in spills] == alone
+            assert [_spilled(s) for s in spills] == alone
         finally:
             for s in spills:
                 s.remove()
-        grew = P.COUNTERS["markers.overlapped_batches"] - before
-        assert (grew > 0) == (width > 1 and case != "no_lib")
-        redone = {name: appends[f"{name}.w{width}"] > sum(
-            len(records) for records in s.files)
-            for name, s in zip(PARENTS, spills)}
-        assert redone == {"maternal": False, "paternal": case == "broken"}
-    assert not list(tmp_path.glob("*.w*"))
+        grew = {n: P.COUNTERS[n] - before[n] for n in names}
+        assert (grew["markers.overlapped_batches"] > 0) == \
+            (width > 1 and case != "no_lib")
+        assert grew["markers.turns"] == len(seen.turns)
+        assert grew["markers.open_readers"] == sum(map(len, seen.turns))
+        assert max(map(len, seen.turns)) == min(width, n_files)
+        if case == "paired":
+            assert {len(t) for t in seen.turns} == {width}
+            assert all({parent_of[path] for path in t} == set(PARENTS)
+                       for t in seen.turns) == (width > 1)
+        redone = {os.path.basename(part): appends[os.path.basename(part)]
+                  > len(records) for s in spills
+                  for part, records in zip(s.parts, s.files)}
+        assert redone == {f"{name}.w{width}.{i}.spill":
+                          case == "broken" and name == "paternal"
+                          for name, files in zip(PARENTS, parents)
+                          for i in range(len(files))}
+    assert not list(tmp_path.glob("*.spill"))
 
 
+def _paired(tmp_path: pathlib.Path) -> dict:
+    """Each golden parent's reads as R1 and R2, their first and second
+    half, fastq in one gzip member each."""
+    paired = {}
+    for p in PARENTS:
+        records = list(FQ.fasta_records(str(GOLD / f"{p}.reads.fa.gz")))
+        half = len(records) // 2
+        paired[p] = [_fastq_gz(tmp_path / f"{p}_1.fq.gz", records[:half]),
+                     _fastq_gz(tmp_path / f"{p}_2.fq.gz", records[half:])]
+    return paired
+
+
+@pytest.mark.parametrize("layout", ["one_file", "paired"])
 @pytest.mark.parametrize("n_parts", [2, 4])
 def test_device_engine_with_both_readers_open(tmp_path, golden_fastq,
-                                              monkeypatch, n_parts):
-    """The device engine in n_parts key-range passes, both parents'
-    readers open at once (width 2): the goldens and the one-pass run's
-    bytes, batches taken side by side, and each spill, as the step
-    removes it, the bytes of the parent's spill written alone."""
+                                              monkeypatch, n_parts, layout):
+    """The device engine in n_parts key-range passes, a reader a file,
+    readers open at once: each golden parent as one fastq at width 2, or
+    as its R1 and R2 fastq.gz at width 4.  The goldens, the one-pass
+    run's bytes (and, for R1 and R2, the width-1 run's files and parts),
+    batches taken side by side, and each part, as the step removes it,
+    the bytes of its file spilled alone."""
     fq, one_pass = golden_fastq
-    monkeypatch.setattr(C, "_reader_width", lambda n: min(n, 2))
+    files = ({p: [fq[p]] for p in PARENTS} if layout == "one_file"
+             else _paired(tmp_path))
     removed = {}
     real = KC.PackedSpill.remove
 
     def hashed(self):
-        if os.path.exists(self.path):
-            removed[os.path.basename(self.path)] = _sha256(self.path)
+        for part in self.parts:
+            if os.path.exists(part):
+                removed[os.path.basename(part)] = _sha256(part)
         real(self)
 
     monkeypatch.setattr(KC.PackedSpill, "remove", hashed)
+
+    def build(name: str, width: int) -> tuple:
+        monkeypatch.setattr(C, "_reader_width", lambda n: min(n, width))
+        removed.clear()
+        got = _build(tmp_path / name, files["paternal"], files["maternal"],
+                     n_parts, device="cpu")
+        return got, dict(removed)
+
     before = P.COUNTERS["markers.overlapped_batches"]
-    got = _build(tmp_path / "out", [fq["paternal"]], [fq["maternal"]],
-                 n_parts, device="cpu")
+    got, parts = build("out", 2 * len(files["paternal"]))
     assert P.COUNTERS["markers.overlapped_batches"] > before
     _assert_goldens(got)
     assert got == one_pass
-    alone = {}
-    for p in PARENTS:
-        spill = KC.PackedSpill(str(tmp_path / f"{p}.reads.spill"), [fq[p]],
-                               21, FQ.DEFAULT_BATCH)
-        alone[f"{p}.reads.spill"] = _sha256(spill.path)
-        spill.remove()
-    assert removed == alone
+    if layout == "paired":
+        assert build("width1", 1) == (got, parts)
+    alone = {f"{p}.reads.{i}.spill": sha
+             for p in PARENTS for i, (sha, _) in enumerate(_spilled_alone(
+                 tmp_path, files[p], 21, FQ.DEFAULT_BATCH))}
+    assert parts == alone
 
 
 @pytest.mark.cuda
@@ -713,14 +818,16 @@ def test_a_paired_gzipped_library_gives_the_jax_package_s_files(
                   3, device="cpu") == want
 
 
-@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("width", [1, 2, 4])
 def test_a_second_file_the_native_reader_breaks_on_keeps_the_first_s(
         tmp_path, monkeypatch, width):
     """A parent's R1 and R2 as fastq.gz, R2's read 1,281 of 9,000 bases
-    (past the native reader's cap): R2 goes to the python reader
-    partway, while the maternal lane is open too at width 2, and R1's
-    records and bytes in the spill are those of R1 spilled alone; a
-    full-range pass counts what count_batches counts over both files."""
+    (past the native reader's cap), and the other parent's two files: R2
+    goes to the python reader partway, at width 4 while R1 and both
+    maternal files are open, and only R2's records are redone; R1's part
+    and the maternal parts hold the records and bytes of each file
+    spilled alone.  A full-range pass counts what count_batches counts
+    over both paternal files."""
     from hast_tpu_torch.io import native as N
     if N.get_lib() is None:
         pytest.skip("libhastio.so unavailable")
@@ -731,10 +838,10 @@ def test_a_second_file_the_native_reader_breaks_on_keeps_the_first_s(
         rng.integers(0, 4, 9000)].tobytes()
     r2 = _fastq_gz(tmp_path / "pa_2.fq.gz", _n_reads(20 * bs, 23)
                    + [(b"long", long_read)] + _n_reads(bs, 24))
-    ma = _n_reads_fastq(tmp_path / "ma.fq", 25 * bs, 25)
-    alone = KC.PackedSpill(str(tmp_path / "alone.spill"), [r1], k, bs)
-    alone_bytes = pathlib.Path(alone.path).read_bytes()
-    alone.remove()
+    ma = [_n_reads_fastq(tmp_path / f"ma_{mate}.fq", 25 * bs, 25 + mate)
+          for mate in (1, 2)]
+    alone_r1 = _spilled_alone(tmp_path, [r1], k, bs)
+    alone_ma = _spilled_alone(tmp_path, ma, k, bs)
     appends: collections.Counter = collections.Counter()
     real = KC.PackedSpill._append
 
@@ -743,19 +850,22 @@ def test_a_second_file_the_native_reader_breaks_on_keeps_the_first_s(
         return real(f, staged, batches)
 
     monkeypatch.setattr(KC.PackedSpill, "_append", staticmethod(counted))
+    seen = _OpenFiles(monkeypatch)
     spills = KC.PackedSpill.write_in_turn(
         [(str(tmp_path / "pa.spill"), [r1, r2]),
-         (str(tmp_path / "ma.spill"), [ma])], k, bs, width=width)
+         (str(tmp_path / "ma.spill"), ma)], k, bs, width=width)
     pa = spills[0]
     try:
-        assert pa.files[0] == alone.files[0]
-        assert pathlib.Path(pa.path).read_bytes()[:len(alone_bytes)] == \
-            alone_bytes
+        assert _spilled(pa)[:1] == alone_r1
+        assert _spilled(spills[1]) == alone_ma
         assert [sum(reads for rec in recs for _, reads in rec.batches)
                 for recs in pa.files] == [30 * bs, 21 * bs + 1]
-        # R2's native records were written, then dropped
-        assert appends["pa.spill"] > sum(len(recs) for recs in pa.files)
-        assert appends["ma.spill"] == len(spills[1].files[0])
+        # R2's native records were written, then dropped; no other's were
+        assert appends["pa.1.spill"] > len(pa.files[1])
+        assert appends["pa.0.spill"] == len(pa.files[0])
+        assert [appends[f"ma.{i}.spill"] for i in (0, 1)] == \
+            [len(recs) for recs in spills[1].files]
+        assert max(map(len, seen.turns)) == width
         got = pa.count_pass((0, (1 << 64) - 1), device="cpu").fetch()
     finally:
         for s in spills:
@@ -765,3 +875,38 @@ def test_a_second_file_the_native_reader_breaks_on_keeps_the_first_s(
         device="cpu")
     np.testing.assert_array_equal(got.words, want.words)
     np.testing.assert_array_equal(got.counts, want.counts)
+    assert not list(tmp_path.glob("*.spill"))
+
+
+@pytest.mark.parametrize("width", [1, 4])
+def test_a_failed_write_removes_every_part_of_every_spill(tmp_path,
+                                                          monkeypatch, width):
+    """Both parents' R1 and R2 spilled a reader a file, and the third
+    append to paternal R2's part raises (a full disk, say): the error
+    reaches the caller, every reader is closed, and no part of either
+    spill is left, the maternal parts and paternal R1's included."""
+    files = {p: [_fastq_gz(tmp_path / f"{p}_{mate}.fq.gz",
+                           _n_reads(8 * 64, seed + mate))
+                 for mate in (1, 2)]
+             for p, seed in (("ma", 31), ("pa", 33))}
+    real = KC.PackedSpill._append
+    appends: collections.Counter = collections.Counter()
+
+    def failing(f, staged, batches):
+        name = os.path.basename(f.name)
+        appends[name] += 1
+        if name == "pa.1.spill" and appends[name] == 3:
+            raise OSError("simulated full disk")
+        return real(f, staged, batches)
+
+    monkeypatch.setattr(KC.PackedSpill, "_append", staticmethod(failing))
+    seen = _OpenFiles(monkeypatch)
+    with pytest.raises(OSError, match="simulated"):
+        KC.PackedSpill.write_in_turn(
+            [(str(tmp_path / "ma.spill"), files["ma"]),
+             (str(tmp_path / "pa.spill"), files["pa"])], 21, 64, 1,
+            width=width)
+    assert appends["ma.0.spill"] > 0 and appends["pa.0.spill"] > 0
+    assert len(seen.made) == 4 and not any(f.native for f in seen.made)
+    assert max(map(len, seen.turns)) == width
+    assert not list(tmp_path.glob("*.spill"))
