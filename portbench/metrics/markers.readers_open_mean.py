@@ -1,6 +1,7 @@
 """markers.readers_open_mean: how many input files the stage-00 reader
 kept open while it took its batches (``ops/kmer_count.py``
-``read_in_turn``, a parent a lane, a lane's files one after the other):
+``read_in_turn``, a lane a file, every input file of the job open at
+once up to the reader width):
 the growth of ``COUNTERS["markers.open_readers"]`` of
 ``hast_tpu_torch.utils.profiling`` (the files open at each turn that
 took a batch) over that of ``COUNTERS["markers.turns"]`` (those turns)

@@ -1,8 +1,8 @@
 """markers.reads_per_input_read: the stage-00 passes' re-reads
-(``pipeline/markers.py`` ``_markers_partitioned``: each parent read once
-a key-range pass in each of two sweeps, the maternal reads once more for
-the boundary sample): the reads the program's native readers handed
-over in the traced window's jobs, ``COUNTERS["io.reads"]`` of
+(``pipeline/markers.py`` ``_markers_partitioned``: 1.0 where each
+parent is read once a job into a spill and the key-range passes and the
+boundary sample read the spill): the reads the program's native readers
+handed over in the traced window's jobs, ``COUNTERS["io.reads"]`` of
 ``hast_tpu_torch.utils.profiling``, over the jobs' input reads (both
 parents' a job).  The count is taken by a wrapper around the job module's
 ``job`` for the traced window, so the reads of what runs after it are

@@ -48,8 +48,8 @@ def test_a_traced_tiny_run_reads_the_table_metrics(small, tmp_path,
     names = [m["name"] for m, _ in c.per_layer]
     assert {"classify.table_build_s", "classify.table_upload_s",
             "classify.k3_roofline", "classify.read_wait_share",
-            "classify.decide_write_ms",
-            "classify.device_idle_share"} == set(names)
+            "classify.decide_write_ms", "classify.device_idle_share",
+            "classify.reader_overlap_share"} == set(names)
     work = tmp_path / "work"
     work.mkdir()
     r = harness.run_cell(c, 3000000001, 0.5, True, "cpu", str(work),

@@ -98,8 +98,9 @@ def test_a_traced_cpu_run_reads_every_new_metric(tmp_path, monkeypatch,
                                                  workload):
     """A traced run of a tiny cell on the CPU (the session's CUDA calls
     stubbed): each new metric of the cell reads a value, the passes'
-    re-reads at the code's (2 x 4 + 1) / 2 with equal parents, and the
-    program's spans hold the most of the window."""
+    re-reads at 1.0 (each parent read once a job into a spill, the
+    passes and the sample reading the spills), and the program's spans
+    hold the most of the window."""
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "_sleep", lambda *a, **k: None)
     c = tiny.cell(tmp_path, workload)
@@ -124,7 +125,7 @@ def test_a_traced_cpu_run_reads_every_new_metric(tmp_path, monkeypatch,
         if n.endswith("read_wait_share"):
             assert 0 < m[n] < 1
     if workload == "markers-parts4":
-        assert m["markers.reads_per_input_read"] == 8.5
+        assert m["markers.reads_per_input_read"] == 1.0
         assert m["markers.sample_ms"] > 0
     run = seen["run"]
     assert PS.program_spans(run)
