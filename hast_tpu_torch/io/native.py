@@ -357,8 +357,14 @@ class NativeCountBatch:
 
 class NativeCountReader:
     """Counting-mode reader: decode, 2-bit pack and validity bitmask all
-    on the C++ threads.  Raises RuntimeError mid-iteration on truncation
-    or multi-line fasta; callers redo the file with the python reader."""
+    on the C++ threads.  Mid-iteration it raises :class:`ReadTooLong` on
+    a read longer than len_cap (the same file may open again under a
+    larger cap) and RuntimeError on multi-line fasta (only the python
+    reader takes it); the batch that holds either is not yielded.
+
+    The parse thread zeroes its staging rows at len_cap's stride before
+    every batch, whatever the reads' length: a cap just above the reads
+    keeps that fill small."""
 
     def __init__(self, path: str, batch_size: int = 1 << 14,
                  len_cap: int = 8192, fastq: bool = True):
@@ -372,6 +378,7 @@ class NativeCountReader:
             raise FileNotFoundError(path)
         count("io.reader_opens")
         self._bs = batch_size
+        self._len_cap = len_cap
         self._cap = ((len_cap + 127) // 128) * 128
 
     def __iter__(self):
@@ -390,9 +397,12 @@ class NativeCountReader:
                                                 ctypes.byref(max_len))
                 if n <= 0:
                     return
-                if lib.hastio_truncated(h) or lib.hastio_bad_fasta(h):
-                    raise RuntimeError("input needs the python reader "
-                                       "(long read or multi-line fasta)")
+                if lib.hastio_bad_fasta(h):
+                    raise RuntimeError("multi-line fasta needs the python "
+                                       "reader")
+                if lib.hastio_truncated(h):
+                    raise ReadTooLong(f"reads longer than len_cap "
+                                      f"{self._len_cap}")
                 sp = max_len.value // 4
                 sg = max_len.value // 8
                 batch = NativeCountBatch(

@@ -42,6 +42,7 @@ import dataclasses
 import functools
 import itertools
 import os
+import sys
 import threading
 from typing import Callable, Iterable
 
@@ -943,37 +944,60 @@ def _strided(items: Iterable, n_sample: int, scan_cap: int) -> list:
     return [x for i, x in zip(range(scan_cap), items) if i % stride == 0]
 
 
-def open_count_reader(path: str, batch_size: int = 1 << 14):
-    """The native counting reader of a fasta/fastq file, or None when it
-    cannot take the file (no library, unreadable or unknown format).
+# The native counting reader's read-length caps, tried in turn: a file
+# with a longer read is redone natively from its start under the next,
+# and one with a read past the last goes to the python reader.  The
+# reader's parse thread zeroes its staging rows at the cap's stride
+# before every batch, whatever the reads' length: at 8,192 that is 48
+# MiB a batch of 16,384 reads, 3,072 bytes a read.  256 first: every
+# short-read parental library HAST takes fits in it (2x100, 2x150,
+# 2x250).  8,192 for longer reads, at that fill.
+COUNT_LEN_CAPS = (256, 8192)
+
+
+def open_count_reader(path: str, batch_size: int = 1 << 14,
+                      len_cap: int = COUNT_LEN_CAPS[0]):
+    """The native counting reader of a fasta/fastq file at len_cap, or
+    None when it cannot take the file (no library, unreadable or unknown
+    format).
 
     Iterating it yields batches of packed reads, their ACGT masks and
-    lengths, decoded on its C++ threads; the caller closes it."""
+    lengths, decoded on its C++ threads; the caller closes it.  It
+    raises N.ReadTooLong on a read longer than len_cap, and
+    RuntimeError on multi-line fasta."""
     try:
         if N.get_lib() is None:
             return None
         fmt = FQ.detect_format(path)
-        return N.NativeCountReader(path, batch_size, fastq=(fmt == "fastq"))
+        return N.NativeCountReader(path, batch_size, len_cap,
+                                   fastq=(fmt == "fastq"))
     except (RuntimeError, FileNotFoundError, ValueError):
         return None
 
 
 class _ReaderBroke(Exception):
-    """The native counting reader stopped partway through a file (a read
-    beyond its length cap, multi-line fasta): the python reader redoes
-    the whole file."""
+    """The native counting reader stopped partway through a file
+    (multi-line fasta): the python reader redoes the whole file."""
+
+
+class _CapTooSmall(Exception):
+    """The native counting reader met a read beyond its length cap: the
+    next of COUNT_LEN_CAPS redoes the file natively, and past the last
+    the python reader does."""
 
 
 def _native_batches(reader):
     """The reader's batches.  Only the reader's own errors become
-    _ReaderBroke; an error of the caller's work between two batches (the
-    device's, say) propagates as it is."""
+    _CapTooSmall or _ReaderBroke; an error of the caller's work between
+    two batches (the device's, say) propagates as it is."""
     it = iter(reader)
     while True:
         try:
             batch = next(it)
         except StopIteration:
             return
+        except N.ReadTooLong as e:
+            raise _CapTooSmall(str(e)) from e
         except RuntimeError as e:
             raise _ReaderBroke(str(e)) from e
         yield batch
@@ -1009,36 +1033,44 @@ class _FileRead:
     The native counting reader takes the file when it can: its C++
     threads decode, 2-bit pack and build the ACGT mask, and a super
     batch whose bases are all ACGT (the common case) comes without its
-    mask (_stack_native).  When it cannot take the file, or breaks
-    partway (a read beyond its length cap, multi-line fasta), the python
-    reader's batches come instead, from the file's start
-    (_ascii_staged).  attempt() is called before each reading and
+    mask (_stack_native).  It opens at the first of COUNT_LEN_CAPS; a
+    read beyond the cap redoes the file natively from its start under
+    the next (``markers.cap_redos`` counts each), and the batches are
+    those any larger cap gives.  When the native reader cannot take the
+    file, meets a read beyond the last cap or breaks on multi-line
+    fasta, the python reader's batches come instead, from the file's
+    start (_ascii_staged).  attempt() is called before each reading and
     returns the take(staged, batches) that gets its super batches in
-    order; a second attempt means that what the first took is dropped.
+    order; a later attempt means that what the one before took is
+    dropped.
     """
 
     def __init__(self, path: str, k: int, attempt: Callable,
                  batch_size: int = 1 << 14, super_batch: int = 8):
         self.path, self._k, self._bs = path, k, batch_size
         self._attempt, self._super_batch = attempt, super_batch
-        self._pending: list = []
-        self._reader = open_count_reader(path, batch_size)
-        if self._reader is None:
-            self._read_python()
-        else:
-            self._take = attempt()
-            self._batches = _native_batches(self._reader)
+        self._reader = None
+        self._caps = iter(COUNT_LEN_CAPS)
+        self._open(next(self._caps))
 
     @property
     def native(self) -> bool:
         """Whether the native reader is reading the file."""
         return self._reader is not None
 
-    def _read_python(self) -> None:
+    def _open(self, cap: int | None) -> None:
+        """Read the file from its start: natively under cap, or by the
+        python reader when cap is None or the native reader cannot take
+        the file.  What an earlier reading took is dropped."""
         self.close()
+        self._cap = cap
+        if cap is not None:
+            self._reader = open_count_reader(self.path, self._bs, cap)
         self._pending = []
         self._take = self._attempt()
-        self._batches = FQ.sequence_batches(self.path, self._k, self._bs)
+        self._batches = (
+            FQ.sequence_batches(self.path, self._k, self._bs)
+            if self._reader is None else _native_batches(self._reader))
 
     def step(self) -> bool:
         """Take the file's next reader batch, and hand on the super batch
@@ -1046,8 +1078,17 @@ class _FileRead:
         handed on and its reader closed."""
         try:
             batch = next(self._batches, None)
+        except _CapTooSmall:
+            bigger = next(self._caps, None)
+            if bigger is not None:
+                print(f"[hast_tpu_torch] NOTE: {self.path} has reads longer "
+                      f"than {self._cap} bases; redoing it with len_cap "
+                      f"{bigger}", file=sys.stderr)
+                count("markers.cap_redos")
+            self._open(bigger)
+            return True
         except _ReaderBroke:
-            self._read_python()
+            self._open(None)
             return True
         if batch is not None:
             self._pending.append(batch)

@@ -15,7 +15,9 @@ both readers, its boundary sample against hast_tpu's over the ASCII
 reader, and on the card its device peak against re-reading the files;
 both parents' spills written a reader a file, their readers open at
 once, against each file spilled alone, and a failed write removing every
-part.  Exact comparisons throughout.
+part; the counting reader's ladder of length caps against the reader
+opened at 8,192, and the files it redoes natively or hands to the python
+reader.  Exact comparisons throughout.
 """
 
 import collections
@@ -876,6 +878,149 @@ def test_a_second_file_the_native_reader_breaks_on_keeps_the_first_s(
     np.testing.assert_array_equal(got.words, want.words)
     np.testing.assert_array_equal(got.counts, want.counts)
     assert not list(tmp_path.glob("*.spill"))
+
+
+# ---------------------------------------------------------------------------
+# the counting reader's ladder of length caps
+# ---------------------------------------------------------------------------
+
+
+def _caps_opened(monkeypatch) -> list:
+    """The len_cap of each native counting reader opened from now on."""
+    from hast_tpu_torch.io import native as N
+    opened = []
+    real = N.NativeCountReader
+
+    def recording(path, batch_size, len_cap, **kw):
+        opened.append(len_cap)
+        return real(path, batch_size, len_cap, **kw)
+
+    monkeypatch.setattr(N, "NativeCountReader", recording)
+    return opened
+
+
+@pytest.mark.parametrize("layout", ["fastq", "fastq_gz", "paired"])
+def test_spills_under_the_cap_ladder_are_those_at_8192(tmp_path, monkeypatch,
+                                                       libraries, layout):
+    """Both parents' 100-bp reads at 30X as one plain fastq, one fastq.gz
+    or R1 and R2 fastq.gz a parent, spilled a lane a file: every file
+    opens natively at the ladder's first cap and none is redone
+    (markers.cap_redos 0), and each part has the sha256 and records of
+    the part written with the reader opened at 8,192."""
+    from hast_tpu_torch.io import native as N
+    if N.get_lib() is None:
+        pytest.skip("libhastio.so unavailable")
+    plain, paired = libraries
+    files = {"fastq": plain, "paired": paired}.get(layout) or {
+        p: [str(tmp_path / f"{p}.fq.gz")] for p in PARENTS}
+    if layout == "fastq_gz":
+        for p in PARENTS:
+            pathlib.Path(files[p][0]).write_bytes(
+                gzip.compress(pathlib.Path(plain[p][0]).read_bytes()))
+    n_files = sum(map(len, files.values()))
+    opened = _caps_opened(monkeypatch)
+
+    def spilled(tag: str) -> list:
+        spills = KC.PackedSpill.write_in_turn(
+            [(str(tmp_path / f"{p}.{tag}.spill"), files[p])
+             for p in PARENTS], 21, 256, width=n_files)
+        try:
+            return [_spilled(s) for s in spills]
+        finally:
+            for s in spills:
+                s.remove()
+
+    redos = P.COUNTERS["markers.cap_redos"]
+    got = spilled("ladder")
+    assert P.COUNTERS["markers.cap_redos"] == redos
+    assert opened == [KC.COUNT_LEN_CAPS[0]] * n_files == [256] * n_files
+    opened.clear()
+    monkeypatch.setattr(KC, "COUNT_LEN_CAPS", (8192,))
+    assert spilled("8192") == got
+    assert opened == [8192] * n_files
+    assert not list(tmp_path.glob("*.spill"))
+
+
+def _long_read_input(tmp_path: pathlib.Path, case: str, bs: int) -> str:
+    """A file of a case: 20 batches of reads, then one of 300 or 9,000
+    bases, then a batch more, as fastq or fastq.gz; or a fasta whose
+    record 1,270 is over two lines."""
+    if case == "multiline_fasta":
+        return _fasta(tmp_path / "ml.fa", _n_reads(21 * bs, 41),
+                      split_at=20 * bs - 10)
+    fmt, length = case.rsplit("_", 1)
+    rng = np.random.default_rng(int(length))
+    long_read = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, int(length))].tobytes()
+    records = _n_reads(20 * bs, 41) + [(b"long", long_read)] + \
+        _n_reads(bs, 42)
+    write = _fastq_gz if fmt == "fastq_gz" else _fastq
+    return write(tmp_path / f"long.{fmt.replace('_', '.')}", records)
+
+
+@pytest.mark.parametrize("case,caps,python", [
+    ("fastq_300", (256, 8192), False),
+    ("fastq_gz_300", (256, 8192), False),
+    ("fastq_9000", (256, 8192), True),
+    ("multiline_fasta", (256,), True)])
+def test_a_read_past_a_cap_is_redone_at_the_next(tmp_path, monkeypatch,
+                                                 capsys, case, caps, python):
+    """A read past the first cap after twenty batches: the file is redone
+    natively from its start at 8,192 (one markers.cap_redos and a note),
+    its first records dropped, and a read of 300 bases never reaches the
+    python reader; one of 9,000 goes on to it, as multi-line fasta does
+    from the first cap with no redo.  Each spill has the sha256 and
+    records of the spill written with the reader opened at 8,192, and a
+    full-range pass counts what count_batches counts over the python
+    reader."""
+    from hast_tpu_torch.io import native as N
+    if N.get_lib() is None:
+        pytest.skip("libhastio.so unavailable")
+    k, bs = 21, 64
+    path = _long_read_input(tmp_path, case, bs)
+    want = KC.count_batches(FQ.sequence_batches(path, k, bs), k,
+                            device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(KC, "COUNT_LEN_CAPS", (8192,))
+        spill = KC.PackedSpill(str(tmp_path / "at8192.spill"), [path], k, bs)
+        at_8192 = _spilled(spill)
+        spill.remove()
+    capsys.readouterr()
+    opened = _caps_opened(monkeypatch)
+    natives, python_opens = [], []
+    step, batches = KC._FileRead.step, FQ.sequence_batches
+
+    def stepped(f):
+        took = step(f)
+        if took:
+            natives.append(f.native)
+        return took
+
+    def python_reader(*args, **kw):
+        python_opens.append(args[0])
+        return batches(*args, **kw)
+
+    monkeypatch.setattr(KC._FileRead, "step", stepped)
+    monkeypatch.setattr(FQ, "sequence_batches", python_reader)
+    redos = P.COUNTERS["markers.cap_redos"]
+    spill = KC.PackedSpill(str(tmp_path / "ladder.spill"), [path], k, bs)
+    try:
+        assert _spilled(spill) == at_8192
+        assert sum(reads for recs in spill.files for rec in recs
+                   for _, reads in rec.batches) == 21 * bs + (
+                       case != "multiline_fasta")
+        got = spill.count_pass((0, (1 << 64) - 1), device="cpu").fetch()
+    finally:
+        spill.remove()
+    assert tuple(opened) == caps
+    assert P.COUNTERS["markers.cap_redos"] - redos == len(caps) - 1
+    assert bool(python_opens) == python
+    assert all(natives) == (not python)
+    assert ("has reads longer than 256 bases; redoing it with len_cap "
+            "8192" in capsys.readouterr().err) == (len(caps) > 1)
+    np.testing.assert_array_equal(got.words, want.words)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert want.total > 20 * bs
 
 
 @pytest.mark.parametrize("width", [1, 4])
